@@ -1,0 +1,18 @@
+"""gsl_tpu_torch: the PyTorch + CUDA port of gsl_tpu, for NVIDIA Hopper.
+
+Same layout as ``gsl_tpu``, PyTorch idiom inside:
+
+- ``ops``       projection, spherical harmonics, the tile rasterizer (CUDA
+                kernels under ``csrc/`` with plain PyTorch versions beside).
+- ``models``    Gaussian parameters and the alive mask, as tensors.
+- ``renderers`` ``TileRenderer``: camera -> image.
+- ``data``      cameras.
+- ``utils``     PLY I/O, model loading, visualizers, JAX -> torch state.
+- ``viewer``    ``ViewerRenderer`` and camera paths.
+- ``render``    ``python -m gsl_tpu_torch.render`` video frames.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+Nothing here imports JAX or the ``gsl_tpu`` package.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,174 @@
+"""Primary renderer: project -> SH colors -> rasterize.
+
+Port of ``gsl_tpu/renderers/tile_renderer.py`` for serving. Depth, inverse
+depth and normals ride the same rasterize pass as extra composited
+channels next to rgb; hard inverse depth is a second pass with opacities
+pushed to 1. The output is always the reference's exact mode (exact
+(tile, depth) order, f32 payload).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import FrozenSet, NamedTuple, Optional
+
+import torch
+
+from ..data.cameras import Cameras
+from ..models.gaussian import GaussianState
+from ..ops.projection import Projections, project_gaussians
+from ..ops.rasterize import rasterize
+from ..ops.sh import sh_to_rgb
+from ..ops.transforms import normalize_quat, quat_to_rotmat
+from .renderer import RendererOutputInfo, RendererOutputType
+
+
+class RenderOutputs(NamedTuple):
+    """All images HWC / HW. Only requested keys are non-None."""
+
+    render: torch.Tensor                       # [H, W, 3]
+    alpha: Optional[torch.Tensor]              # [H, W]
+    acc_depth: Optional[torch.Tensor]          # [H, W] alpha-blended z
+    exp_depth: Optional[torch.Tensor]          # [H, W] acc_depth / alpha
+    inverse_depth: Optional[torch.Tensor]      # [H, W] blended 1/z
+    hard_inverse_depth: Optional[torch.Tensor]  # [H, W]
+    normal: Optional[torch.Tensor]             # [H, W, 3] world normals
+    projections: Projections
+    radii: torch.Tensor                        # [N] int32
+    n_isects: int
+    n_dropped: int
+
+
+@dataclasses.dataclass
+class TileRendererConfig:
+    tile_size: int = 16
+    anti_aliased: bool = True
+    filter_2d_kernel_size: float = 0.3
+    tile_based_culling: bool = True    # peak-alpha tile cull: drops only
+                                       # slots whose peak alpha over the tile
+                                       # is below the 1/255 threshold
+    stp_resort: bool = False           # StopThePop per-tile depth keys: not
+                                       # ported yet (ROADMAP.md)
+
+    def instantiate(self) -> "TileRenderer":
+        return TileRenderer(self)
+
+
+class TileRenderer:
+    def __init__(self, config: TileRendererConfig):
+        if config.stp_resort:
+            raise NotImplementedError(
+                "stp_resort is not ported yet: StopThePop is queued in "
+                "ROADMAP.md")
+        self.config = config
+
+    def get_opacities(self, gaussians: GaussianState, proj: Projections):
+        op = gaussians.get_opacities()
+        if self.config.anti_aliased:
+            op = op * proj.compensations
+        return op
+
+    def get_rgbs(self, gaussians: GaussianState, camera: Cameras,
+                 sh_degree: int):
+        viewdirs = gaussians.get_means().detach() - camera.camera_center
+        rgbs = sh_to_rgb(gaussians.get_shs(), viewdirs, sh_degree)
+        return torch.clamp(rgbs + 0.5, min=0.0)
+
+    def forward(
+        self,
+        gaussians: GaussianState,
+        camera: Cameras,
+        img_height: int,
+        img_width: int,
+        bg_color: torch.Tensor,            # [3]
+        sh_degree: int,
+        render_types: FrozenSet[str] = frozenset({"rgb"}),
+        scaling_modifier: float = 1.0,
+    ) -> RenderOutputs:
+        cfg = self.config
+        proj = project_gaussians(
+            gaussians.get_means(), gaussians.get_scales() * scaling_modifier,
+            gaussians.get_rotations(), camera.world_to_camera, camera.fx,
+            camera.fy, camera.cx, camera.cy, img_width, img_height,
+            filter_2d=cfg.filter_2d_kernel_size)
+        opacities = self.get_opacities(gaussians, proj)
+        rgbs = self.get_rgbs(gaussians, camera, sh_degree)
+
+        # extra composited channels next to rgb
+        channels = [rgbs]
+        bg = [bg_color.to(rgbs)]
+        idx = {}
+        c = 3
+        if {"alpha", "acc_depth", "exp_depth"} & render_types:
+            channels.append(proj.depths[:, None])
+            idx["acc_depth"] = c
+            c += 1
+        if "inverse_depth" in render_types:
+            channels.append(1.0 / torch.clamp(proj.depths[:, None], min=1e-8))
+            idx["inverse_depth"] = c
+            c += 1
+        if "normal" in render_types:
+            # per-gaussian normal = local z axis (third rotation column),
+            # flipped to face the camera
+            normals = quat_to_rotmat(
+                normalize_quat(gaussians.get_rotations()))[:, :, 2]
+            dirs = gaussians.get_means().detach() - camera.camera_center
+            away = torch.sum(normals * dirs, dim=-1) > 0.0
+            normals = normals * torch.where(away, -1.0, 1.0)[:, None]
+            channels.append(normals)
+            idx["normal"] = c
+            c += 3
+        ch = torch.cat(channels, dim=-1)
+        bg.append(torch.zeros(c - 3, dtype=rgbs.dtype, device=rgbs.device))
+        bgv = torch.cat(bg)
+
+        img_nobg, alpha, aux = rasterize(
+            proj, opacities, ch, img_height, img_width, cfg.tile_size,
+            cfg.tile_based_culling)
+        img = img_nobg + aux.t_final[..., None] * bgv
+
+        hard_inv = None
+        if "hard_inverse_depth" in render_types:
+            # hard blending: every visible splat fully opaque (the
+            # detach keeps the later training slice's straight-through
+            # gradient of the reference)
+            hard_op = opacities + (1.0 - opacities).detach()
+            hard_op = hard_op * (opacities > 0.0)
+            inv_d = 1.0 / torch.clamp(proj.depths[:, None], min=1e-8)
+            hd_img, _, _ = rasterize(
+                proj, hard_op, inv_d, img_height, img_width, cfg.tile_size,
+                cfg.tile_based_culling)
+            hard_inv = hd_img[..., 0]
+
+        acc_depth = img[..., idx["acc_depth"]] if "acc_depth" in idx else None
+        exp_depth = None
+        if acc_depth is not None and "exp_depth" in render_types:
+            exp_depth = acc_depth / torch.clamp(alpha, min=1e-8)
+        return RenderOutputs(
+            render=img[..., :3],
+            alpha=alpha if "alpha" in render_types else None,
+            acc_depth=acc_depth,
+            exp_depth=exp_depth,
+            inverse_depth=(img[..., idx["inverse_depth"]]
+                           if "inverse_depth" in idx else None),
+            hard_inverse_depth=hard_inv,
+            normal=(img[..., idx["normal"]:idx["normal"] + 3]
+                    if "normal" in idx else None),
+            projections=proj,
+            radii=proj.radii,
+            n_isects=aux.n_isects,
+            n_dropped=aux.n_dropped,
+        )
+
+    def get_available_outputs(self):
+        gray = RendererOutputType.GRAY
+        return {
+            "rgb": RendererOutputInfo("render", RendererOutputType.RGB),
+            "alpha": RendererOutputInfo("alpha", gray),
+            "acc_depth": RendererOutputInfo("acc_depth", gray),
+            "exp_depth": RendererOutputInfo("exp_depth", gray),
+            "inverse_depth": RendererOutputInfo("inverse_depth", gray),
+            "hard_inverse_depth": RendererOutputInfo("hard_inverse_depth",
+                                                     gray),
+            "normal": RendererOutputInfo("normal",
+                                         RendererOutputType.NORMAL_MAP),
+        }

@@ -1,0 +1,98 @@
+"""Rules of the gsl_tpu_torch package: no JAX and nothing of gsl_tpu in
+it, the card by default, chip_smoke.py refuses to run without a card."""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gsl_tpu")
+
+
+def _port_sources():
+    files = sorted((REPO / "gsl_tpu_torch").rglob("*.py"))
+    assert len(files) > 10
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = sorted(
+        "gsl_tpu_torch." + ".".join(p.relative_to(REPO / "gsl_tpu_torch")
+                                    .with_suffix("").parts)
+        for p in (REPO / "gsl_tpu_torch").rglob("*.py")
+        if p.name != "__init__.py")
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device works")
+    from gsl_tpu_torch.data.cameras import make_camera
+    from gsl_tpu_torch.render import main
+    from gsl_tpu_torch.utils.convert import state_from_raw_arrays
+    from gsl_tpu_torch.utils.ply import save_state_ply
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_camera(R=[[1, 0, 0], [0, 1, 0], [0, 0, 1]], T=[0, 0, 0],
+                    fx=1.0, fy=1.0, cx=0.0, cy=0.0, width=4, height=4)
+    ply = tmp_path / "m.ply"
+    arrays = dict(means=np.zeros((2, 3)), scales=np.zeros((2, 3)),
+                  rotations=np.tile([1.0, 0, 0, 0], (2, 1)),
+                  opacities=np.zeros((2, 1)), shs_dc=np.zeros((2, 1, 3)),
+                  shs_rest=np.zeros((2, 0, 3)))
+    save_state_ply(str(ply), state_from_raw_arrays(arrays, device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([str(ply), "--n_frames", "1", "--size", "8", "--output",
+              str(tmp_path / "out")])
+
+
+def _run_chip_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_chip_smoke_refuses_a_host_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    r = _run_chip_smoke(REPO)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_fails_without_the_package(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = _run_chip_smoke(tmp_path)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
