@@ -2,10 +2,13 @@
 
 Same layout as ``gsl_tpu``, PyTorch idiom inside:
 
-- ``ops``       projection, spherical harmonics, the tile rasterizer (CUDA
-                kernels under ``csrc/`` with plain PyTorch versions beside).
-- ``models``    Gaussian parameters and the alive mask, as tensors.
+- ``ops``       projection, spherical harmonics, the tile rasterizer and
+                its gradient (CUDA kernels under ``csrc/`` with plain
+                PyTorch versions beside), SSIM, nearest neighbours.
+- ``models``    Gaussian parameters and the alive mask, as tensors;
+                initialization and capacity growth.
 - ``renderers`` ``TileRenderer``: camera -> image.
+- ``training``  loss, per-property Adam, density control, ``Trainer``.
 - ``data``      cameras.
 - ``utils``     PLY I/O, model loading, visualizers, JAX -> torch state.
 - ``viewer``    ``ViewerRenderer`` and camera paths.

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("expand", "rasterize_fwd")
+SOURCES = ("expand", "rasterize_fwd", "rasterize_bwd", "reduce_grads")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # expand.cu must round exactly as PyTorch's elementwise ops do (its plain

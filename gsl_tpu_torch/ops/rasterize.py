@@ -1,9 +1,11 @@
-"""Tile rasterizer, forward: expand -> sort -> tile ranges -> composite.
+"""Tile rasterizer: expand -> sort -> tile ranges -> composite, and its
+gradient.
 
-Port of the forward half of ``gsl_tpu/ops/rasterize_pallas.py``
-(``isect_encode_padded``, ``_expand_sorted``, ``_build_schedule``,
-``_fwd_impl``, ``_tiles_to_image``) in its exact mode (``fast=False``,
-``exact_sort=True``), with the same outputs:
+Port of ``gsl_tpu/ops/rasterize_pallas.py`` (``isect_encode_padded``,
+``_expand_sorted``, ``_build_schedule``, ``_fwd_impl``, ``_tiles_to_image``
+and the custom VJP ``_rasterize_bwd`` with ``_rasterize_bwd_raw`` and
+``_reduce_by_gid``) in its exact mode (``fast=False``, ``exact_sort=True``),
+with the same outputs:
 
 1. `isect_encode`: per-Gaussian tile rectangles and int64 slot offsets
    (every Gaussian gets ``max(hits, 1)`` slots; a culled one keeps one
@@ -18,11 +20,17 @@ Port of the forward half of ``gsl_tpu/ops/rasterize_pallas.py``
 4. `tile_bounds`: tile t owns sorted positions [b[t], b[t+1]).
 5. `rasterize_fwd` (kernel K2, ``csrc/rasterize_fwd.cu``): per-tile front
    to back compositing; the payload is gathered by Gaussian id.
+6. `rasterize_bwd` (kernel K3, ``csrc/rasterize_bwd.cu``): each tile's list
+   walked back from the pixels' stops; one gradient row per sorted slot.
+7. `reduce_grads` (kernel K4, ``csrc/reduce_grads.cu``): the rows summed
+   per Gaussian, with the absolute mean-gradient columns of AbsGS.
+
+`rasterize` ties them into one differentiable op (`_Rasterize`).
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors, or raises,
 and runs its plain PyTorch version (``expand_plain``,
-``rasterize_fwd_plain``) for CPU tensors. ``<wrapper>.launches`` counts
-the kernel launches.
+``rasterize_fwd_plain``, ``rasterize_bwd_plain``, ``reduce_grads_plain``)
+for CPU tensors. ``<wrapper>.launches`` counts the kernel launches.
 """
 from __future__ import annotations
 
@@ -38,8 +46,9 @@ from .rasterize_reference import (ALPHA_THRESHOLD, MAX_ALPHA,
 
 NEVER_STOPPED = 2 ** 30     # i_stop of a pixel that never stopped
 INVALID_KEY = torch.iinfo(torch.int64).max
-PLAIN_TILE_GROUP = 4096     # rasterize_fwd_plain: tiles per group
-PLAIN_CHUNK = 64            # rasterize_fwd_plain: slots gathered at a time
+PLAIN_TILE_GROUP = 4096     # plain forward/backward: tiles per group
+PLAIN_CHUNK = 64            # plain forward/backward: slots gathered at a time
+MIN_ONE_MINUS_ALPHA = 1e-3  # backward: floor of 1 - alpha under the carry
 
 
 class Isects(NamedTuple):
@@ -54,7 +63,7 @@ class Isects(NamedTuple):
 class RasterAux(NamedTuple):
     n_isects: int             # tile intersections before culling
     n_dropped: int            # always 0: buffers are sized to the total
-    t_final: torch.Tensor     # [H, W] final transmittance
+    t_final: torch.Tensor     # [H, W] final transmittance (no gradient)
     i_stop: torch.Tensor      # [H, W] int32 sorted position of the stop
 
 
@@ -186,9 +195,18 @@ expand.launches = 0
 
 
 def sort_slots(keys, gids):
-    """Stable sort by key -> (sorted keys, Gaussian ids in that order)."""
+    """Stable sort by key -> (sorted keys, Gaussian ids in that order,
+    order [total] int64: the slot at each sorted position)."""
     sorted_keys, order = torch.sort(keys, stable=True)
-    return sorted_keys, gids[order]
+    return sorted_keys, gids[order], order
+
+
+def invert_order(order):
+    """[total] int32: the sorted position of each slot."""
+    inv = torch.empty(order.numel(), dtype=torch.int32, device=order.device)
+    inv[order] = torch.arange(order.numel(), dtype=torch.int32,
+                              device=order.device)
+    return inv
 
 
 def tile_bounds(sorted_keys, n_tiles: int):
@@ -324,29 +342,288 @@ def rasterize_fwd(means2d, conics, opacities, channels, gids, bounds,
 rasterize_fwd.launches = 0
 
 
+def _image_to_tiles(x, tiles_x: int, tiles_y: int, tile_size: int):
+    """[H, W, K] -> [n_tiles, P, K], zero-padded to whole tiles."""
+    h, w, k = x.shape
+    x = torch.nn.functional.pad(
+        x, (0, 0, 0, tiles_x * tile_size - w, 0, tiles_y * tile_size - h))
+    x = x.reshape(tiles_y, tile_size, tiles_x, tile_size, k)
+    return x.permute(0, 2, 1, 3, 4).reshape(tiles_x * tiles_y,
+                                            tile_size * tile_size, k)
+
+
+def rasterize_bwd_plain(means2d, conics, opacities, channels, gids, bounds,
+                        g_out, g_alpha, t_final, i_stop, tile_size: int,
+                        stats: dict | None = None):
+    """Plain PyTorch version of kernel K3, the same arithmetic per
+    (pixel, splat) pair. g_out [H, W, C] and g_alpha [H, W] are the
+    cotangents of the composited channels and of alpha; t_final and i_stop
+    are the forward's. Returns rows [n_valid, 6 + C]: per sorted position
+    the sums over its tile's pixels of d/d(mean x, mean y, conic a, b, c,
+    opacity, channels); `gids` may run past the valid slots, whose rows
+    stay zero. With `stats`, leaves the count of composited
+    (pixel, splat) pairs in ``stats["composited_pairs"]``."""
+    dev = means2d.device
+    img_height, img_width, C = g_out.shape
+    tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
+    n_tiles = tiles_x * tiles_y
+    P = tile_size * tile_size
+    rows = torch.zeros((gids.numel(), 6 + C), dtype=torch.float32,
+                       device=dev)
+    gt = _image_to_tiles(g_out, tiles_x, tiles_y, tile_size)
+    ga = _image_to_tiles(g_alpha[..., None], tiles_x, tiles_y,
+                         tile_size)[..., 0]
+    tf = _image_to_tiles(t_final[..., None], tiles_x, tiles_y,
+                         tile_size)[..., 0]
+    # padding pixels get stop 0: no position lies before it
+    stops = _image_to_tiles(i_stop[..., None].to(torch.int64), tiles_x,
+                            tiles_y, tile_size)[..., 0]
+    p = torch.arange(P, device=dev)
+    lane = torch.arange(PLAIN_CHUNK, device=dev)
+    n_comp = torch.zeros((), dtype=torch.int64, device=dev)
+    for t0 in range(0, n_tiles, PLAIN_TILE_GROUP):
+        tl = torch.arange(t0, min(t0 + PLAIN_TILE_GROUP, n_tiles),
+                          device=dev)
+        px = ((tl % tiles_x)[:, None] * tile_size + p % tile_size
+              ).to(torch.float32) + 0.5                       # [G, P]
+        py = ((tl // tiles_x)[:, None] * tile_size + p // tile_size
+              ).to(torch.float32) + 0.5
+        st, end = bounds[tl], bounds[tl + 1]
+        stop, g_pix = stops[tl], gt[tl]                   # [G, P], [G, P, C]
+        # nothing at or behind the largest stop of a tile was composited
+        last = torch.minimum(end, stop.max(dim=1).values)
+        cnt = torch.clamp(last - st, min=0)
+        T = tf[tl]
+        S = -T * ga[tl]
+        max_cnt = int(cnt.max()) if len(tl) else 0
+        for k0 in reversed(range(0, max_cnt, PLAIN_CHUNK)):
+            pos = st[:, None] + k0 + lane                     # [G, K]
+            in_rng = (k0 + lane)[None, :] < cnt[:, None]
+            g = gids[torch.where(in_rng, pos, 0)].long()
+            mx, my = means2d[g, 0], means2d[g, 1]
+            ca_, cb_, cc_ = conics[g, 0], conics[g, 1], conics[g, 2]
+            op, col = opacities[g], channels[g]               # [G,K], [G,K,C]
+            part = torch.zeros((len(tl), PLAIN_CHUNK, 6 + C),
+                               dtype=torch.float32, device=dev)
+            for j in reversed(range(PLAIN_CHUNK)):
+                ca, cb, cc = (ca_[:, j:j + 1], cb_[:, j:j + 1],
+                              cc_[:, j:j + 1])
+                dx = mx[:, j:j + 1] - px
+                dy = my[:, j:j + 1] - py
+                sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+                e = torch.exp(-sigma)
+                raw = op[:, j:j + 1] * e
+                alpha = torch.clamp(raw, max=MAX_ALPHA)
+                comp = (in_rng[:, j:j + 1] & (pos[:, j:j + 1] < stop)
+                        & (sigma >= 0.0) & (alpha >= ALPHA_THRESHOLD))
+                zero = torch.zeros_like(T)
+                a = torch.where(comp, alpha, zero)
+                one_minus = 1.0 - a
+                t_exc = T / one_minus
+                cg = (g_pix * col[:, j, None, :]).sum(-1)         # [G, P]
+                dalpha = torch.where(
+                    comp, t_exc * cg - S / torch.clamp(
+                        one_minus, min=MIN_ONE_MINUS_ALPHA), zero)
+                w = a * t_exc
+                S = S + w * cg
+                T = t_exc
+                unclamped = raw < MAX_ALPHA
+                dsigma = torch.where(unclamped, -a * dalpha, zero)
+                dop = torch.where(unclamped & comp, dalpha * e, zero)
+                gx = ca * dx + cb * dy
+                gy = cc * dy + cb * dx
+                geom = torch.stack(
+                    [dsigma * gx, dsigma * gy, dsigma * 0.5 * dx * dx,
+                     dsigma * dx * dy, dsigma * 0.5 * dy * dy, dop], -1)
+                part[:, j, :6] = geom.sum(1)
+                part[:, j, 6:] = (w[..., None] * g_pix).sum(1)
+                n_comp += comp.sum()
+            rows[pos[in_rng]] = part[in_rng]
+    if stats is not None:
+        stats["composited_pairs"] = int(n_comp)
+    return rows
+
+
+def _bwd_lib():
+    lib = cuda_build.load("rasterize_bwd")
+    lib.gsl_rasterize_bwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6)
+    lib.gsl_rasterize_bwd.restype = ctypes.c_int
+    return lib
+
+
+def rasterize_bwd(means2d, conics, opacities, channels, gids, bounds,
+                  g_out, g_alpha, t_final, i_stop, tile_size: int = 16):
+    """Kernel K3 on CUDA tensors, `rasterize_bwd_plain` on CPU tensors: one
+    launch for any channel count. Returns rows [len(gids), 6 + C]."""
+    if not means2d.is_cuda:
+        return rasterize_bwd_plain(means2d, conics, opacities, channels,
+                                   gids, bounds, g_out, g_alpha, t_final,
+                                   i_stop, tile_size)
+    f32 = [means2d, conics, opacities, channels, g_out, g_alpha, t_final]
+    if any(t.dtype != torch.float32 for t in f32):
+        raise TypeError("rasterize_bwd: means2d, conics, opacities, "
+                        "channels, g_out, g_alpha and t_final must be "
+                        "float32")
+    if (gids.dtype != torch.int32 or bounds.dtype != torch.int64
+            or i_stop.dtype != torch.int32):
+        raise TypeError("rasterize_bwd: gids and i_stop must be int32, "
+                        "bounds int64")
+    if (tile_size * tile_size) % 32:
+        raise ValueError("rasterize_bwd: tile_size^2 must be a multiple of "
+                         "32 (whole warps)")
+    dev = _check_cuda("rasterize_bwd", *f32, gids, bounds, i_stop)
+    img_height, img_width, C = g_out.shape
+    if channels.shape[1] != C or t_final.shape != (img_height, img_width):
+        raise ValueError("rasterize_bwd: cotangent shapes do not match the "
+                         "forward's")
+    tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
+    # zeroed: the kernel writes only positions before a tile's largest stop
+    rows = torch.zeros((gids.numel(), 6 + C), dtype=torch.float32,
+                       device=dev)
+    lib = _bwd_lib()
+    code = lib.gsl_rasterize_bwd(
+        _ptr(means2d), _ptr(conics), _ptr(opacities), _ptr(channels), C,
+        _ptr(gids), _ptr(bounds), tiles_x * tiles_y, tiles_x, tile_size,
+        img_height, img_width, _ptr(g_out), _ptr(g_alpha), _ptr(t_final),
+        _ptr(i_stop), _ptr(rows), _stream(dev))
+    cuda_build.check(lib, code, "rasterize_bwd")
+    rasterize_bwd.launches += 1
+    return rows
+
+
+rasterize_bwd.launches = 0
+
+
+def reduce_grads_plain(rows, gids, n: int):
+    """Plain PyTorch version of kernel K4: `index_add_` of the rows, and of
+    the absolute values of their first two columns, by Gaussian id.
+    rows [n_rows, 6 + C], gids [n_rows] -> [n, 8 + C] with columns
+    dmx dmy da db dc dop |dmx| |dmy| channels. Rows of invalid slots
+    (sorted behind the valid ones) are zero, as `rasterize_bwd` leaves
+    them, and add nothing."""
+    full = torch.cat([rows[:, :6], rows[:, :2].abs(), rows[:, 6:]], 1)
+    out = torch.zeros((n, full.shape[1]), dtype=rows.dtype,
+                      device=rows.device)
+    return out.index_add_(0, gids.long(), full)
+
+
+def _reduce_lib():
+    lib = cuda_build.load("reduce_grads")
+    lib.gsl_reduce_grads.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.gsl_reduce_grads.restype = ctypes.c_int
+    return lib
+
+
+def reduce_grads(rows, gids, offsets, inv_order, n_valid, n: int):
+    """Kernel K4 on CUDA tensors, `reduce_grads_plain` on CPU tensors.
+    rows [n_rows, 6 + C] per sorted position, zero behind the valid ones;
+    gids [n_rows] the sorted ids (the plain version's index); offsets [n]
+    int64 each Gaussian's first slot; inv_order [total] int32 each slot's
+    sorted position; n_valid [1] int64 on the device (``bounds[-1:]``), so
+    no host read is needed. Returns [n, 8 + C]."""
+    if not rows.is_cuda:
+        return reduce_grads_plain(rows, gids, n)
+    if (rows.dtype != torch.float32 or offsets.dtype != torch.int64
+            or inv_order.dtype != torch.int32
+            or n_valid.dtype != torch.int64):
+        raise TypeError("reduce_grads: rows must be float32, offsets and "
+                        "n_valid int64, inv_order int32")
+    if offsets.numel() != n or rows.shape[0] > inv_order.numel():
+        raise ValueError("reduce_grads: offsets must have one entry per "
+                         "Gaussian and inv_order one per slot")
+    dev = _check_cuda("reduce_grads", rows, offsets, inv_order, n_valid)
+    out = torch.empty((n, rows.shape[1] + 2), dtype=torch.float32,
+                      device=dev)
+    lib = _reduce_lib()
+    code = lib.gsl_reduce_grads(
+        _ptr(rows), rows.shape[1], _ptr(offsets), inv_order.numel(),
+        _ptr(inv_order), _ptr(n_valid), n, _ptr(out), _stream(dev))
+    cuda_build.check(lib, code, "reduce_grads")
+    if n:
+        reduce_grads.launches += 1
+    return out
+
+
+reduce_grads.launches = 0
+
+
+class _Rasterize(torch.autograd.Function):
+    """expand -> sort -> ranges -> K2 with K3 + K4 as its gradient.
+
+    Differentiable inputs: means2d, conics, opacities, channels and
+    absgrad_tap [N, 2], whose "gradient" is the AbsGS statistic (the sum
+    over tiles of |per-(tile, Gaussian) mean gradient|), as in
+    ``rasterize_pallas``. depths and radii only order and place the splats
+    and carry no gradient. `info` is filled with n_isects, t_final and
+    i_stop."""
+
+    @staticmethod
+    def forward(ctx, means2d, conics, opacities, channels, absgrad_tap,
+                depths, radii, img_height, img_width, tile_size,
+                tile_based_culling, info):
+        tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
+        means2d = means2d.contiguous()
+        conics = conics.contiguous()
+        opacities = opacities.contiguous()
+        channels = channels.contiguous()
+        proj = Projections(means2d=means2d, depths=depths, radii=radii,
+                           conics=conics, compensations=None, mask=None)
+        isects = isect_encode(proj, img_height, img_width, tile_size)
+        keys, gids = expand(isects, means2d, conics, opacities,
+                            depths.contiguous(), tiles_x, tiles_y,
+                            tile_size, tile_based_culling)
+        sorted_keys, gids_sorted, order = sort_slots(keys, gids)
+        bounds = tile_bounds(sorted_keys, tiles_x * tiles_y)
+        out, t_fin, i_stop = rasterize_fwd(
+            means2d, conics, opacities, channels, gids_sorted, bounds,
+            img_height, img_width, tile_size)
+        info.update(n_isects=isects.n_isects, t_final=t_fin, i_stop=i_stop)
+        ctx.save_for_backward(means2d, conics, opacities, channels,
+                              gids_sorted, bounds, t_fin, i_stop, order,
+                              isects.offsets)
+        ctx.tile_size = tile_size
+        return out, 1.0 - t_fin
+
+    @staticmethod
+    def backward(ctx, g_out, g_alpha):
+        (means2d, conics, opacities, channels, gids_sorted, bounds, t_fin,
+         i_stop, order, offsets) = ctx.saved_tensors
+        n = means2d.shape[0]
+        # invalid keys sort last: the valid slots are the first bounds[-1],
+        # and the rows behind them stay zero
+        rows = rasterize_bwd(means2d, conics, opacities, channels,
+                             gids_sorted, bounds, g_out.contiguous(),
+                             g_alpha.contiguous(), t_fin, i_stop,
+                             ctx.tile_size)
+        summed = reduce_grads(rows, gids_sorted, offsets,
+                              invert_order(order), bounds[-1:], n)
+        return (summed[:, 0:2], summed[:, 2:5], summed[:, 5],
+                summed[:, 8:], summed[:, 6:8]) + (None,) * 7
+
+
 def rasterize(projections: Projections, opacities, channels,
               img_height: int, img_width: int, tile_size: int = 16,
-              tile_based_culling: bool = True):
-    """Rasterize projected splats front to back.
+              tile_based_culling: bool = True, absgrad_tap=None):
+    """Rasterize projected splats front to back; differentiable in
+    projections.means2d, projections.conics, opacities and channels.
 
     projections supplies means2d, conics, depths (sort key) and radii (tile
-    rectangles); opacities [N]; channels [N, C] with any C.
+    rectangles); opacities [N]; channels [N, C] with any C. The gradient
+    that arrives at `absgrad_tap` ([N, 2] zeros) is the AbsGS statistic.
     Returns (img_nobg [H, W, C] without background, alpha [H, W], aux).
     Blend a background as ``img + (1 - alpha)[..., None] * bg``."""
-    tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
-    means2d = projections.means2d.contiguous()
-    conics = projections.conics.contiguous()
-    opacities = opacities.contiguous()
-    channels = channels.contiguous()
-    isects = isect_encode(projections, img_height, img_width, tile_size)
-    keys, gids = expand(isects, means2d, conics, opacities,
-                        projections.depths.contiguous(), tiles_x, tiles_y,
-                        tile_size, tile_based_culling)
-    sorted_keys, gids_sorted = sort_slots(keys, gids)
-    bounds = tile_bounds(sorted_keys, tiles_x * tiles_y)
-    out, t_fin, i_stop = rasterize_fwd(
-        means2d, conics, opacities, channels, gids_sorted, bounds,
-        img_height, img_width, tile_size)
-    aux = RasterAux(n_isects=isects.n_isects, n_dropped=0, t_final=t_fin,
-                    i_stop=i_stop)
-    return out, 1.0 - t_fin, aux
+    if absgrad_tap is None:
+        absgrad_tap = torch.zeros_like(projections.means2d)
+    info = {}
+    out, alpha = _Rasterize.apply(
+        projections.means2d, projections.conics, opacities, channels,
+        absgrad_tap, projections.depths.detach(), projections.radii,
+        img_height, img_width, tile_size, tile_based_culling, info)
+    aux = RasterAux(n_isects=info["n_isects"], n_dropped=0,
+                    t_final=info["t_final"], i_stop=info["i_stop"])
+    return out, alpha, aux

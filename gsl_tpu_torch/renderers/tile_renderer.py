@@ -1,10 +1,12 @@
 """Primary renderer: project -> SH colors -> rasterize.
 
-Port of ``gsl_tpu/renderers/tile_renderer.py`` for serving. Depth, inverse
-depth and normals ride the same rasterize pass as extra composited
-channels next to rgb; hard inverse depth is a second pass with opacities
-pushed to 1. The output is always the reference's exact mode (exact
-(tile, depth) order, f32 payload).
+Port of ``gsl_tpu/renderers/tile_renderer.py``. Depth, inverse depth and
+normals ride the same rasterize pass as extra composited channels next to
+rgb; hard inverse depth is a second pass with opacities pushed to 1. The
+output is always the reference's exact mode (exact (tile, depth) order,
+f32 payload). The whole forward is differentiable in the Gaussian
+parameters; the two taps hand the screen-space mean gradients to density
+control.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from ..ops.projection import Projections, project_gaussians
 from ..ops.rasterize import rasterize
 from ..ops.sh import sh_to_rgb
 from ..ops.transforms import normalize_quat, quat_to_rotmat
+from ..utils.device import float32_math
 from .renderer import RendererOutputInfo, RendererOutputType
 
 
@@ -46,6 +49,7 @@ class TileRendererConfig:
     tile_based_culling: bool = True    # peak-alpha tile cull: drops only
                                        # slots whose peak alpha over the tile
                                        # is below the 1/255 threshold
+    max_viewspace_grad_scale: float = 65535.0
     stp_resort: bool = False           # StopThePop per-tile depth keys: not
                                        # ported yet (ROADMAP.md)
 
@@ -60,6 +64,11 @@ class TileRenderer:
                 "stp_resort is not ported yet: StopThePop is queued in "
                 "ROADMAP.md")
         self.config = config
+
+    def uses_kernels(self) -> bool:
+        """True when forward() produces the absgrad tap's gradient: always,
+        since the kernels' plain versions produce it too."""
+        return True
 
     def get_opacities(self, gaussians: GaussianState, proj: Projections):
         op = gaussians.get_opacities()
@@ -83,13 +92,22 @@ class TileRenderer:
         sh_degree: int,
         render_types: FrozenSet[str] = frozenset({"rgb"}),
         scaling_modifier: float = 1.0,
+        means2d_tap: Optional[torch.Tensor] = None,   # [N, 2] zeros
+        absgrad_tap: Optional[torch.Tensor] = None,   # [N, 2] zeros
     ) -> RenderOutputs:
+        """`means2d_tap` is added to the projected means, so its gradient
+        is dL/d(means2d); the gradient of `absgrad_tap` is the AbsGS
+        statistic (see `ops.rasterize.rasterize`)."""
         cfg = self.config
-        proj = project_gaussians(
-            gaussians.get_means(), gaussians.get_scales() * scaling_modifier,
-            gaussians.get_rotations(), camera.world_to_camera, camera.fx,
-            camera.fy, camera.cx, camera.cy, img_width, img_height,
-            filter_2d=cfg.filter_2d_kernel_size)
+        with float32_math():   # the camera transform's matrix product
+            proj = project_gaussians(
+                gaussians.get_means(),
+                gaussians.get_scales() * scaling_modifier,
+                gaussians.get_rotations(), camera.world_to_camera,
+                camera.fx, camera.fy, camera.cx, camera.cy, img_width,
+                img_height, filter_2d=cfg.filter_2d_kernel_size)
+        if means2d_tap is not None:
+            proj = proj._replace(means2d=proj.means2d + means2d_tap)
         opacities = self.get_opacities(gaussians, proj)
         rgbs = self.get_rgbs(gaussians, camera, sh_degree)
 
@@ -123,14 +141,13 @@ class TileRenderer:
 
         img_nobg, alpha, aux = rasterize(
             proj, opacities, ch, img_height, img_width, cfg.tile_size,
-            cfg.tile_based_culling)
-        img = img_nobg + aux.t_final[..., None] * bgv
+            cfg.tile_based_culling, absgrad_tap)
+        img = img_nobg + (1.0 - alpha)[..., None] * bgv
 
         hard_inv = None
         if "hard_inverse_depth" in render_types:
-            # hard blending: every visible splat fully opaque (the
-            # detach keeps the later training slice's straight-through
-            # gradient of the reference)
+            # hard blending: every visible splat fully opaque, with the
+            # reference's straight-through gradient
             hard_op = opacities + (1.0 - opacities).detach()
             hard_op = hard_op * (opacities > 0.0)
             inv_d = 1.0 / torch.clamp(proj.depths[:, None], min=1e-8)
@@ -172,3 +189,12 @@ class TileRenderer:
             "normal": RendererOutputInfo("normal",
                                          RendererOutputType.NORMAL_MAP),
         }
+
+
+def viewspace_grad_scale(img_width: int, img_height: int,
+                         max_scale: float = 65535.0, device=None):
+    """[2] 0.5 * [W, H], clamped: the factor that turns means2d gradients
+    in pixels into the densification statistic."""
+    return torch.clamp(
+        torch.tensor([0.5 * img_width, 0.5 * img_height],
+                     dtype=torch.float32, device=device), max=max_scale)

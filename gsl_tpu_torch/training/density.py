@@ -1,0 +1,197 @@
+"""Vanilla adaptive density control on the capacity-padded state.
+
+Port of ``gsl_tpu/training/density.py`` (vanilla controller): clone and
+split write into free slots, pruning clears `alive`, and the Adam moments
+of touched rows are zeroed.
+
+- accumulate ||dL/dmeans2d * 0.5 [W, H]|| and a visit counter over visible
+  Gaussians; track the largest screen radius in pixels;
+- every `densification_interval` steps in (densify_from_iter,
+  densify_until_iter): clone small Gaussians with a high mean gradient;
+  split large ones into 2 children drawn from N(0, scale), rotated, with
+  scales / 1.6 (the original becomes the first child in place);
+- prune opacity < cull_opacity_threshold and, after the first opacity
+  reset, screen radius > 20 px or world scale > 0.1 * prune_extent;
+- all statistics restart at zero after every densify;
+- opacity reset to min(opacity, 0.01), zeroing the opacity moments.
+
+The functions build new tensors and leave their arguments as they were.
+Nothing here reads a value back to the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+
+from ..models.gaussian import (PARAM_FIELDS, GaussianParams, GaussianState,
+                               inverse_sigmoid)
+from ..ops.transforms import normalize_quat, quat_to_rotmat
+from .optimizers import (AdamState, zero_opacity_opt_state,
+                         zero_opt_state_rows)
+
+
+@dataclasses.dataclass
+class DensityControlState:
+    grad_accum: torch.Tensor  # [CAP]
+    denom: torch.Tensor       # [CAP]
+    max_radii: torch.Tensor   # [CAP] float (pixels)
+
+
+def init_density_state(capacity: int, device=None) -> DensityControlState:
+    def z():
+        return torch.zeros(capacity, dtype=torch.float32, device=device)
+    return DensityControlState(grad_accum=z(), denom=z(), max_radii=z())
+
+
+@dataclasses.dataclass
+class VanillaDensityControllerConfig:
+    percent_dense: float = 0.01
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    opacity_reset_value: float = 0.01
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold: float = 2e-4
+    cull_opacity_threshold: float = 0.005
+    cull_screen_size_threshold: float = 20.0
+    cull_scale_factor: float = 0.1       # x prune_extent
+    camera_extent_factor: float = 1.0
+    scene_extent_override: float = -1.0
+    absgrad: bool = False
+
+    def instantiate(self):
+        return self
+
+
+def update_stats(dstate: DensityControlState, m2d_grad: torch.Tensor,
+                 radii: torch.Tensor, grad_scale: torch.Tensor
+                 ) -> DensityControlState:
+    """m2d_grad [CAP, 2] = dL/dmeans2d in pixels (or the AbsGS statistic);
+    radii [CAP] int; grad_scale [2] = 0.5 * [W, H]."""
+    visible = radii > 0
+    g = torch.linalg.norm(m2d_grad * grad_scale[None, :], dim=-1)
+    zero = torch.zeros_like(g)
+    return DensityControlState(
+        grad_accum=dstate.grad_accum + torch.where(visible, g, zero),
+        denom=dstate.denom + visible.to(torch.float32),
+        max_radii=torch.maximum(
+            dstate.max_radii,
+            torch.where(visible, radii.to(torch.float32), zero)))
+
+
+def _scatter_rows(dst: torch.Tensor, dest: torch.Tensor,
+                  values: torch.Tensor) -> torch.Tensor:
+    """dst with dst[dest[j]] = values[j]; an index equal to len(dst) is
+    dropped (it lands in a scratch row that is cut off again)."""
+    ext = torch.cat([dst, torch.zeros_like(dst[:1])])
+    ext[dest] = values
+    return ext[:-1]
+
+
+def densify_and_prune(
+    noise,
+    gstate: GaussianState,
+    opt_state: AdamState,
+    dstate: DensityControlState,
+    cfg: VanillaDensityControllerConfig,
+    cameras_extent: float,
+    prune_extent: float,
+    use_size_prune,                 # bool: step > opacity_reset_interval
+) -> Tuple[GaussianState, AdamState, DensityControlState, torch.Tensor]:
+    """One clone/split/prune pass. `noise` is a ``torch.Generator`` on the
+    state's device (or None for the default one), or the two standard
+    normal draws themselves as a pair of [CAP, 3] tensors. Returns (state,
+    opt_state, dstate, n_truncated): n_truncated > 0, a 0-d tensor, tells
+    the caller to grow the capacity and redo the pass."""
+    p = gstate.params
+    cap = gstate.capacity
+    alive = gstate.alive
+    dev = alive.device
+
+    grads = torch.where(dstate.denom > 0.0,
+                        dstate.grad_accum / torch.clamp(dstate.denom,
+                                                        min=1.0),
+                        torch.zeros_like(dstate.denom))
+    scales_act = torch.exp(p.scales)
+    max_scale = scales_act.max(dim=-1).values
+    high_grad = (grads >= cfg.densify_grad_threshold) & alive
+    small = max_scale <= cfg.percent_dense * cameras_extent
+    clone_mask = high_grad & small
+    split_mask = high_grad & ~small
+
+    # split offsets: std = activated scales, rotated into the world
+    if isinstance(noise, (tuple, list)):
+        n1, n2 = noise
+    else:
+        n1 = torch.randn((cap, 3), generator=noise, device=dev)
+        n2 = torch.randn((cap, 3), generator=noise, device=dev)
+    rot = quat_to_rotmat(normalize_quat(p.rotations))          # [CAP, 3, 3]
+    off1 = (rot * (n1 * scales_act)[:, None, :]).sum(-1)
+    off2 = (rot * (n2 * scales_act)[:, None, :]).sum(-1)
+    log_div = math.log(0.8 * 2.0)
+
+    # a split original becomes the first child in place
+    sm = split_mask[:, None]
+    params = dataclasses.replace(
+        p, means=torch.where(sm, p.means + off1, p.means),
+        scales=torch.where(sm, p.scales - log_div, p.scales))
+
+    # free slots for the clones and the second split children: dead slots
+    # first, in slot order
+    want = clone_mask.to(torch.int64) + split_mask.to(torch.int64)
+    cum_want = torch.cumsum(want, 0)
+    total_new = cum_want[-1]
+    free_slots = torch.argsort(alive.to(torch.int8), stable=True)
+    n_free = cap - alive.sum()
+
+    j = torch.arange(cap, device=dev)
+    src = torch.clamp(torch.searchsorted(cum_want, j, right=True),
+                      max=cap - 1)
+    valid_new = (j < total_new) & (j < n_free)
+    dest = torch.where(valid_new, free_slots, torch.full_like(j, cap))
+
+    is_split_child = split_mask[src][:, None]
+    child = {k: getattr(p, k)[src] for k in PARAM_FIELDS}
+    child["means"] = torch.where(is_split_child, p.means[src] + off2[src],
+                                 p.means[src])
+    child["scales"] = torch.where(is_split_child, p.scales[src] - log_div,
+                                  p.scales[src])
+    params = params.map(lambda k, x: _scatter_rows(x, dest, child[k]))
+    born = _scatter_rows(torch.zeros_like(alive), dest,
+                         torch.ones_like(alive))
+    alive = alive | born
+
+    # prune, on the values after densification
+    opacities_act = torch.sigmoid(params.opacities[:, 0])
+    prune = opacities_act < cfg.cull_opacity_threshold
+    screen_prune = dstate.max_radii > cfg.cull_screen_size_threshold
+    world_prune = (torch.exp(params.scales).max(dim=-1).values
+                   > cfg.cull_scale_factor * prune_extent)
+    use_size_prune = torch.as_tensor(use_size_prune, dtype=torch.bool,
+                                     device=dev)
+    # fresh slots have zero statistics, so the screen prune cannot hit them
+    prune = prune | (use_size_prune & (screen_prune | world_prune))
+    alive = alive & ~prune
+
+    # Adam moments start over for new slots, split originals and pruned
+    # slots
+    opt_state = zero_opt_state_rows(opt_state, born | split_mask | prune)
+
+    n_truncated = torch.clamp(total_new - n_free, min=0)
+    return (GaussianState(params=params, alive=alive), opt_state,
+            init_density_state(cap, dev), n_truncated)
+
+
+def reset_opacities(gstate: GaussianState, opt_state: AdamState,
+                    reset_value: float = 0.01
+                    ) -> Tuple[GaussianState, AdamState]:
+    """opacity -> min(opacity, reset_value); zero the opacity moments."""
+    p = gstate.params
+    op = torch.sigmoid(p.opacities)
+    new_raw = inverse_sigmoid(torch.clamp(op, max=reset_value))
+    return (GaussianState(params=dataclasses.replace(p, opacities=new_raw),
+                          alive=gstate.alive),
+            zero_opacity_opt_state(opt_state))

@@ -1,0 +1,135 @@
+"""Per-property Adam over the Gaussian parameters.
+
+Port of ``gsl_tpu/training/optimizers.py``. `GaussianAdam` is
+``build_gaussian_optimizer``: one Adam per property (b1 0.9, b2 0.999, eps
+1e-15), the means' rate decayed exponentially and scaled by the scene
+extent. The arithmetic is optax's:
+
+    mu  = b1 mu + (1 - b1) g          nu = b2 nu + (1 - b2) g^2
+    p  += -lr(count) * (mu / (1 - b1^(count+1)))
+                     / (sqrt(nu / (1 - b2^(count+1))) + eps)
+
+with the schedule evaluated at the count before the increment. The
+moments are `[CAP, ...]` tensors per property, so optimizer-state surgery
+at densification is row edits (`zero_opt_state_rows`, `grow_opt_state`,
+`zero_opacity_opt_state`). Every function returns new tensors and leaves
+its arguments as they were, so a caller can keep a snapshot.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+from ..models.gaussian import (PARAM_FIELDS, GaussianParams,
+                               OptimizationConfig)
+from .schedulers import exponential_decay
+
+B1, B2 = 0.9, 0.999
+
+
+@dataclasses.dataclass
+class AdamState:
+    exp_avg: Dict[str, torch.Tensor]      # per property, [CAP, ...]
+    exp_avg_sq: Dict[str, torch.Tensor]
+    count: int = 0                        # updates taken so far
+
+
+class GaussianAdam:
+    def __init__(self, opt_cfg: OptimizationConfig,
+                 spatial_lr_scale: float):
+        scale = (opt_cfg.spatial_lr_scale
+                 if opt_cfg.spatial_lr_scale > 0 else spatial_lr_scale)
+        self.eps = opt_cfg.eps
+        means_schedule = exponential_decay(
+            lr_init=opt_cfg.means_lr_init * scale,
+            lr_final=(opt_cfg.means_lr_init * opt_cfg.means_lr_final_factor
+                      * scale),
+            max_steps=opt_cfg.means_lr_max_steps)
+        self.learning_rates = {
+            "means": means_schedule,
+            "scales": opt_cfg.scales_lr,
+            "rotations": opt_cfg.rotations_lr,
+            "opacities": opt_cfg.opacities_lr,
+            "shs_dc": opt_cfg.shs_dc_lr,
+            "shs_rest": opt_cfg.shs_dc_lr / opt_cfg.shs_rest_lr_div,
+        }
+
+    def learning_rate(self, name: str, count: int) -> float:
+        lr = self.learning_rates[name]
+        return float(lr(count)) if callable(lr) else float(lr)
+
+    def init(self, params: GaussianParams) -> AdamState:
+        def zeros():
+            return {k: torch.zeros_like(getattr(params, k))
+                    for k in PARAM_FIELDS}
+        return AdamState(exp_avg=zeros(), exp_avg_sq=zeros(), count=0)
+
+    def update(self, grads: GaussianParams, state: AdamState):
+        """-> (updates to add to the parameters, the new state)."""
+        t = state.count + 1
+        # the bias corrections in float32, as optax computes them: at
+        # t = 1, 1 - 0.999 differs by 1e-5 relative between float32 and
+        # float64, which the square root would hand on to the update
+        c1 = float(1.0 - torch.tensor(B1, dtype=torch.float32) ** t)
+        c2 = float(1.0 - torch.tensor(B2, dtype=torch.float32) ** t)
+        exp_avg, exp_avg_sq, updates = {}, {}, {}
+        for k in PARAM_FIELDS:
+            g = getattr(grads, k)
+            mu = B1 * state.exp_avg[k] + (1.0 - B1) * g
+            nu = B2 * state.exp_avg_sq[k] + (1.0 - B2) * (g * g)
+            lr = self.learning_rate(k, state.count)
+            updates[k] = (mu / c1) / (torch.sqrt(nu / c2) + self.eps) * -lr
+            exp_avg[k], exp_avg_sq[k] = mu, nu
+        return (GaussianParams(**updates),
+                AdamState(exp_avg=exp_avg, exp_avg_sq=exp_avg_sq, count=t))
+
+
+def _map_moments(state: AdamState, fn) -> AdamState:
+    return AdamState(
+        exp_avg={k: fn(k, v) for k, v in state.exp_avg.items()},
+        exp_avg_sq={k: fn(k, v) for k, v in state.exp_avg_sq.items()},
+        count=state.count)
+
+
+def zero_opt_state_rows(state: AdamState, row_mask: torch.Tensor
+                        ) -> AdamState:
+    """Zero both moments of every property in the rows where `row_mask`
+    [CAP] is True (rows that were replaced by densification or pruned)."""
+    def fix(_, leaf):
+        m = row_mask.reshape((-1,) + (1,) * (leaf.ndim - 1))
+        # where, not multiply: a NaN moment times 0 stays NaN
+        return torch.where(m, torch.zeros_like(leaf), leaf)
+
+    return _map_moments(state, fix)
+
+
+def grow_opt_state(state: AdamState, new_capacity: int) -> AdamState:
+    """Carry the moments and the count across a capacity growth: the new
+    rows start at zero, the schedule goes on where it was."""
+    def fix(_, leaf):
+        extra = new_capacity - leaf.shape[0]
+        if extra <= 0:
+            return leaf
+        return torch.cat([leaf, torch.zeros(
+            (extra,) + leaf.shape[1:], dtype=leaf.dtype,
+            device=leaf.device)])
+
+    return _map_moments(state, fix)
+
+
+def zero_opacity_opt_state(state: AdamState) -> AdamState:
+    """Zero the moments of the `opacities` property only."""
+    return _map_moments(
+        state, lambda k, leaf: (torch.zeros_like(leaf) if k == "opacities"
+                                else leaf))
+
+
+def selective_adam_update(updates: GaussianParams, visible: torch.Tensor
+                          ) -> GaussianParams:
+    """Visibility-gated updates: zero the update rows of Gaussians that hit
+    no pixel this step."""
+    keep = visible.to(torch.float32)
+    return updates.map(
+        lambda _, u: u * keep.reshape((-1,) + (1,) * (u.ndim - 1)))

@@ -1,5 +1,8 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection and float32 arithmetic shared by the port's entry
+points."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -13,3 +16,21 @@ def resolve_device(device=None) -> torch.device:
             "CUDA was requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def float32_math():
+    """Matrix products and convolutions in full float32 inside the block:
+    TF32 (about three decimal digits) is switched off for both and the
+    caller's settings come back afterwards. Gradients of such ops are
+    computed when ``backward`` runs, so a training step wraps its backward
+    pass too."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    conv = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = conv

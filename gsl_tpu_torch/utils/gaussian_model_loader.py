@@ -4,7 +4,7 @@ Port of ``gsl_tpu/utils/gaussian_model_loader.py`` for PLY files: a path
 to a ``.ply``, or a run directory holding
 ``point_cloud/iteration_N/point_cloud.ply`` (the largest N wins). Rows are
 not padded to a capacity: every loaded Gaussian is alive. Orbax
-checkpoints (``checkpoints/step_N``) come with the training slice.
+checkpoints (``checkpoints/step_N``) come with the fit loop.
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ class GaussianModelLoader:
         if _has_checkpoint(path):
             raise NotImplementedError(
                 f"{path} holds only orbax checkpoints, which the PyTorch "
-                "port cannot read yet (they come with the training slice); "
+                "port cannot read yet (they come with the fit loop); "
                 "export a PLY with gsl_tpu first")
         raise FileNotFoundError(f"no ply under {path}")
 

@@ -11,7 +11,13 @@ within rtol 1e-3 / atol 2e-4: the kernel contracts multiply-adds and the
 plain version does not, so they round differently; where a splat sits
 within rounding of the 1/255 skip or the 1e-4 stop, one composites it
 and the other does not, moving that pixel by up to the splat's weight
-(hence a share of values, not all of them).
+(hence a share of values, not all of them). K3 (backward) recomputes the
+same alphas, so the same flips move single gradient rows: its rows, and
+K4's per-Gaussian sums of them, are held to rtol 1e-3 / atol 1e-3 at
+>= 99.9% of the values (the gradients of the test loss reach the
+hundreds, and T / (1 - alpha) walked backwards rounds differently with
+and without contraction). K4 on identical rows differs from `index_add_`
+only in the order of its float32 additions.
 """
 import pathlib
 import subprocess
@@ -82,7 +88,7 @@ def test_kernels_match_plain(cuda, n_channels):
     assert R.expand.launches == before + 1
     keys_p, gids_p = R.expand_plain(*args)
     assert torch.equal(keys, keys_p) and torch.equal(gids, gids_p)
-    sk, gs = R.sort_slots(keys, gids)
+    sk, gs, _ = R.sort_slots(keys, gids)
     bounds = R.tile_bounds(sk, (W // TS) * (H // TS))
     fwd = (proj.means2d, proj.conics, op, ch, gs, bounds, H, W, TS)
     before = R.rasterize_fwd.launches
@@ -94,6 +100,92 @@ def test_kernels_match_plain(cuda, n_channels):
     assert bool((stop < R.NEVER_STOPPED).any())
     assert close_share(out, out_p) >= SHARE
     assert close_share(t_fin, t_p) >= SHARE
+
+
+def _backward_inputs(cuda, n_channels, n=3000):
+    state = state_from_raw_arrays(scene(n), device=cuda)
+    cam = camera(cuda)
+    proj = project_gaussians(state.get_means(), state.get_scales(),
+                             state.get_rotations(), cam.world_to_camera,
+                             cam.fx, cam.fy, cam.cx, cam.cy, W, H)
+    op = state.get_opacities().contiguous()
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    ch = torch.rand((n, n_channels), generator=gen).to(cuda)
+    isects = R.isect_encode(proj, H, W, TS)
+    keys, gids = R.expand(isects, proj.means2d, proj.conics, op,
+                          proj.depths, W // TS, H // TS, TS, True)
+    sk, gs, order = R.sort_slots(keys, gids)
+    bounds = R.tile_bounds(sk, (W // TS) * (H // TS))
+    out, t_fin, stop = R.rasterize_fwd(proj.means2d, proj.conics, op, ch,
+                                       gs, bounds, H, W, TS)
+    g_out = torch.randn((H, W, n_channels), generator=gen).to(cuda)
+    g_alpha = torch.randn((H, W), generator=gen).to(cuda)
+    bwd = (proj.means2d, proj.conics, op, ch, gs, bounds, g_out, g_alpha,
+           t_fin, stop, TS)
+    return bwd, isects, order, n
+
+
+def close_share_grad(got, want):
+    bad = (got - want).abs() > 1e-3 + RTOL * want.abs()
+    return 1.0 - float(bad.float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_channels", [3, 8, 11])
+def test_backward_kernels_match_plain(cuda, n_channels):
+    """C = 11 takes K3's path with the cotangents in shared memory."""
+    bwd, isects, order, n = _backward_inputs(cuda, n_channels)
+    gs, bounds = bwd[4], bwd[5]
+    before = R.rasterize_bwd.launches
+    rows = R.rasterize_bwd(*bwd)
+    torch.cuda.synchronize()
+    assert R.rasterize_bwd.launches == before + 1
+    rows_p = R.rasterize_bwd_plain(*bwd)
+    assert rows.shape == rows_p.shape == (gs.numel(), 6 + n_channels)
+    assert bool(torch.isfinite(rows).all())
+    assert float(rows_p.abs().max()) > 1.0
+    assert close_share_grad(rows, rows_p) >= SHARE
+    # twice the same: no atomics
+    assert torch.equal(rows, R.rasterize_bwd(*bwd))
+
+    before = R.reduce_grads.launches
+    summed = R.reduce_grads(rows, gs, isects.offsets,
+                            R.invert_order(order), bounds[-1:], n)
+    torch.cuda.synchronize()
+    assert R.reduce_grads.launches == before + 1
+    summed_p = R.reduce_grads_plain(rows, gs, n)
+    assert summed.shape == (n, 8 + n_channels)
+    torch.testing.assert_close(summed, summed_p, rtol=1e-4, atol=1e-4)
+    assert bool((summed[:, 6:8] >= summed[:, 0:2].abs() - 1e-4).all())
+    assert torch.equal(summed, R.reduce_grads(
+        rows, gs, isects.offsets, R.invert_order(order), bounds[-1:], n))
+
+
+@pytest.mark.cuda
+def test_parameter_gradients_on_card_match_cpu(cuda):
+    """A scalar loss through the whole renderer: the card's gradients
+    (kernels) against the CPU's (plain versions) for all six tensors."""
+    arrays = scene(1500, seed=1)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        state = state_from_raw_arrays(arrays, device=dev)
+        leaves = state.params.map(lambda _, x: x.requires_grad_(True))
+        state.params = leaves
+        renderer = TileRendererConfig().instantiate()
+        out = renderer.forward(state, camera(dev), H, W,
+                               torch.tensor([0.1, 0.2, 0.3], device=dev), 3)
+        target = torch.rand((H, W, 3), generator=torch.Generator(
+            device="cpu").manual_seed(2)).to(dev)
+        ((out.render - target) ** 2).sum().backward()
+        grads.append({k: getattr(leaves, k).grad.cpu()
+                      for k in ("means", "scales", "rotations", "opacities",
+                                "shs_dc", "shs_rest")})
+    for k, got in grads[0].items():
+        want = grads[1][k]
+        assert bool(torch.isfinite(got).all()), k
+        scale = float(want.abs().max())
+        bad = (got - want).abs() > 1e-3 * scale + 1e-2 * want.abs()
+        assert float(bad.float().mean()) <= 1e-3, k
 
 
 @pytest.mark.cuda
@@ -131,6 +223,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         R.expand(isects, proj.means2d, proj.conics, op.cpu(), proj.depths,
                  W // TS, H // TS, TS, True)
+    bwd, isects, order, n = _backward_inputs(cuda, 3, n=100)
+    with pytest.raises(TypeError):
+        R.rasterize_bwd(*bwd[:6], bwd[6].double(), *bwd[7:])
+    with pytest.raises(ValueError):
+        R.rasterize_bwd(*bwd[:10], 5)      # 25 threads: no whole warp
+    rows = R.rasterize_bwd(*bwd)
+    with pytest.raises(TypeError):
+        R.reduce_grads(rows, bwd[4], isects.offsets, order, bwd[5][-1:], n)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """Rules of the gsl_tpu_torch package: no JAX and nothing of gsl_tpu in
-it, the card by default, chip_smoke.py refuses to run without a card."""
+it, the card by default, every kernel with its source, wrapper, plain
+version and launch counter, chip_smoke.py refuses to run without a card."""
 import ast
+import inspect
 import os
 import pathlib
 import shutil
@@ -10,6 +12,9 @@ import sys
 import numpy as np
 import pytest
 import torch
+
+from gsl_tpu_torch.ops import cuda_build
+from gsl_tpu_torch.ops import rasterize as R
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gsl_tpu")
@@ -36,6 +41,56 @@ def _imported_roots(path):
 def test_port_imports_no_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_uses_no_compiler_and_no_triton(path):
+    text = path.read_text()
+    assert "torch.compile" not in text
+    assert "triton" not in set(_imported_roots(path))
+
+
+@pytest.mark.parametrize("name", cuda_build.SOURCES)
+def test_kernel_has_source_wrapper_plain_version_and_counter(name):
+    assert (cuda_build.CSRC / f"{name}.cu").is_file()
+    wrapper, plain = getattr(R, name), getattr(R, f"{name}_plain")
+    assert callable(plain)
+    assert isinstance(wrapper.launches, int)
+    source = inspect.getsource(wrapper)
+    # CPU tensors go to the plain version, CUDA tensors to the kernel,
+    # which is counted where it is launched; nothing catches a failure
+    assert "is_cuda" in source and f"{name}_plain(" in source
+    assert f"{name}.launches += 1" in source
+    assert "try:" not in source and "except" not in source
+
+
+def test_every_cuda_source_is_built_and_the_build_is_ignored():
+    sources = sorted(p.stem for p in cuda_build.CSRC.glob("*.cu"))
+    assert sources == sorted(cuda_build.SOURCES)
+    assert cuda_build.BUILD == REPO / "gsl_tpu_torch" / "build"
+    ignored = (REPO / ".gitignore").read_text().splitlines()
+    assert "gsl_tpu_torch/build/" in ignored
+
+
+def test_cpu_tensors_launch_no_kernel():
+    before = {name: getattr(R, name).launches
+              for name in cuda_build.SOURCES}
+    from gsl_tpu_torch.ops.projection import project_gaussians
+    rng = np.random.RandomState(0)
+    n = 30
+    means = torch.tensor(np.concatenate(
+        [rng.uniform(-1, 1, (n, 2)), rng.uniform(2, 5, (n, 1))], 1),
+        dtype=torch.float32)
+    proj = project_gaussians(
+        means, torch.full((n, 3), 0.1), torch.tensor([[1.0, 0, 0, 0]] * n),
+        torch.eye(4), 40.0, 40.0, 16.0, 16.0, 32, 32)
+    colors = torch.rand((n, 3), requires_grad=True)
+    img, alpha, _ = R.rasterize(proj, torch.full((n,), 0.5), colors, 32, 32)
+    (img.sum() + alpha.sum()).backward()
+    assert float(colors.grad.abs().max()) > 0.0
+    assert before == {name: getattr(R, name).launches
+                      for name in cuda_build.SOURCES}
 
 
 def test_importing_the_port_loads_no_jax():

@@ -49,7 +49,7 @@ def test_expand_plain_matches_expand_sorted(n, seed):
     keys, gids = R.expand_plain(isects, pt.means2d, pt.conics,
                                 to_torch(opac), pt.depths, TILES_X, TILES_Y,
                                 TS, True)
-    sk, gs = R.sort_slots(keys, gids)
+    sk, gs, _ = R.sort_slots(keys, gids)
     valid = (sk != R.INVALID_KEY).numpy()
 
     assert isects.n_isects == int(isects_j.n_isects)

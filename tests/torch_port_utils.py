@@ -9,6 +9,12 @@ from gsl_tpu_torch.ops.projection import project_gaussians
 
 from scene_utils import random_scene, simple_camera
 
+# The suite runs in several worker processes at once. The port's tests work
+# on small tensors in long Python loops, where torch's intra-op thread pool
+# (one per process, as wide as the machine) gains nothing and, with every
+# worker owning one, oversubscribes the cores many times over.
+torch.set_num_threads(1)
+
 
 def to_torch(x, dtype=None):
     return torch.from_numpy(np.array(x, dtype=dtype))
@@ -27,3 +33,31 @@ def both_projections(n, seed, width, height, **scene_kw):
         to_torch(cam.world_to_camera), to_torch(cam.fx), to_torch(cam.fy),
         to_torch(cam.cx), to_torch(cam.cy), width, height)
     return pj, pt, np.asarray(opac), np.asarray(colors)
+
+
+PARAM_FIELDS = ("means", "scales", "rotations", "opacities", "shs_dc",
+                "shs_rest")
+
+
+def jax_opt_arrays(opt_state):
+    """The optax state of build_gaussian_optimizer as
+    {property: {"mu", "nu", "count"}} numpy arrays."""
+    opt = {}
+    for k in PARAM_FIELDS:
+        adam = opt_state.inner_states[k].inner_state[0]
+        opt[k] = {"mu": np.asarray(getattr(adam.mu, k)),
+                  "nu": np.asarray(getattr(adam.nu, k)),
+                  "count": int(adam.count)}
+    return opt
+
+
+def jax_train_state_arrays(state):
+    """A gsl_tpu TrainState taken apart into numpy arrays, as
+    gsl_tpu_torch.utils.convert.train_state_from_jax_arrays takes them."""
+    return dict(
+        params={k: np.asarray(getattr(state.params, k))
+                for k in PARAM_FIELDS},
+        alive=np.asarray(state.alive), opt=jax_opt_arrays(state.opt_state),
+        density={k: np.asarray(getattr(state.density, k))
+                 for k in ("grad_accum", "denom", "max_radii")},
+        step=int(state.step))
