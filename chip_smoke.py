@@ -7,7 +7,7 @@ Needs one NVIDIA H100 (sm_90a) with nvcc; exits nonzero, printing no
 result, when torch.cuda.is_available() is False or the gsl_tpu_torch
 package is not beside this script. Phases, each fatal on failure:
 
-1. device and build: the card's name and power limit; the four kernels
+1. device and build: the card's name and power limit; the seven kernels
    built from gsl_tpu_torch/csrc/ with nvcc, one process per source, in
    parallel.
 2. scene: the bench scene of __graft_entry__._synthetic_state (numpy seed
@@ -34,6 +34,24 @@ package is not beside this script. Phases, each fatal on failure:
    on the card must match the CPU renderer (the plain versions) on all
    but 1e-3 of the values, and so must the gradients of a scalar loss for
    all six parameter tensors.
+   The surfel (2DGS) kernels, on the same scene with 2-column scales and
+   C = 6 channels (rgb + view-space normal) at the bench pose and the first
+   orbit view, and once each with C = 3 and C = 9: K5 surfel expand must
+   equal surfel_expand_plain bit for bit; K6 surfel forward must agree
+   with rasterize_surfels_fwd_plain on i_stop at >= 99.9% of pixels and on
+   the channels, T, sum w depth, distortion, A, M1 and M2 within K2's
+   tolerance at all but 1e-4 of the values, and on the median depth at all
+   but 1e-3 (a pair counts when alpha >= 1/255, rho3d <= rho2d picks the
+   branch, depth >= 0.2, and the median is the first T crossing of 0.5:
+   compares on rounded values, and a flipped crossing moves a pixel by a
+   whole depth step); K7 surfel backward, with seeded normal cotangents on
+   the channels, alpha, depth and distortion, must agree with
+   rasterize_surfels_bwd_plain like K3 and give the same rows twice; K4
+   with no absolute columns sums K7's 13 + C columns like
+   reduce_grads_plain. A small surfel scene through SurfelRenderer on the
+   card must match the CPU on all seven outputs, and the gradients of a
+   loss with the distortion and normal-consistency terms on all six
+   parameter tensors.
 4. main path: GaussianModelLoader.load(ply) -> ViewerRenderer -> orbit
    frames at 1088x1920 in rgb, then one frame with alpha, exp_depth,
    inverse_depth, normal and hard_inverse_depth (8 composited channels).
@@ -53,6 +71,16 @@ package is not beside this script. Phases, each fatal on failure:
    densify and all four kernels' launch counters, zeroed just before, are
    above 0. Prints ms per step, the stage split from CUDA events, the ms
    of the density step and peak memory.
+6. 2DGS main path: the scene as 1M surfels (scales[:, :2]) ->
+   SurfelRenderer through ViewerRenderer, one orbit frame for each of its
+   seven outputs at 1088x1920; then GS2DTrainer.setup at capacity 1M and
+   train_steps with the normal-consistency and distortion losses on from
+   the first step, each followed by maybe_density_ops, with one densify
+   that splits surfels (2-column scales; the capacity grows to 2M), and
+   steps after it. Fatal unless the outputs and losses are finite, the
+   loss falls, every parameter is finite, surfels were split and K5, K6
+   (serving) and K5, K6, K7, K4 (training) were launched, their counters
+   zeroed just before each of the two runs.
 
 Bounds in the kernels line: the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM f32 without tensor cores). K1 moves 52
@@ -66,7 +94,16 @@ before the pixel's stop and 35 + 4C more per composited pair (counted in
 csrc/rasterize_bwd.cu). K4 reads each valid row, 4 bytes per slot and 8
 per Gaussian of indices, writes 8 + C values per Gaussian, and does one
 addition per value read. K4's library_ms is one index_add_ of the rows
-with the absolute columns attached.
+with the absolute columns attached. K5 moves 28 bytes per surfel and 12 per
+slot. K6 reads 52 + 4C bytes per surfel and each sorted id once and writes
+C + 8 values per pixel; it does 47 operations per visited (pixel, surfel)
+pair and 26 + 2C more per composited pair. K7 moves those bytes, the
+cotangents and one row of 13 + C values per valid slot, and does 48
+operations per pair before the pixel's stop and 123 + 4C more per
+composited pair (both counted in the kernels' sources). In the kernels
+line, `launches` is a kernel's count on the training path of its own model
+(K1-K4: phase 5; K5-K7: phase 6) and `serving_launches` on the serving
+path; K4 also carries its surfel-layout numbers under `surfel_*` keys.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -84,13 +121,19 @@ import torch
 from gsl_tpu_torch.data.cameras import make_camera
 from gsl_tpu_torch.ops import cuda_build
 from gsl_tpu_torch.ops import rasterize as R
+from gsl_tpu_torch.ops import surfel_rasterize as SR
 from gsl_tpu_torch.ops.projection import project_gaussians
+from gsl_tpu_torch.ops.sh import sh_to_rgb
+from gsl_tpu_torch.ops.surfel import project_surfels
 from gsl_tpu_torch.ops.transforms import quat_to_rotmat
 from gsl_tpu_torch.models.gaussian import (PARAM_FIELDS, GaussianParams,
                                            GaussianState,
                                            VanillaGaussianConfig)
+from gsl_tpu_torch.models.gaussian_2d import Gaussian2DConfig
+from gsl_tpu_torch.renderers.surfel_renderer import SurfelRendererConfig
 from gsl_tpu_torch.renderers.tile_renderer import TileRendererConfig
 from gsl_tpu_torch.training.density import VanillaDensityControllerConfig
+from gsl_tpu_torch.training.gs2d import GS2DMetricsConfig, GS2DTrainer
 from gsl_tpu_torch.training.metrics import train_loss
 from gsl_tpu_torch.training.trainer import Trainer, TrainerConfig
 from gsl_tpu_torch.utils.convert import state_from_raw_arrays
@@ -107,10 +150,31 @@ TARGET = np.array([0.0, 0.0, 5.0])    # middle of the scene's z range
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 ATOL, RTOL, STOP_SHARE, OFF_SHARE = 2e-4, 1e-3, 0.999, 1e-4
-GRAD_ATOL, GRAD_RTOL, GRAD_SHARE = 1e-4, 1e-3, 0.999   # K3, of max |ref|
-SUM_ATOL, SUM_RTOL = 1e-5, 1e-4                          # K4, of max |ref|
+# K3, K7: per column, GRAD_ATOL of the column's own scale (the 99th
+# percentile of the reference's nonzero magnitudes) + GRAD_RTOL |ref|
+GRAD_ATOL, GRAD_RTOL, GRAD_SHARE = 1e-4, 1e-3, 0.999
+# K7's solve takes hx = px Tw - Tu and the cross product hx x hy, both
+# differences of products some 1e3 times their result; the kernel contracts
+# them to multiply-adds and the plain version does not, so more pairs round
+# apart than in K3
+SURFEL_GRAD_SHARE = 0.995
+# ... and K7 built without contraction rounds as the plain version does
+UNCONTRACTED_SHARE = 0.99999
+# K4: of the sum of the magnitudes that went into each sum
+SUM_RTOL = 1e-5
+K3_COLUMNS = ("dmx", "dmy", "da", "db", "dc", "dop")
+K7_COLUMNS = ("Tu0", "Tu1", "Tu2", "Tv0", "Tv1", "Tv2", "Tw0", "Tw1", "Tw2",
+              "zc0", "zc1", "zc2", "op")
+MEDIAN_OFF_SHARE = 1e-3                                  # K6's median depth
 KERNELS = {"expand": R.expand, "rasterize_fwd": R.rasterize_fwd,
-           "rasterize_bwd": R.rasterize_bwd, "reduce_grads": R.reduce_grads}
+           "rasterize_bwd": R.rasterize_bwd, "reduce_grads": R.reduce_grads,
+           "surfel_expand": SR.surfel_expand,
+           "surfel_fwd": SR.rasterize_surfels_fwd,
+           "surfel_bwd": SR.rasterize_surfels_bwd}
+GAUSSIAN_KERNELS = ("expand", "rasterize_fwd", "rasterize_bwd",
+                    "reduce_grads")
+SURFEL_KERNELS = ("surfel_expand", "surfel_fwd", "surfel_bwd",
+                  "reduce_grads")
 ALL_OUTPUTS = frozenset({"rgb", "alpha", "exp_depth", "inverse_depth",
                          "normal", "hard_inverse_depth"})
 
@@ -192,20 +256,25 @@ def compare_raster(name, got, want):
     if share < STOP_SHARE:
         fail(f"{name}: i_stop agrees on {share:.5f} of pixels "
              f"< {STOP_SHARE}")
-    for label, g, w in (("image", got[0], want[0]),
-                        ("alpha", 1 - got[1], 1 - want[1])):
-        if not bool(torch.isfinite(g).all()):
-            fail(f"{name}: non-finite {label}")
-        d = (g - w).abs()
-        bad = d > ATOL + RTOL * w.abs()
-        if float(bad.float().mean()) > OFF_SHARE:
-            i = int(torch.argmax(d.flatten()))
-            fail(f"{name}: {label} differs beyond tolerance at "
-                 f"{int(bad.sum())} of {bad.numel()} values; worst "
-                 f"{float(g.flatten()[i])} vs {float(w.flatten()[i])}")
-    err = max(float((got[0] - want[0]).abs().max()),
-              float((got[1] - want[1]).abs().max()))
+    err = max(off_share(f"{name} image", got[0], want[0], OFF_SHARE),
+              off_share(f"{name} alpha", 1 - got[1], 1 - want[1],
+                        OFF_SHARE))
     return err, share
+
+
+def off_share(name, got, want, limit):
+    """Fails unless all but `limit` of the values are finite and within
+    ATOL + RTOL |want|. Returns the largest absolute difference."""
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: non-finite values")
+    d = (got - want).abs()
+    bad = d > ATOL + RTOL * want.abs()
+    if float(bad.float().mean()) > limit:
+        i = int(torch.argmax(d.flatten()))
+        fail(f"{name}: differs beyond tolerance at {int(bad.sum())} of "
+             f"{bad.numel()} values; worst {float(got.flatten()[i])} vs "
+             f"{float(want.flatten()[i])}")
+    return float(d.max())
 
 
 def visited_pairs(i_stop, bounds, tiles_x):
@@ -229,6 +298,65 @@ def read_launches():
     return {name: w.launches for name, w in KERNELS.items()}
 
 
+def column_shares(name, got, want):
+    """Per column of a backward kernel's rows [n, R]: (scale, share). The
+    columns have different units, and a few near-degenerate rows reach
+    magnitudes far above a column's typical one, so a column's scale is
+    the 99th percentile of the reference's nonzero magnitudes, and its
+    share is that of its values within GRAD_ATOL scale + GRAD_RTOL |ref|."""
+    d = (got - want).abs()
+    pairs = []
+    for c in range(want.shape[1]):
+        mag = want[:, c].abs()
+        nonzero = mag[mag > 0]
+        if nonzero.numel() == 0:
+            fail(f"{name}: the reference's column {c} is all zero")
+        k = max(1, math.ceil(0.99 * nonzero.numel()))
+        scale = float(nonzero.kthvalue(k).values)
+        bad = d[:, c] > GRAD_ATOL * scale + GRAD_RTOL * mag
+        pairs.append((scale, 1.0 - float(bad.float().mean())))
+    return pairs
+
+
+def check_rows(name, got, want, geometry_columns, limit):
+    """A backward kernel's rows against its plain version's: every column
+    must agree at `limit` of its values (a flipped keep or stop decision
+    changes a whole row). Returns (largest absolute difference, smallest
+    share)."""
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: non-finite rows")
+    n_ch = want.shape[1] - len(geometry_columns)
+    columns = tuple(geometry_columns) + tuple(f"ch{i}" for i in range(n_ch))
+    pairs = column_shares(name, got, want)
+    log(f"{name}: column scale/share " + ", ".join(
+        f"{col} {scale:.3g}/{share:.6f}"
+        for col, (scale, share) in zip(columns, pairs)))
+    for col, (scale, share) in zip(columns, pairs):
+        if share < limit:
+            fail(f"{name}: column {col} agrees with the plain version on "
+                 f"{share:.6f} of its values < {limit} (column scale "
+                 f"{scale:.4g})")
+    return float((got - want).abs().max()), min(s for _, s in pairs)
+
+
+def check_sums(name, summed, summed_p, rows, gids, n, n_abs):
+    """K4's per-Gaussian sums against reduce_grads_plain's. The two add
+    the same float32 rows in different orders, so each sum may differ by a
+    rounding of what went into it: SUM_RTOL of the sum of those rows'
+    magnitudes, nothing more. Returns the largest absolute difference."""
+    into = R.reduce_grads_plain(rows.abs(), gids, n, n_abs=n_abs)
+    sd = (summed - summed_p).abs()
+    bad = ~(sd <= SUM_RTOL * into)
+    if bool(bad.any()):
+        i = int(torch.argmax((sd - SUM_RTOL * into).flatten()))
+        fail(f"{name}: {int(bad.sum())} sums differ from "
+             f"reduce_grads_plain beyond {SUM_RTOL} of their summed "
+             f"magnitudes; worst {float(summed.flatten()[i])} vs "
+             f"{float(summed_p.flatten()[i])} (magnitudes "
+             f"{float(into.flatten()[i])})")
+    return float(sd.max())
+
+
 def check_backward(vname, C, bwd, isects, order, n, timed):
     """K3 and K4 against their plain versions; with `timed`, their times
     and bounds too. Returns a dict of what was measured."""
@@ -238,17 +366,10 @@ def check_backward(vname, C, bwd, isects, order, n, timed):
     stats = {}
     rows_p = R.rasterize_bwd_plain(*bwd, stats=stats)
     torch.cuda.synchronize()
-    if not bool(torch.isfinite(rows).all()):
-        fail(f"K3 {vname}: non-finite rows")
     if not torch.equal(rows, again):
         fail(f"K3 {vname}: two runs gave different rows")
-    scale = float(rows_p.abs().max())
-    d = (rows - rows_p).abs()
-    share = 1.0 - float((d > GRAD_ATOL * scale
-                         + GRAD_RTOL * rows_p.abs()).float().mean())
-    if scale <= 0.0 or share < GRAD_SHARE:
-        fail(f"K3 {vname} C={C}: rows agree with rasterize_bwd_plain on "
-             f"{share:.6f} of values < {GRAD_SHARE} (max |ref| {scale})")
+    bwd_err, share = check_rows(f"K3 {vname} C={C}", rows, rows_p,
+                                K3_COLUMNS, GRAD_SHARE)
     inv = R.invert_order(order)
     red = (rows, gids, isects.offsets, inv, bounds[-1:], n)
     summed = R.reduce_grads(*red)
@@ -256,16 +377,15 @@ def check_backward(vname, C, bwd, isects, order, n, timed):
     torch.cuda.synchronize()
     if not torch.equal(summed, R.reduce_grads(*red)):
         fail(f"K4 {vname}: two runs gave different sums")
-    sscale = float(summed_p.abs().max())
-    sd = (summed - summed_p).abs()
-    if bool((sd > SUM_ATOL * sscale + SUM_RTOL * summed_p.abs()).any()):
-        fail(f"K4 {vname} C={C}: differs from reduce_grads_plain by up to "
-             f"{float(sd.max())} (max |ref| {sscale})")
-    rec = {"bwd_err": float(d.max()), "bwd_share": share,
-           "bwd_scale": scale, "reduce_err": float(sd.max()),
+    reduce_err = check_sums(f"K4 {vname} C={C}", summed, summed_p, rows,
+                            gids, n, 2)
+    scale, sscale = float(rows_p.abs().max()), float(summed_p.abs().max())
+    rec = {"bwd_err": bwd_err, "bwd_share": share,
+           "bwd_scale": scale, "reduce_err": reduce_err,
            "reduce_scale": sscale,
            "composited_pairs": stats["composited_pairs"]}
-    log(f"K3 {vname} C={C}: rows agree on {share:.6f} of values, max abs "
+    log(f"K3 {vname} C={C}: every column agrees on >= {share:.6f} of its "
+        f"values, max abs "
         f"err {rec['bwd_err']:.3e} (max |ref| {scale:.3e}); identical in "
         f"two runs. K4: max abs err {rec['reduce_err']:.3e} (max |ref| "
         f"{sscale:.3e}); composited pairs {stats['composited_pairs']}")
@@ -431,6 +551,241 @@ def phase_small_reference():
         "parameter tensors match the CPU's")
 
 
+def surfel_arrays(arrays):
+    """The scene as surfels: the first two scale columns (bench.py's
+    2DGS line)."""
+    return dict(arrays, scales=arrays["scales"][:, :2])
+
+
+def surfel_inputs(state, cam, n_channels):
+    """What SurfelRenderer.forward hands the rasterizer: the projection,
+    geom [N, 13] and the channels: rgb (C = 3), rgb + view-space normal
+    (C = 6), or those and the surfel's depth coefficients (C = 9)."""
+    proj = project_surfels(
+        state.get_means(), state.get_scales(), state.get_rotations(),
+        cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, W, H)
+    viewdirs = state.get_means() - cam.camera_center
+    rgb = torch.clamp(sh_to_rgb(state.get_shs(), viewdirs, SH_DEGREE) + 0.5,
+                      min=0.0)
+    ch = torch.cat([rgb, proj.normals, proj.zcoef][:n_channels // 3], 1)
+    geom = SR.pack_surfels(proj.Tu, proj.Tv, proj.Tw, proj.zcoef,
+                           state.get_opacities())
+    return proj, geom, ch.contiguous()
+
+
+def check_surfel_kernels(vname, C, state, cam, seed, timed):
+    """K5, K6, K7 and K4 (no absolute columns) against their plain
+    versions at one view; with `timed`, their times and bounds too."""
+    tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
+    n_tiles = tiles_x * tiles_y
+    n = state.capacity
+    tag = f"{vname} C={C}"
+    proj, geom, ch = surfel_inputs(state, cam, C)
+    isects = SR.surfel_isect_encode(proj.means2d, proj.depths, proj.radii,
+                                    H, W, TILE)
+    args = (isects, proj.depths.contiguous(), tiles_x, tiles_y)
+    keys_k, gids_k = SR.surfel_expand(*args)
+    keys_p, gids_p = SR.surfel_expand_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(keys_k, keys_p) and torch.equal(gids_k, gids_p)):
+        fail(f"K5 {tag}: kernel differs from surfel_expand_plain at "
+             f"{int((keys_k != keys_p).sum())} slots")
+    sk, gs, order = R.sort_slots(keys_k, gids_k)
+    bounds = R.tile_bounds(sk, n_tiles)
+    n_valid = int(bounds[-1])
+    if n_valid != isects.n_isects:
+        fail(f"K5 {tag}: {n_valid} valid keys for {isects.n_isects} "
+             "intersections")
+    counts = bounds[1:] - bounds[:-1]
+    log(f"K5 {tag}: bit-identical; slots {isects.total} real "
+        f"{isects.n_isects} (no cull); longest tile list "
+        f"{int(counts.max())}, mean {float(counts.float().mean()):.1f}")
+
+    fwd = (geom, ch, gs, bounds, H, W, TILE)
+    out, aux, stop = SR.rasterize_surfels_fwd(*fwd)
+    out_p, aux_p, stop_p = SR.rasterize_surfels_fwd_plain(*fwd)
+    torch.cuda.synchronize()
+    share = float((stop == stop_p).float().mean())
+    if share < STOP_SHARE:
+        fail(f"K6 {tag}: i_stop agrees on {share:.5f} of pixels "
+             f"< {STOP_SHARE}")
+    err = off_share(f"K6 {tag} channels", out, out_p, OFF_SHARE)
+    names = ("T", "sum w depth", "median depth", "distortion", "A", "M1",
+             "M2")
+    plane_err = {}
+    for i, name in enumerate(names):
+        limit = MEDIAN_OFF_SHARE if i == SR.AUX_MEDIAN else OFF_SHARE
+        plane_err[name] = off_share(f"K6 {tag} {name}", aux[i], aux_p[i],
+                                    limit)
+    fwd_err = max(err, *(v for k, v in plane_err.items()
+                         if k != "median depth"))
+    log(f"K6 {tag}: i_stop agrees on {share:.6f}; max abs err channels "
+        f"{err:.3e}, " + ", ".join(f"{k} {v:.3e}"
+                                   for k, v in plane_err.items())
+        + f"; mean alpha {float(1 - aux[0].mean()):.4f}, mean distortion "
+        f"{float(aux[3].mean()):.3e}")
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g_out = torch.randn((H, W, C), generator=gen, device="cuda")
+    g_aux = torch.randn((3, H, W), generator=gen, device="cuda")
+    bwd = (geom, ch, gs, bounds, g_out, g_aux, aux, stop, TILE)
+    rows = SR.rasterize_surfels_bwd(*bwd)
+    again = SR.rasterize_surfels_bwd(*bwd)
+    stats = {}
+    rows_p = SR.rasterize_surfels_bwd_plain(*bwd, stats=stats)
+    torch.cuda.synchronize()
+    if not torch.equal(rows, again):
+        fail(f"K7 {tag}: two runs gave different rows")
+    bwd_err, gshare = check_rows(f"K7 {tag}", rows, rows_p, K7_COLUMNS,
+                                 SURFEL_GRAD_SHARE)
+    uncontracted = SR.rasterize_surfels_bwd(*bwd, contract=False)
+    _, ushare = check_rows(f"K7 {tag} built without contraction",
+                           uncontracted, rows_p, K7_COLUMNS,
+                           UNCONTRACTED_SHARE)
+    if timed:
+        # the tolerance must fail a wrong backward: one without the depth
+        # and distortion terms
+        g_alpha_only = torch.cat([g_aux[:1], torch.zeros_like(g_aux[1:])])
+        partial = SR.rasterize_surfels_bwd(*bwd[:5], g_alpha_only, *bwd[6:])
+        missed = [K7_COLUMNS[c] for c, (_, s) in enumerate(
+            column_shares(tag, partial, rows_p)[:13])
+            if s < SURFEL_GRAD_SHARE]
+        log(f"K7 {tag}: without g_depth and g_dist these columns fail the "
+            f"tolerance: {missed}")
+        if len(missed) < 13:
+            fail(f"K7 {tag}: the tolerance passes the geometry columns "
+                 f"other than {missed} of a backward without the depth "
+                 "and distortion terms")
+    red = (rows, gs, isects.offsets, R.invert_order(order), bounds[-1:], n)
+    summed = R.reduce_grads(*red, n_abs=0)
+    summed_p = R.reduce_grads_plain(rows, gs, n, n_abs=0)
+    torch.cuda.synchronize()
+    if not torch.equal(summed, R.reduce_grads(*red, n_abs=0)):
+        fail(f"K4 surfel {tag}: two runs gave different sums")
+    reduce_err = check_sums(f"K4 surfel {tag}", summed, summed_p, rows, gs,
+                            n, 0)
+    scale, sscale = float(rows_p.abs().max()), float(summed_p.abs().max())
+    composited = stats["composited_pairs"]
+    log(f"K7 {tag}: every column agrees on >= {gshare:.6f} of its values "
+        f"(>= {ushare:.7f} when built without contraction), "
+        f"max abs err {bwd_err:.3e} (max |ref| {scale:.3e}); identical in "
+        f"two runs. K4 with 13 + C columns: max abs err {reduce_err:.3e} "
+        f"(max |ref| {sscale:.3e}); composited pairs {composited}")
+    rec = {"fwd_err": fwd_err, "median_err": plane_err["median depth"],
+           "bwd_err": bwd_err, "reduce_err": reduce_err}
+    if not timed:
+        return rec
+    attrs = SR.rasterize_surfels_bwd_attributes(C, TILE)
+    log(f"K7 C={C} per cudaFuncGetAttributes: {attrs['registers']} "
+        f"registers, {attrs['local_bytes']} local bytes per thread, "
+        f"{attrs['shared_bytes']} dynamic shared bytes per block")
+    gids64 = gs.long()
+    sums = torch.empty((n, rows.shape[1]), device=rows.device)
+    pairs = visited_pairs(stop, bounds, tiles_x)
+    pairs_bwd = pairs - int((stop < R.NEVER_STOPPED).sum())
+    in_bytes = n * (52 + 4 * C) + 4 * n_valid + 8 * (n_tiles + 1)
+    R_ = 13 + C
+    rec.update(
+        bwd_scale=scale, reduce_scale=sscale,
+        expand_ms=cuda_ms(lambda: SR.surfel_expand(*args), 20),
+        expand_plain_ms=cuda_ms(lambda: SR.surfel_expand_plain(*args), 3),
+        sort_ms=cuda_ms(lambda: R.sort_slots(keys_k, gids_k), 20),
+        fwd_ms=cuda_ms(lambda: SR.rasterize_surfels_fwd(*fwd), 20),
+        fwd_plain_ms=cuda_ms(
+            lambda: SR.rasterize_surfels_fwd_plain(*fwd), 1, warmup=0),
+        bwd_ms=cuda_ms(lambda: SR.rasterize_surfels_bwd(*bwd), 20),
+        bwd_plain_ms=cuda_ms(
+            lambda: SR.rasterize_surfels_bwd_plain(*bwd), 1, warmup=0),
+        reduce_ms=cuda_ms(lambda: R.reduce_grads(*red, n_abs=0), 20),
+        reduce_plain_ms=cuda_ms(
+            lambda: R.reduce_grads_plain(rows, gs, n, n_abs=0), 5),
+        reduce_library_ms=cuda_ms(
+            lambda: sums.zero_().index_add_(0, gids64, rows), 20),
+        expand_bound=bound(28 * n + 12 * isects.total, 6 * isects.n_isects),
+        fwd_bound=bound(in_bytes + H * W * (4 * C + 32),
+                        47 * pairs + (26 + 2 * C) * composited),
+        bwd_bound=bound(in_bytes + H * W * (4 * C + 44) + 4 * R_ * n_valid,
+                        48 * pairs_bwd + (123 + 4 * C) * composited),
+        reduce_bound=bound(4 * R_ * n_valid + 4 * isects.total + 8 * n
+                           + 4 * R_ * n, R_ * n_valid),
+        slots=isects.total, n_isects=isects.n_isects, pairs=pairs,
+        pairs_bwd=pairs_bwd, composited_pairs=composited)
+    log(f"surfel {tag} timings " + json.dumps(
+        {k: v for k, v in rec.items() if k.endswith(("_ms", "_bound"))
+         or k in ("slots", "n_isects", "pairs", "pairs_bwd",
+                  "composited_pairs")}))
+    return rec
+
+
+def phase_surfel_kernels(state):
+    log("== phase 3 (surfels): K5, K6, K7 and K4 against their plain "
+        "versions, full width")
+    named = views()
+    cases = (("bench", 6, True), ("orbit_yaw20", 6, False),
+             ("bench", 3, False), ("bench", 9, False))
+    rec = {}
+    for seed, (vname, C, timed) in enumerate(cases):
+        r = check_surfel_kernels(vname, C, state, camera(named[vname]),
+                                 10 + seed, timed)
+        errs = {k: r.pop(k) for k in ("fwd_err", "median_err", "bwd_err",
+                                      "reduce_err")}
+        if C == 6:   # the main path's width: what the kernels line reports
+            for k, v in errs.items():
+                rec[k] = max(rec.get(k, 0.0), v)
+        rec.update(r)
+    return rec
+
+
+def phase_small_surfel_reference():
+    """SurfelRenderer on a small scene, card vs CPU (plain versions): the
+    seven outputs, and the gradients of a loss with the distortion and
+    normal-consistency terms."""
+    arrays = surfel_arrays(scene_arrays(400, seed=1))
+    arrays["means"][:, 2] -= 2.0  # nearer: larger surfels, longer lists
+    outs, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        state = state_from_raw_arrays(arrays, device=dev)
+        state.params = state.params.map(
+            lambda _, x: x.requires_grad_(True))
+        target = torch.rand((96, 128, 3), generator=torch.Generator(
+            ).manual_seed(3)).to(dev)
+        with torch.enable_grad():
+            out = SurfelRendererConfig().instantiate().forward(
+                state, camera(np.eye(4), 96, 128, 120.0, device=dev), 96,
+                128, torch.tensor([0.1, 0.2, 0.3], device=dev), SH_DEGREE)
+            loss, _ = train_loss(out.render, target)
+            normal_err = 1.0 - (out.rend_normal * out.surf_normal).sum(-1)
+            loss = (loss + 0.05 * normal_err.mean()
+                    + 100.0 * out.rend_dist.mean())
+            loss.backward()
+        outs[dev] = out
+        grads[dev] = {k: getattr(state.params, k).grad.cpu()
+                      for k in PARAM_FIELDS}
+    for key in ("render", "alpha", "rend_normal", "view_normal",
+                "rend_dist", "surf_depth", "surf_normal"):
+        g = getattr(outs["cuda"], key).detach().cpu()
+        w = getattr(outs["cpu"], key).detach()
+        bad = (g - w).abs() > ATOL + RTOL * w.abs()
+        share = 1.0 - float(bad.float().mean())
+        # a finite-difference normal reads four neighbouring depths
+        floor = 0.99 if key == "surf_normal" else STOP_SHARE
+        if not bool(torch.isfinite(g).all()) or share < floor:
+            fail(f"small surfel scene {key}: card matches the CPU renderer "
+                 f"at {share:.5f} of values")
+    for key, g in grads["cuda"].items():
+        w = grads["cpu"][key]
+        scale = float(w.abs().max())
+        bad = (g - w).abs() > 1e-3 * scale + 1e-2 * w.abs()
+        share = 1.0 - float(bad.float().mean())
+        if (not bool(torch.isfinite(g).all()) or scale <= 0.0
+                or share < STOP_SHARE):
+            fail(f"small surfel scene d loss / d {key}: card matches the "
+                 f"CPU at {share:.5f} of values (max |ref| {scale})")
+    log("small surfel scene (400 surfels, 128x96): the card's seven "
+        "outputs and the gradients of the L1 + SSIM + normal + distortion "
+        "loss for all six parameter tensors match the CPU's")
+
+
 def phase_main_path(ply):
     log("== phase 4: main path GaussianModelLoader -> ViewerRenderer -> "
         "TileRenderer at 1088x1920")
@@ -541,8 +896,13 @@ def perturbed(arrays, seed=1):
     return out
 
 
-def train_stage_times(trainer, state, cam, target, bg, reps=3):
-    """One training step's stages, as Trainer.train_step runs them."""
+def train_stage_times(trainer, state, cam, target, bg, loss_of=None,
+                      reps=3):
+    """One training step's stages, as Trainer.train_step runs them.
+    `loss_of(out)`: the loss of a render; L1 + SSIM when None."""
+    if loss_of is None:
+        def loss_of(out):
+            return train_loss(out.render, target)[0]
     rows = []
     for _ in range(reps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
@@ -555,7 +915,7 @@ def train_stage_times(trainer, state, cam, target, bg, reps=3):
             GaussianState(params=leaves, alive=state.alive), cam, H, W, bg,
             SH_DEGREE, means2d_tap=tap)
         ev[1].record()
-        loss, _ = train_loss(out.render, target)
+        loss = loss_of(out)
         ev[2].record()
         grads = torch.autograd.grad(
             loss, [getattr(leaves, k) for k in PARAM_FIELDS] + [tap])
@@ -646,7 +1006,8 @@ def phase_training(arrays, rec):
                 f"{state.params.capacity}; opacity max "
                 f"{float(state.gaussians.get_opacities().max()):.4f}")
         del prev
-    launches = read_launches()
+    launches = {k: v for k, v in read_launches().items()
+                if k in GAUSSIAN_KERNELS}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(math.isfinite(x) for x in losses):
         fail(f"training: non-finite loss in {losses}")
@@ -675,6 +1036,198 @@ def phase_training(arrays, rec):
     log(f"training stage ms at capacity {state.params.capacity} (CUDA "
         "events, median of 3) " + json.dumps(stage))
     return launches
+
+
+S2D_STEPS, S2D_DENSIFY_AT, S2D_STEPS_AFTER = 12, 12, 3
+# both extra losses act when step > from_iter: -1 turns them on at step 0
+S2D_METRICS = dict(lambda_normal=0.05, lambda_dist=100.0,
+                   normal_from_iter=-1, dist_from_iter=-1)
+
+
+def surfel_stage_times(state, cam, reps=5):
+    """A surfel frame's stages, as SurfelRenderer.forward runs them."""
+    tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
+    rows = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        proj, geom, ch = surfel_inputs(state, cam, 6)
+        ev[1].record()
+        isects = SR.surfel_isect_encode(proj.means2d, proj.depths,
+                                        proj.radii, H, W, TILE)
+        keys, gids = SR.surfel_expand(isects, proj.depths.contiguous(),
+                                      tiles_x, tiles_y)
+        ev[2].record()
+        sk, gs, _ = R.sort_slots(keys, gids)
+        ev[3].record()
+        bounds = R.tile_bounds(sk, tiles_x * tiles_y)
+        ev[4].record()
+        SR.rasterize_surfels_fwd(geom, ch, gs, bounds, H, W, TILE)
+        ev[5].record()
+        torch.cuda.synchronize()
+        rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(5)])
+    med = np.median(np.asarray(rows), axis=0)
+    names = ("project_sh_pack", "expand", "sort", "ranges", "forward")
+    return {k: float(v) for k, v in zip(names, med)}
+
+
+def phase_surfel_main_path(arrays):
+    log("== phase 6: 2DGS main path, ViewerRenderer -> SurfelRenderer and "
+        "GS2DTrainer at 1088x1920")
+    arrays = surfel_arrays(arrays)
+    state = state_from_raw_arrays(arrays, device="cuda")
+    renderer = SurfelRendererConfig().instantiate()
+    vr = ViewerRenderer(state, renderer, SH_DEGREE)
+    fov_y = math.degrees(2.0 * math.atan(0.5 * H / FOCAL))
+    bg = torch.zeros(3, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    frame_ms = {}
+    for i, name in enumerate(renderer.get_available_outputs()):
+        vr.output_type = name
+        c2w = orbit_c2w(8.0 * i, 0.0, 5.0, TARGET)
+        t0 = time.perf_counter()
+        img = vr.get_outputs(c2w, W, H, fov_y)   # ends in a host copy
+        frame_ms[name] = round((time.perf_counter() - t0) * 1e3, 3)
+        if img.shape != (H, W, 3) or img.dtype != np.uint8:
+            fail(f"surfel frame {name}: shape {img.shape} {img.dtype}")
+        if int(img.max()) == 0:
+            fail(f"surfel frame {name} is black")
+    if len(frame_ms) != 7:
+        fail(f"SurfelRenderer offers {len(frame_ms)} outputs, not 7")
+    torch.cuda.synchronize()
+    serving = {k: v for k, v in read_launches().items()
+               if k in ("surfel_expand", "surfel_fwd")}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, count in serving.items():
+        if count <= 0:
+            fail(f"2DGS serving path never launched kernel {name}")
+    cam = camera(np.eye(4))
+    with torch.no_grad():
+        out = renderer.forward(state, cam, H, W, bg, SH_DEGREE)
+    for key in ("render", "alpha", "rend_normal", "view_normal",
+                "rend_dist", "surf_depth", "surf_normal"):
+        if not bool(torch.isfinite(getattr(out, key)).all()):
+            fail(f"2DGS main path {key}: non-finite")
+    mean_alpha = float(out.alpha.mean())
+    if not mean_alpha > 0.0:
+        fail("2DGS main path: mean alpha is 0")
+    log(f"2DGS serving: one frame per output, ms per frame {frame_ms}; "
+        f"bench pose: n_isects {out.n_isects}, mean alpha {mean_alpha:.4f}, "
+        f"mean distortion {float(out.rend_dist.mean()):.3e}; launches "
+        f"{serving}; peak memory {peak_gb:.3f} GiB")
+    with torch.no_grad():
+        rgb_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            renderer.forward(state, cam, H, W, bg, SH_DEGREE)
+            torch.cuda.synchronize()
+            rgb_ms.append((time.perf_counter() - t0) * 1e3)
+        log("2DGS bench-pose frame (all seven outputs), host clock ms "
+            + json.dumps(rgb_ms))
+        log("2DGS bench-pose stage ms (CUDA events, median of 5) "
+            + json.dumps(surfel_stage_times(state, cam)))
+
+    # training
+    trainer = GS2DTrainer(
+        model=Gaussian2DConfig(sh_degree=SH_DEGREE),
+        density=VanillaDensityControllerConfig(
+            densify_from_iter=5, densification_interval=S2D_DENSIFY_AT,
+            densify_until_iter=100, opacity_reset_interval=1000,
+            cull_opacity_threshold=0.3),
+        metrics=GS2DMetricsConfig(**S2D_METRICS),
+        config=TrainerConfig(max_steps=S2D_STEPS + S2D_STEPS_AFTER,
+                             sh_degree_interval=2))
+    cams = [camera(c2w) for c2w in views().values()]
+    with torch.no_grad():
+        targets = [trainer.renderer.forward(state, c, H, W, bg,
+                                            SH_DEGREE).render for c in cams]
+    del state, vr, out
+    state = trainer.setup(
+        state_from_raw_arrays(perturbed(arrays), device="cuda"),
+        cameras_extent=TRAIN_EXTENT)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def loss_of(out):
+        loss, _ = train_loss(out.render, targets[0])
+        normal_err = 1.0 - (out.rend_normal * out.surf_normal).sum(-1)
+        return (loss + S2D_METRICS["lambda_normal"] * normal_err.mean()
+                + S2D_METRICS["lambda_dist"] * out.rend_dist.mean())
+
+    stage = train_stage_times(trainer, state, cams[0], targets[0], bg,
+                              loss_of)
+    log(f"2DGS training stage ms at capacity {state.params.capacity} (CUDA "
+        "events, median of 3) " + json.dumps(stage))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, extra, step_ms, alive = [], [], [], {}
+    n_split = 0
+    for step in range(1, S2D_STEPS + S2D_STEPS_AFTER + 1):
+        view = step % len(cams)
+        t0 = time.perf_counter()
+        state, scalars = trainer.train_step(
+            state, cams[view], targets[view], H, W,
+            trainer.sh_degree_at(step), bg)
+        losses.append(float(scalars["loss"]))       # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        extra.append((float(scalars["normal_loss"]),
+                      float(scalars["dist_loss"])))
+        if step == S2D_DENSIFY_AT:
+            # a tenth of the seen surfels above the threshold
+            d = state.density
+            stat = (d.grad_accum / d.denom.clamp(min=1.0))[d.denom > 0]
+            k = max(int(0.9 * stat.numel()), 1)
+            trainer.density_cfg.densify_grad_threshold = float(
+                stat.kthvalue(k).values)
+        alive[step] = state.gaussians.n_alive
+        prev = state
+        t0 = time.perf_counter()
+        state = trainer.maybe_density_ops(state, gen, step)
+        torch.cuda.synchronize()
+        if step == S2D_DENSIFY_AT:
+            ms = (time.perf_counter() - t0) * 1e3
+            cap = prev.params.capacity
+            was, now = prev.alive, state.alive[:cap]
+            n_split = int((was & now & (state.params.scales[:cap]
+                                        != prev.params.scales).any(-1)).sum())
+            log(f"step {step}: density ops {ms:.1f} ms; alive {alive[step]} "
+                f"-> {state.gaussians.n_alive}, {n_split} surfels split in "
+                f"place, pruned {int((was & ~now).sum())}, capacity {cap} "
+                f"-> {state.params.capacity}, scales "
+                f"{tuple(state.params.scales.shape)}")
+        del prev
+    launches = {k: v for k, v in read_launches().items()
+                if k in SURFEL_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"2DGS training: non-finite loss in {losses}")
+    first = float(np.mean(losses[:3]))
+    last = float(np.mean(losses[S2D_STEPS - 3:S2D_STEPS]))
+    if not last < first:
+        fail(f"2DGS training: mean loss of steps {S2D_STEPS - 2}-"
+             f"{S2D_STEPS} {last} is not below that of steps 1-3 {first}")
+    if not all(n > 0.0 and d > 0.0 for n, d in extra):
+        fail(f"2DGS training: a normal or distortion loss is 0 in {extra}")
+    for k in PARAM_FIELDS:
+        if not bool(torch.isfinite(getattr(state.params, k)).all()):
+            fail(f"2DGS training: non-finite {k}")
+    if n_split <= 0 or state.params.scales.shape[1] != 2:
+        fail("2DGS training: the densify split no surfel")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"2DGS training path never launched kernel {name}")
+    log(f"2DGS training: losses {[round(x, 5) for x in losses]}")
+    log("2DGS training: (normal, distortion) loss terms "
+        f"{[(round(n, 5), round(d, 5)) for n, d in extra]}")
+    log(f"2DGS training: mean loss steps 1-3 {first:.5f}, steps "
+        f"{S2D_STEPS - 2}-{S2D_STEPS} {last:.5f}; launches {launches} in "
+        f"{len(losses)} steps; peak memory {peak_gb:.3f} GiB")
+    log("2DGS training: ms per step (host clock, synchronised) "
+        + json.dumps([round(x, 2) for x in step_ms]))
+    return serving, launches
 
 
 def main():
@@ -722,9 +1275,15 @@ def main():
             phase_small_reference()
             del state
             torch.cuda.empty_cache()
+            srec = phase_surfel_kernels(state_from_raw_arrays(
+                surfel_arrays(arrays), device="cuda"))
+            phase_small_surfel_reference()
+            torch.cuda.empty_cache()
             launches = phase_main_path(ply)
         torch.cuda.empty_cache()
         train_launches = phase_training(arrays, rec)
+    torch.cuda.empty_cache()
+    surfel_serving, surfel_launches = phase_surfel_main_path(arrays)
 
     def entry(name, line, err, key, library_ms=None):
         # launches: on the training main path, which runs all four;
@@ -739,13 +1298,40 @@ def main():
                 "plain_ms": rec[f"{key}_plain_ms"], "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms}
 
+    def surfel_entry(name, line, err, key):
+        bound_ms, bound_by = srec[f"{key}_bound"]
+        return {"name": name, "route": "cuda",
+                "source": f"gsl_tpu_torch/csrc/{name}.cu",
+                "replaces": f"gsl_tpu/ops/surfel_pallas.py:{line}",
+                "launches": surfel_launches[name],
+                "serving_launches": surfel_serving.get(name, 0),
+                "max_abs_err": err, "ms": srec[f"{key}_ms"],
+                "plain_ms": srec[f"{key}_plain_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+
+    reduce_entry = entry("reduce_grads", 1379, rec["reduce_err"], "reduce",
+                         rec["reduce_library_ms"])
+    reduce_entry.update(
+        surfel_launches=surfel_launches["reduce_grads"],
+        surfel_max_abs_err=srec["reduce_err"], surfel_ms=srec["reduce_ms"],
+        surfel_plain_ms=srec["reduce_plain_ms"],
+        surfel_bound_ms=srec["reduce_bound"][0],
+        surfel_bound_by=srec["reduce_bound"][1],
+        surfel_library_ms=srec["reduce_library_ms"])
     kernels = [
         entry("expand", 227, 0.0, "expand"),
         entry("rasterize_fwd", 869, rec["fwd_err"], "fwd"),
         entry("rasterize_bwd", 1069, rec["bwd_err"], "bwd"),
-        entry("reduce_grads", 1379, rec["reduce_err"], "reduce",
-              rec["reduce_library_ms"]),
+        reduce_entry,
+        surfel_entry("surfel_expand", 61, 0.0, "expand"),
+        surfel_entry("surfel_fwd", 253, srec["fwd_err"], "fwd"),
+        surfel_entry("surfel_bwd", 428, srec["bwd_err"], "bwd"),
     ]
+    log(f"surfel backward at the bench pose: K6's median depth differs by "
+        f"up to {srec['median_err']:.3e} (a flipped crossing); K7 errors "
+        f"are of rows up to {srec['bwd_scale']:.3e}, K4's of sums up to "
+        f"{srec['reduce_scale']:.3e}; torch.sort of {srec['slots']} int64 "
+        f"keys: {srec['sort_ms']:.4f} ms")
     log(f"backward at the bench pose: invert_order {rec['invert_ms']:.4f} "
         f"ms; K3 errors are of rows up to {rec['bwd_scale']:.3e}, K4's of "
         f"sums up to {rec['reduce_scale']:.3e}")

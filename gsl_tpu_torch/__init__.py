@@ -3,12 +3,14 @@
 Same layout as ``gsl_tpu``, PyTorch idiom inside:
 
 - ``ops``       projection, spherical harmonics, the tile rasterizer and
-                its gradient (CUDA kernels under ``csrc/`` with plain
-                PyTorch versions beside), SSIM, nearest neighbours.
+                the 2DGS surfel rasterizer with their gradients (CUDA
+                kernels under ``csrc/`` with plain PyTorch versions
+                beside), SSIM, nearest neighbours.
 - ``models``    Gaussian parameters and the alive mask, as tensors;
-                initialization and capacity growth.
-- ``renderers`` ``TileRenderer``: camera -> image.
-- ``training``  loss, per-property Adam, density control, ``Trainer``.
+                initialization and capacity growth; the 2D (surfel) model.
+- ``renderers`` ``TileRenderer`` and ``SurfelRenderer``: camera -> image.
+- ``training``  loss, per-property Adam, density control, ``Trainer`` and
+                ``GS2DTrainer``.
 - ``data``      cameras.
 - ``utils``     PLY I/O, model loading, visualizers, JAX -> torch state.
 - ``viewer``    ``ViewerRenderer`` and camera paths.

@@ -3,8 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for
 ``sm_90a`` into ``gsl_tpu_torch/build/lib<name>-<digest>.so``, a shared
 library with a plain C interface, and loaded with ``ctypes``. The digest
-covers the source and the flags, so an edited source builds anew. The
-build never includes PyTorch's headers, which keeps it to seconds.
+covers the source, the headers (``csrc/*.cuh``) and the flags, so an
+edited source builds anew, and a build with extra flags (`NO_CONTRACTION`,
+for holding a kernel's arithmetic against its plain version) lies beside
+the usual one. The build never includes PyTorch's headers, which keeps it
+to seconds.
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; `check` raises on a nonzero
@@ -22,12 +25,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("expand", "rasterize_fwd", "rasterize_bwd", "reduce_grads")
+SOURCES = ("expand", "rasterize_fwd", "rasterize_bwd", "reduce_grads",
+           "surfel_expand", "surfel_fwd", "surfel_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # expand.cu must round exactly as PyTorch's elementwise ops do (its plain
 # version is held to it bit for bit), so no multiply-add contraction there
-EXTRA_FLAGS = {"expand": ("-fmad=false",)}
+NO_CONTRACTION = ("-fmad=false",)
+EXTRA_FLAGS = {"expand": NO_CONTRACTION}
 
 
 def _nvcc() -> str:
@@ -41,34 +46,36 @@ def _nvcc() -> str:
     return path
 
 
-def _flags(name: str) -> tuple:
-    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+def _flags(name: str, extra: tuple = ()) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ()) + extra
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, extra: tuple = ()) -> Path:
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes()
-        + " ".join(_flags(name)).encode()).hexdigest()[:16]
+        (CSRC / f"{name}.cu").read_bytes() + headers
+        + " ".join(_flags(name, extra)).encode()).hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
 
 
-def build(names=SOURCES) -> dict:
-    """Compile every missing library of `names`, one nvcc per source, all
-    started together. Returns {name: compiler log} (ptxas prints each
+def build(names=SOURCES, extra: tuple = ()) -> dict:
+    """Compile every missing library of `names` (with the `extra` flags
+    added), one nvcc per source, all started together. Returns {name: compiler log} (ptxas prints each
     kernel's registers and shared memory). Raises if any build fails."""
     BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
     logs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, extra)
         log = out.with_suffix(".log")
         if out.exists():
             logs[name] = log.read_text() if log.exists() else ""
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name, extra), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, out, log)
@@ -88,10 +95,10 @@ def build(names=SOURCES) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, extra: tuple = ()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if missing."""
-    build((name,))
-    lib = ctypes.CDLL(str(library_path(name)))
+    build((name,), extra)
+    lib = ctypes.CDLL(str(library_path(name, extra)))
     lib.gsl_error_string.argtypes = [ctypes.c_int]
     lib.gsl_error_string.restype = ctypes.c_char_p
     return lib

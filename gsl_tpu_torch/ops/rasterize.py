@@ -23,7 +23,9 @@ with the same outputs:
 6. `rasterize_bwd` (kernel K3, ``csrc/rasterize_bwd.cu``): each tile's list
    walked back from the pixels' stops; one gradient row per sorted slot.
 7. `reduce_grads` (kernel K4, ``csrc/reduce_grads.cu``): the rows summed
-   per Gaussian, with the absolute mean-gradient columns of AbsGS.
+   per Gaussian, with the absolute mean-gradient columns of AbsGS. The
+   surfel rasterizer (``ops/surfel_rasterize.py``) sums its 13 + C
+   columns with the same kernel.
 
 `rasterize` ties them into one differentiable op (`_Rasterize`).
 
@@ -87,14 +89,12 @@ def isect_encode(projections: Projections, img_height: int, img_width: int,
                   total=total, n_isects=n_isects)
 
 
-def expand_plain(isects: Isects, means2d, conics, opacities, depths,
-                 tiles_x: int, tiles_y: int, tile_size: int,
-                 tile_based_culling: bool = True):
-    """Plain PyTorch version of kernel K1; same arithmetic, same order of
-    rounding. Returns (keys [total] int64, gids [total] int32) in slot
-    order."""
-    dev = means2d.device
-    n = means2d.shape[0]
+def slot_tiles(isects: Isects, tiles_y: int):
+    """Per slot, in slot order: (gid [total] int64, t_x, t_y [total] int64,
+    valid [total] bool). A Gaussian with an empty rectangle keeps one
+    invalid dummy slot."""
+    dev = isects.offsets.device
+    n = isects.offsets.shape[0]
     rect = isects.rect.to(torch.int64)
     hits = rect[:, 2] * rect[:, 3]
     gid = torch.repeat_interleave(
@@ -104,7 +104,25 @@ def expand_plain(isects: Isects, means2d, conics, opacities, depths,
     w = torch.clamp(rect[gid, 2], min=1)
     t_y = torch.clamp(rect[gid, 1] + local // w, max=tiles_y - 1)
     t_x = rect[gid, 0] + local % w
-    valid = hits[gid] > 0
+    return gid, t_x, t_y, hits[gid] > 0
+
+
+def slot_keys(valid, t_x, t_y, tiles_x: int, depths, gid):
+    """[total] int64 (tile << 32) | bits(max(depth, 0)); INVALID_KEY where
+    not valid."""
+    dbits = (torch.clamp(depths, min=0.0).view(torch.int32)
+             .to(torch.int64))[gid]
+    return torch.where(valid, ((t_y * tiles_x + t_x) << 32) | dbits,
+                       torch.full_like(dbits, INVALID_KEY))
+
+
+def expand_plain(isects: Isects, means2d, conics, opacities, depths,
+                 tiles_x: int, tiles_y: int, tile_size: int,
+                 tile_based_culling: bool = True):
+    """Plain PyTorch version of kernel K1; same arithmetic, same order of
+    rounding. Returns (keys [total] int64, gids [total] int32) in slot
+    order."""
+    gid, t_x, t_y, valid = slot_tiles(isects, tiles_y)
     if tile_based_culling:
         mx, my = means2d[gid, 0], means2d[gid, 1]
         ca, cb, cc = conics[gid, 0], conics[gid, 1], conics[gid, 2]
@@ -132,10 +150,7 @@ def expand_plain(isects: Isects, means2d, conics, opacities, depths,
                            torch.clamp(smin, min=0.0))
         peak = opacities[gid] * torch.exp(-smin)
         valid = valid & ~(peak < ALPHA_THRESHOLD)
-    dbits = (torch.clamp(depths, min=0.0).view(torch.int32)
-             .to(torch.int64))[gid]
-    keys = torch.where(valid, ((t_y * tiles_x + t_x) << 32) | dbits,
-                       torch.full_like(dbits, INVALID_KEY))
+    keys = slot_keys(valid, t_x, t_y, tiles_x, depths, gid)
     return keys, gid.to(torch.int32)
 
 
@@ -217,6 +232,15 @@ def tile_bounds(sorted_keys, n_tiles: int):
     return torch.searchsorted(sorted_keys, starts)
 
 
+def _tiles_to_image(x, tiles_x: int, tiles_y: int, tile_size: int,
+                    img_height: int, img_width: int):
+    """[n_tiles, P, K] -> [H, W, K]."""
+    x = x.reshape(tiles_y, tiles_x, tile_size, tile_size, -1)
+    x = x.permute(0, 2, 1, 3, 4).reshape(tiles_y * tile_size,
+                                         tiles_x * tile_size, -1)
+    return x[:img_height, :img_width]
+
+
 def rasterize_fwd_plain(means2d, conics, opacities, channels, gids, bounds,
                         img_height: int, img_width: int, tile_size: int):
     """Plain PyTorch version of kernel K2 with the oracle's sequential
@@ -279,14 +303,10 @@ def rasterize_fwd_plain(means2d, conics, opacities, channels, gids, bounds,
                 T = torch.where(comp, next_t, T)
         out[tl], t_fin[tl], stop[tl] = acc, T, brk_at
 
-    def to_image(x):
-        x = x.reshape(tiles_y, tiles_x, tile_size, tile_size, -1)
-        x = x.permute(0, 2, 1, 3, 4).reshape(tiles_y * tile_size,
-                                             tiles_x * tile_size, -1)
-        return x[:img_height, :img_width]
-
-    return (to_image(out), to_image(t_fin)[..., 0],
-            to_image(stop)[..., 0].to(torch.int32))
+    dims = (tiles_x, tiles_y, tile_size, img_height, img_width)
+    return (_tiles_to_image(out, *dims),
+            _tiles_to_image(t_fin, *dims)[..., 0],
+            _tiles_to_image(stop, *dims)[..., 0].to(torch.int32))
 
 
 def _fwd_lib():
@@ -496,14 +516,21 @@ def rasterize_bwd(means2d, conics, opacities, channels, gids, bounds,
 rasterize_bwd.launches = 0
 
 
-def reduce_grads_plain(rows, gids, n: int):
+N_GEOM = 6   # K3's leading columns: dmx dmy da db dc dop (kGeom in K4)
+
+
+def reduce_grads_plain(rows, gids, n: int, n_abs: int = 2):
     """Plain PyTorch version of kernel K4: `index_add_` of the rows, and of
-    the absolute values of their first two columns, by Gaussian id.
-    rows [n_rows, 6 + C], gids [n_rows] -> [n, 8 + C] with columns
-    dmx dmy da db dc dop |dmx| |dmy| channels. Rows of invalid slots
-    (sorted behind the valid ones) are zero, as `rasterize_bwd` leaves
-    them, and add nothing."""
-    full = torch.cat([rows[:, :6], rows[:, :2].abs(), rows[:, 6:]], 1)
+    the absolute values of their first `n_abs` columns, by Gaussian id.
+    rows [n_rows, R], gids [n_rows] -> [n, R + n_abs]. With n_abs = 2 and
+    K3's rows (R = 6 + C) the columns are dmx dmy da db dc dop |dmx| |dmy|
+    channels; with n_abs = 0 the sums keep the rows' columns. Rows of
+    invalid slots (sorted behind the valid ones) are zero, as the backward
+    kernels leave them, and add nothing."""
+    full = rows
+    if n_abs:
+        full = torch.cat([rows[:, :N_GEOM], rows[:, :n_abs].abs(),
+                          rows[:, N_GEOM:]], 1)
     out = torch.zeros((n, full.shape[1]), dtype=rows.dtype,
                       device=rows.device)
     return out.index_add_(0, gids.long(), full)
@@ -512,22 +539,26 @@ def reduce_grads_plain(rows, gids, n: int):
 def _reduce_lib():
     lib = cuda_build.load("reduce_grads")
     lib.gsl_reduce_grads.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]
     lib.gsl_reduce_grads.restype = ctypes.c_int
     return lib
 
 
-def reduce_grads(rows, gids, offsets, inv_order, n_valid, n: int):
+def reduce_grads(rows, gids, offsets, inv_order, n_valid, n: int,
+                 n_abs: int = 2):
     """Kernel K4 on CUDA tensors, `reduce_grads_plain` on CPU tensors.
-    rows [n_rows, 6 + C] per sorted position, zero behind the valid ones;
+    rows [n_rows, R] per sorted position, zero behind the valid ones;
     gids [n_rows] the sorted ids (the plain version's index); offsets [n]
     int64 each Gaussian's first slot; inv_order [total] int32 each slot's
     sorted position; n_valid [1] int64 on the device (``bounds[-1:]``), so
-    no host read is needed. Returns [n, 8 + C]."""
+    no host read is needed. `n_abs`: how many leading columns also get
+    their absolute sums, placed behind column N_GEOM (2 for the AbsGS
+    statistic of K3's rows, 0 for the surfel rows). Returns
+    [n, R + n_abs]."""
     if not rows.is_cuda:
-        return reduce_grads_plain(rows, gids, n)
+        return reduce_grads_plain(rows, gids, n, n_abs)
     if (rows.dtype != torch.float32 or offsets.dtype != torch.int64
             or inv_order.dtype != torch.int32
             or n_valid.dtype != torch.int64):
@@ -536,12 +567,15 @@ def reduce_grads(rows, gids, offsets, inv_order, n_valid, n: int):
     if offsets.numel() != n or rows.shape[0] > inv_order.numel():
         raise ValueError("reduce_grads: offsets must have one entry per "
                          "Gaussian and inv_order one per slot")
+    if n_abs and not n_abs <= N_GEOM <= rows.shape[1]:
+        raise ValueError("reduce_grads: absolute sums need rows with the "
+                         f"{N_GEOM} geometry columns in front")
     dev = _check_cuda("reduce_grads", rows, offsets, inv_order, n_valid)
-    out = torch.empty((n, rows.shape[1] + 2), dtype=torch.float32,
+    out = torch.empty((n, rows.shape[1] + n_abs), dtype=torch.float32,
                       device=dev)
     lib = _reduce_lib()
     code = lib.gsl_reduce_grads(
-        _ptr(rows), rows.shape[1], _ptr(offsets), inv_order.numel(),
+        _ptr(rows), rows.shape[1], n_abs, _ptr(offsets), inv_order.numel(),
         _ptr(inv_order), _ptr(n_valid), n, _ptr(out), _stream(dev))
     cuda_build.check(lib, code, "reduce_grads")
     if n:

@@ -65,7 +65,7 @@ class TileRenderer:
                 "ROADMAP.md")
         self.config = config
 
-    def uses_kernels(self) -> bool:
+    def supports_absgrad(self) -> bool:
         """True when forward() produces the absgrad tap's gradient: always,
         since the kernels' plain versions produce it too."""
         return True

@@ -103,7 +103,8 @@ def densify_and_prune(
 ) -> Tuple[GaussianState, AdamState, DensityControlState, torch.Tensor]:
     """One clone/split/prune pass. `noise` is a ``torch.Generator`` on the
     state's device (or None for the default one), or the two standard
-    normal draws themselves as a pair of [CAP, 3] tensors. Returns (state,
+    normal draws themselves as a pair of [CAP, sdim] tensors (sdim: the
+    scales' columns). Returns (state,
     opt_state, dstate, n_truncated): n_truncated > 0, a 0-d tensor, tells
     the caller to grow the capacity and redo the pass."""
     p = gstate.params
@@ -123,12 +124,15 @@ def densify_and_prune(
     split_mask = high_grad & ~small
 
     # split offsets: std = activated scales, rotated into the world
+    # sdim is 3 for Gaussians and 2 for surfels, whose offsets lie in the
+    # tangent plane (the first two rotation columns)
+    sdim = p.scales.shape[-1]
     if isinstance(noise, (tuple, list)):
         n1, n2 = noise
     else:
-        n1 = torch.randn((cap, 3), generator=noise, device=dev)
-        n2 = torch.randn((cap, 3), generator=noise, device=dev)
-    rot = quat_to_rotmat(normalize_quat(p.rotations))          # [CAP, 3, 3]
+        n1 = torch.randn((cap, sdim), generator=noise, device=dev)
+        n2 = torch.randn((cap, sdim), generator=noise, device=dev)
+    rot = quat_to_rotmat(normalize_quat(p.rotations))[:, :, :sdim]
     off1 = (rot * (n1 * scales_act)[:, None, :]).sum(-1)
     off2 = (rot * (n2 * scales_act)[:, None, :]).sum(-1)
     log_div = math.log(0.8 * 2.0)

@@ -98,8 +98,9 @@ class Trainer:
 
     def render_losses(self, gstate: GaussianState, camera: Cameras,
                       img_height: int, img_width: int, bg_color, sh_degree,
-                      gt_image, mask, tap, abstap):
-        """-> (loss, (scalars, radii, n_dropped))."""
+                      gt_image, mask, tap, abstap, step: int):
+        """-> (loss, (scalars, radii, n_dropped)). `step`: the steps taken
+        before this one, for losses that start at an iteration."""
         out = self.renderer.forward(
             gstate, camera, img_height, img_width, bg_color, sh_degree,
             means2d_tap=tap, absgrad_tap=abstap)
@@ -131,7 +132,8 @@ class Trainer:
         itself never waits for the device beyond the rasterizer's one
         read that sizes its slot buffers."""
         dev = state.alive.device
-        use_absgrad = self.density_cfg.absgrad and self.renderer.uses_kernels()
+        use_absgrad = (self.density_cfg.absgrad
+                       and self.renderer.supports_absgrad())
         leaves = state.params.map(
             lambda _, x: x.detach().requires_grad_(True))
         tap = torch.zeros((state.params.capacity, 2), dtype=torch.float32,
@@ -144,7 +146,7 @@ class Trainer:
             loss, (scalars, radii, n_dropped) = self.render_losses(
                 GaussianState(params=leaves, alive=state.alive), camera,
                 img_height, img_width, bg_color, sh_degree, gt_image, mask,
-                tap, abstap)
+                tap, abstap, state.step)
             wrt = [getattr(leaves, k) for k in PARAM_FIELDS] + [tap]
             if use_absgrad:
                 wrt.append(abstap)

@@ -18,7 +18,27 @@ K4's per-Gaussian sums of them, are held to rtol 1e-3 / atol 1e-3 at
 hundreds, and T / (1 - alpha) walked backwards rounds differently with
 and without contraction). K4 on identical rows differs from `index_add_`
 only in the order of its float32 additions.
+
+The surfel kernels follow the same pattern. K5 (surfel expand) is integer
+work and must equal surfel_expand_plain bit for bit. K6 (surfel forward)
+decides more per pair than K2 (alpha >= 1/255, rho3d <= rho2d,
+depth >= 0.2, the 0.5 crossing of the median, the stop), all on rounded
+values, so its images are held at a share of values like K2's; the median
+depth gets its own share, since a crossing that flips moves a pixel by a
+whole depth step. K7's rows are held column by column: the columns have
+different units, and near-degenerate solves put a few rows far above a
+column's typical magnitude, so each column gets 1e-4 of its own scale (the
+99th percentile of the reference's nonzero magnitudes) + rtol 1e-3 at
+>= 99.5% of its values: the solve's hx = px Tw - Tu and the cross product
+hx x hy are differences of products far larger than their result, which
+the kernel contracts to multiply-adds and the plain version does not, so
+more pairs round apart than in K3. Built without contraction
+(`contract=False`) the same source rounds as the plain version does and is
+held at >= 99.9% here, at >= 99.999% at full width by `chip_smoke.py`. The K4 sums of those rows (no absolute columns
+there) may differ from `index_add_`'s by 1e-5 of the summed magnitudes of
+the rows that went into each sum, and by nothing more.
 """
+import math
 import pathlib
 import subprocess
 import sys
@@ -29,7 +49,10 @@ import torch
 
 from gsl_tpu_torch.data.cameras import make_camera
 from gsl_tpu_torch.ops import rasterize as R
+from gsl_tpu_torch.ops import surfel_rasterize as SR
 from gsl_tpu_torch.ops.projection import project_gaussians
+from gsl_tpu_torch.ops.surfel import project_surfels
+from gsl_tpu_torch.renderers.surfel_renderer import SurfelRendererConfig
 from gsl_tpu_torch.renderers.tile_renderer import TileRendererConfig
 from gsl_tpu_torch.utils.convert import state_from_raw_arrays
 
@@ -58,9 +81,10 @@ def scene(n, seed=0):
         shs_rest=rng.normal(size=(n, 15, 3)) * 0.1).items()}
 
 
-def camera(device):
+def camera(device, width=W, height=H):
     return make_camera(R=np.eye(3), T=np.zeros(3), fx=110.0, fy=110.0,
-                       cx=W / 2, cy=H / 2, width=W, height=H, device=device)
+                       cx=width / 2, cy=height / 2, width=width,
+                       height=height, device=device)
 
 
 def close_share(got, want):
@@ -231,6 +255,181 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     rows = R.rasterize_bwd(*bwd)
     with pytest.raises(TypeError):
         R.reduce_grads(rows, bwd[4], isects.offsets, order, bwd[5][-1:], n)
+
+
+def _surfel_inputs(cuda, n_channels, n=3000):
+    arrays = scene(n)
+    state = state_from_raw_arrays(
+        dict(arrays, scales=arrays["scales"][:, :2]), device=cuda)
+    cam = camera(cuda)
+    proj = project_surfels(state.get_means(), state.get_scales(),
+                           state.get_rotations(), cam.world_to_camera,
+                           cam.fx, cam.fy, cam.cx, cam.cy, W, H)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    ch = torch.rand((n, n_channels), generator=gen).to(cuda)
+    geom = SR.pack_surfels(proj.Tu, proj.Tv, proj.Tw, proj.zcoef,
+                           state.get_opacities())
+    isects = SR.surfel_isect_encode(proj.means2d, proj.depths, proj.radii,
+                                    H, W, TS)
+    return proj, geom, ch, isects, gen
+
+
+MEDIAN_SHARE = 0.995
+SURFEL_GRAD_SHARE = 0.995
+
+
+def column_shares(got, want):
+    """Per column, the share of values within 1e-4 of the column's scale
+    + RTOL |want|."""
+    shares = []
+    for c in range(want.shape[1]):
+        mag = want[:, c].abs()
+        nonzero = mag[mag > 0]
+        assert nonzero.numel() > 0, c
+        k = max(1, math.ceil(0.99 * nonzero.numel()))
+        scale = float(nonzero.kthvalue(k).values)
+        bad = (got[:, c] - want[:, c]).abs() > 1e-4 * scale + RTOL * mag
+        shares.append(1.0 - float(bad.float().mean()))
+    return shares
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_channels", [3, 6, 9])
+def test_surfel_kernels_match_plain(cuda, n_channels):
+    """C = 9 takes two K6 launches (8 + 1) and K7's path with the
+    cotangents in shared memory."""
+    n = 3000
+    proj, geom, ch, isects, gen = _surfel_inputs(cuda, n_channels, n)
+    args = (isects, proj.depths.contiguous(), W // TS, H // TS)
+    before = SR.surfel_expand.launches
+    keys, gids = SR.surfel_expand(*args)
+    assert SR.surfel_expand.launches == before + 1
+    keys_p, gids_p = SR.surfel_expand_plain(*args)
+    assert torch.equal(keys, keys_p) and torch.equal(gids, gids_p)
+    sk, gs, order = R.sort_slots(keys, gids)
+    bounds = R.tile_bounds(sk, (W // TS) * (H // TS))
+
+    fwd = (geom, ch, gs, bounds, H, W, TS)
+    before = SR.rasterize_surfels_fwd.launches
+    out, aux, stop = SR.rasterize_surfels_fwd(*fwd)
+    torch.cuda.synchronize()
+    assert SR.rasterize_surfels_fwd.launches == before + -(-n_channels // 8)
+    out_p, aux_p, stop_p = SR.rasterize_surfels_fwd_plain(*fwd)
+    assert float((stop == stop_p).float().mean()) >= SHARE
+    assert bool((stop < R.NEVER_STOPPED).any())
+    assert bool(torch.isfinite(out).all() and torch.isfinite(aux).all())
+    assert close_share(out, out_p) >= SHARE
+    for plane in range(7):
+        share = MEDIAN_SHARE if plane == SR.AUX_MEDIAN else SHARE
+        assert close_share(aux[plane], aux_p[plane]) >= share, plane
+    assert float(aux[SR.AUX_DIST].max()) > 0.0
+    assert float(aux[SR.AUX_MEDIAN].max()) > 1.0
+
+    g_out = torch.randn((H, W, n_channels), generator=gen).to(cuda)
+    g_aux = torch.randn((3, H, W), generator=gen).to(cuda)
+    bwd = (geom, ch, gs, bounds, g_out, g_aux, aux, stop, TS)
+    before = SR.rasterize_surfels_bwd.launches
+    rows = SR.rasterize_surfels_bwd(*bwd)
+    torch.cuda.synchronize()
+    assert SR.rasterize_surfels_bwd.launches == before + 1
+    rows_p = SR.rasterize_surfels_bwd_plain(*bwd)
+    assert rows.shape == rows_p.shape == (gs.numel(), 13 + n_channels)
+    assert bool(torch.isfinite(rows).all())
+    assert float(rows_p.abs().max()) > 1.0
+    shares = column_shares(rows, rows_p)
+    assert min(shares) >= SURFEL_GRAD_SHARE, shares
+    # the same source built without contraction rounds as the plain version
+    uncontracted = SR.rasterize_surfels_bwd(*bwd, contract=False)
+    shares = column_shares(uncontracted, rows_p)
+    assert min(shares) >= SHARE, shares
+    assert torch.equal(rows, SR.rasterize_surfels_bwd(*bwd))   # no atomics
+
+    red = (rows, gs, isects.offsets, R.invert_order(order), bounds[-1:], n)
+    before = R.reduce_grads.launches
+    summed = R.reduce_grads(*red, n_abs=0)
+    torch.cuda.synchronize()
+    assert R.reduce_grads.launches == before + 1
+    summed_p = R.reduce_grads_plain(rows, gs, n, n_abs=0)
+    assert summed.shape == (n, 13 + n_channels)
+    into = R.reduce_grads_plain(rows.abs(), gs, n, n_abs=0)
+    assert bool(((summed - summed_p).abs() <= 1e-5 * into).all())
+    assert torch.equal(summed, R.reduce_grads(*red, n_abs=0))
+    info = SR.rasterize_surfels_bwd_attributes(n_channels, TS)
+    assert 0 < info["registers"] <= 255 and info["shared_bytes"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h", [(W, H), (100, 70)])
+def test_surfel_renderer_and_gradients_on_card_match_cpu(cuda, w, h):
+    """All seven outputs and the gradients of a loss that reaches the
+    channels, alpha, the depth and the distortion: the card (kernels)
+    against the CPU (plain versions); 100x70 leaves the tiles of the last
+    row and column partly outside the image."""
+    arrays = scene(1500, seed=1)
+    arrays = dict(arrays, scales=arrays["scales"][:, :2])
+    outs, grads = [], []
+    for dev in (cuda, torch.device("cpu")):
+        state = state_from_raw_arrays(arrays, device=dev)
+        leaves = state.params.map(lambda _, x: x.requires_grad_(True))
+        state.params = leaves
+        out = SurfelRendererConfig().instantiate().forward(
+            state, camera(dev, w, h), h, w,
+            torch.tensor([0.1, 0.2, 0.3], device=dev), 3)
+        target = torch.rand((h, w, 3), generator=torch.Generator(
+            device="cpu").manual_seed(2)).to(dev)
+        loss = (((out.render - target) ** 2).sum()
+                + 100.0 * out.rend_dist.sum()
+                + (1.0 - (out.rend_normal * out.surf_normal).sum(-1)).sum())
+        loss.backward()
+        outs.append(out)
+        grads.append({k: getattr(leaves, k).grad.cpu()
+                      for k in ("means", "scales", "rotations", "opacities",
+                                "shs_dc", "shs_rest")})
+    for key in ("render", "alpha", "rend_normal", "view_normal",
+                "rend_dist", "surf_depth", "surf_normal"):
+        got = getattr(outs[0], key).detach().cpu()
+        want = getattr(outs[1], key).detach()
+        assert bool(torch.isfinite(got).all()), key
+        # the finite-difference normals spread one flipped pixel to four
+        share = 0.99 if key == "surf_normal" else SHARE
+        assert close_share(got, want) >= share, key
+    assert outs[0].n_isects == outs[1].n_isects
+    for k, got in grads[0].items():
+        want = grads[1][k]
+        assert bool(torch.isfinite(got).all()), k
+        scale = float(want.abs().max())
+        bad = (got - want).abs() > 1e-3 * scale + 1e-2 * want.abs()
+        assert float(bad.float().mean()) <= 1e-3, k
+
+
+@pytest.mark.cuda
+def test_surfel_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    proj, geom, ch, isects, gen = _surfel_inputs(cuda, 6, n=100)
+    depths = proj.depths.contiguous()
+    with pytest.raises(TypeError):
+        SR.surfel_expand(isects, depths.double(), W // TS, H // TS)
+    keys, gids = SR.surfel_expand(isects, depths, W // TS, H // TS)
+    sk, gs, order = R.sort_slots(keys, gids)
+    bounds = R.tile_bounds(sk, (W // TS) * (H // TS))
+    with pytest.raises(ValueError):
+        SR.rasterize_surfels_fwd(geom[:, :12].contiguous(), ch, gs, bounds,
+                                 H, W, TS)
+    with pytest.raises(ValueError):
+        SR.rasterize_surfels_fwd(geom, ch.cpu(), gs, bounds, H, W, TS)
+    out, aux, stop = SR.rasterize_surfels_fwd(geom, ch, gs, bounds, H, W, TS)
+    g_out = torch.zeros_like(out)
+    g_aux = torch.zeros((3, H, W), device=cuda)
+    with pytest.raises(TypeError):
+        SR.rasterize_surfels_bwd(geom, ch, gs, bounds, g_out.double(), g_aux,
+                                 aux, stop, TS)
+    with pytest.raises(ValueError):
+        SR.rasterize_surfels_bwd(geom, ch, gs, bounds, g_out, g_aux[:2],
+                                 aux, stop, TS)
+    rows = SR.rasterize_surfels_bwd(geom, ch, gs, bounds, g_out, g_aux, aux,
+                                    stop, TS)
+    with pytest.raises(ValueError):    # absolute columns need K3's layout
+        R.reduce_grads(rows[:, :4].contiguous(), gs, isects.offsets,
+                       R.invert_order(order), bounds[-1:], 100, n_abs=2)
 
 
 @pytest.mark.cuda

@@ -15,9 +15,26 @@ import torch
 
 from gsl_tpu_torch.ops import cuda_build
 from gsl_tpu_torch.ops import rasterize as R
+from gsl_tpu_torch.ops import surfel_rasterize as SR
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gsl_tpu")
+# source under csrc/ -> (module, wrapper); the plain version is
+# <wrapper>_plain in the same module
+KERNELS = {
+    "expand": (R, "expand"),
+    "rasterize_fwd": (R, "rasterize_fwd"),
+    "rasterize_bwd": (R, "rasterize_bwd"),
+    "reduce_grads": (R, "reduce_grads"),
+    "surfel_expand": (SR, "surfel_expand"),
+    "surfel_fwd": (SR, "rasterize_surfels_fwd"),
+    "surfel_bwd": (SR, "rasterize_surfels_bwd"),
+}
+
+
+def _launch_counts():
+    return {source: getattr(module, wrapper).launches
+            for source, (module, wrapper) in KERNELS.items()}
 
 
 def _port_sources():
@@ -54,15 +71,19 @@ def test_port_uses_no_compiler_and_no_triton(path):
 @pytest.mark.parametrize("name", cuda_build.SOURCES)
 def test_kernel_has_source_wrapper_plain_version_and_counter(name):
     assert (cuda_build.CSRC / f"{name}.cu").is_file()
-    wrapper, plain = getattr(R, name), getattr(R, f"{name}_plain")
+    module, fn = KERNELS[name]
+    wrapper, plain = getattr(module, fn), getattr(module, f"{fn}_plain")
     assert callable(plain)
     assert isinstance(wrapper.launches, int)
     source = inspect.getsource(wrapper)
     # CPU tensors go to the plain version, CUDA tensors to the kernel,
     # which is counted where it is launched; nothing catches a failure
-    assert "is_cuda" in source and f"{name}_plain(" in source
-    assert f"{name}.launches += 1" in source
+    assert "is_cuda" in source and f"{fn}_plain(" in source
+    assert source.count(f"{fn}.launches += 1") == 1
     assert "try:" not in source and "except" not in source
+    # the source says which TPU kernel it replaces and what bounds it
+    text = (cuda_build.CSRC / f"{name}.cu").read_text()
+    assert "Replaces gsl_tpu/ops/" in text and "Bound on the H100" in text
 
 
 def test_every_cuda_source_is_built_and_the_build_is_ignored():
@@ -74,8 +95,7 @@ def test_every_cuda_source_is_built_and_the_build_is_ignored():
 
 
 def test_cpu_tensors_launch_no_kernel():
-    before = {name: getattr(R, name).launches
-              for name in cuda_build.SOURCES}
+    before = _launch_counts()
     from gsl_tpu_torch.ops.projection import project_gaussians
     rng = np.random.RandomState(0)
     n = 30
@@ -89,8 +109,20 @@ def test_cpu_tensors_launch_no_kernel():
     img, alpha, _ = R.rasterize(proj, torch.full((n,), 0.5), colors, 32, 32)
     (img.sum() + alpha.sum()).backward()
     assert float(colors.grad.abs().max()) > 0.0
-    assert before == {name: getattr(R, name).launches
-                      for name in cuda_build.SOURCES}
+    from gsl_tpu_torch.ops.surfel import project_surfels
+    sproj = project_surfels(
+        means, torch.full((n, 2), 0.1), torch.tensor([[1.0, 0, 0, 0]] * n),
+        torch.eye(4), 40.0, 40.0, 16.0, 16.0, 32, 32)
+    channels = torch.rand((n, 6), requires_grad=True)
+    res, _ = SR.rasterize_surfels(sproj, torch.full((n,), 0.5), channels,
+                                  32, 32)
+    (res.channels.sum() + res.distortion.sum()).backward()
+    assert float(channels.grad.abs().max()) > 0.0
+    assert before == _launch_counts()
+
+
+def test_kernel_table_covers_every_source():
+    assert sorted(KERNELS) == sorted(cuda_build.SOURCES)
 
 
 def test_importing_the_port_loads_no_jax():
