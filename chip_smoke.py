@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch port's render and training paths on one CUDA
-card.
+"""Smoke run of the PyTorch port's render and training paths (3DGS, 2DGS
+and StopThePop) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,9 +7,10 @@ Needs one NVIDIA H100 (sm_90a) with nvcc; exits nonzero, printing no
 result, when torch.cuda.is_available() is False or the gsl_tpu_torch
 package is not beside this script. Phases, each fatal on failure:
 
-1. device and build: the card's name and power limit; the seven kernels
+1. device and build: the card's name and power limit; the nine kernels
    built from gsl_tpu_torch/csrc/ with nvcc, one process per source, in
-   parallel.
+   parallel, and K7, K2s and K3s a second time without multiply-add
+   contraction for the checks of phase 3.
 2. scene: the bench scene of __graft_entry__._synthetic_state (numpy seed
    0, 1,000,000 Gaussians, SH degree 3) with shs_rest ~ 0.1 N(0, 1) so the
    higher SH bands run, saved as a PLY with the port's save_gaussian_ply.
@@ -52,12 +53,28 @@ package is not beside this script. Phases, each fatal on failure:
    card must match the CPU on all seven outputs, and the gradients of a
    loss with the distortion and normal-consistency terms on all six
    parameter tensors.
+   The StopThePop kernels, at the bench pose (C = 3) and the first orbit
+   view (C = 8): K1 with stp_resort must equal expand_plain bit for bit;
+   K2s must leave i_stop at NEVER_STOPPED everywhere and agree with
+   rasterize_fwd_stp_plain on image and alpha within K2's tolerance at all
+   but 1e-4 of the values (two slots of a window whose depths at a pixel
+   differ by a rounding may swap between the contracted kernel and the
+   plain version, and move the pixel by up to one weight; the share is
+   printed), and at all but 1e-5 when built without contraction; K3s, on
+   the forward's checkpoints with seeded cotangents, must agree with
+   rasterize_bwd_stp_plain column by column like K3 (>= 0.99999 of every
+   column when built without contraction) and give the same rows twice; K4
+   sums K3s's rows like reduce_grads_plain. A small scene through
+   TileRenderer(stp_resort=True), card against CPU: every output and all
+   six gradients. A tile of 64 near-opaque Gaussians whose T_final
+   underflows to 0: image and gradients finite and equal to the CPU's.
 4. main path: GaussianModelLoader.load(ply) -> ViewerRenderer -> orbit
    frames at 1088x1920 in rgb, then one frame with alpha, exp_depth,
    inverse_depth, normal and hard_inverse_depth (8 composited channels).
    Outputs must be finite, mean alpha above 0, and both kernels' launch
-   counters, zeroed just before, above 0. Prints ms per frame, per-stage
-   times from CUDA events, and peak memory.
+   counters, zeroed just before, above 0. Then one viewer frame for each
+   output type. Prints ms per frame, per-stage times from CUDA events,
+   and peak memory.
 5. training main path: the 1M scene -> Trainer.setup at capacity 1M ->
    targets rendered once from the unperturbed scene at three views -> 20
    train_steps from a seeded perturbation of means, colours and opacities
@@ -81,6 +98,20 @@ package is not beside this script. Phases, each fatal on failure:
    loss falls, every parameter is finite, surfels were split and K5, K6
    (serving) and K5, K6, K7, K4 (training) were launched, their counters
    zeroed just before each of the two runs.
+7. StopThePop main path, at full width: the loader's state and SH degree
+   -> ViewerRenderer over TileRendererConfig(stp_resort=True).instantiate()
+   (the renderer of gsl_tpu/configs/stp.yaml; the loader itself has no
+   switch for it in either package): orbit frames in rgb, one frame with
+   all outputs, one viewer frame per output type. Then Trainer.setup at
+   capacity 1M over the same renderer config: 12 train_steps with
+   maybe_density_ops as phase 5 runs them, a densify at step 12 that grows
+   the capacity to 2M, and 3 steps after it (phase 5 takes 20 + 6 and an
+   opacity reset; the cut is in depth only). Fatal unless outputs, losses
+   and parameters are finite, the mean loss of steps 10-12 is below that of
+   steps 1-3, and K1, K2s (serving) and K1, K2s, K3s, K4 (training) were
+   launched and no kernel of another path was, the counters zeroed just
+   before each run. Prints ms per frame and per step, the stage split, peak
+   memory, and the same numbers of phases 4 and 5 beside them.
 
 Bounds in the kernels line: the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM f32 without tensor cores). K1 moves 52
@@ -100,13 +131,22 @@ C + 8 values per pixel; it does 47 operations per visited (pixel, surfel)
 pair and 26 + 2C more per composited pair. K7 moves those bytes, the
 cotangents and one row of 13 + C values per valid slot, and does 48
 operations per pair before the pixel's stop and 123 + 4C more per
-composited pair (both counted in the kernels' sources). In the kernels
-line, `launches` is a kernel's count on the training path of its own model
-(K1-K4: phase 5; K5-K7: phase 6) and `serving_launches` on the serving
-path; K4 also carries its surfel-layout numbers under `surfel_*` keys.
+composited pair (both counted in the kernels' sources). K1 with
+stp_resort reads 8 more bytes per Gaussian. K2s and K3s have no stop, so
+every pixel visits its tile's whole list: pairs = pixels x the tile's valid
+slots. K2s does 23 operations per pair, 3 + 2C more per composited pair
+and 408 per (pixel, window) whose live entries are out of order, counted
+by the plain version; K3s 28 + 2C per pair, 35 + 4C per composited pair
+and 360 per such window, and moves the checkpoints (64 bytes per sorted
+slot) on top of K3's bytes. In the kernels line, `launches` is a kernel's
+count on the training path of its own model (K1-K4: phase 5; K5-K7: phase
+6; K2s, K3s: phase 7) and `serving_launches` on the serving path; K4 also
+carries its surfel-layout numbers under `surfel_*` keys, and K1 its
+StopThePop numbers (phase 7's counts) under `stp_*` keys.
 
 The last line is {"ok": true, "device": {...}}.
 """
+import concurrent.futures
 import json
 import math
 import os
@@ -121,8 +161,9 @@ import torch
 from gsl_tpu_torch.data.cameras import make_camera
 from gsl_tpu_torch.ops import cuda_build
 from gsl_tpu_torch.ops import rasterize as R
+from gsl_tpu_torch.ops import rasterize_stp as STP
 from gsl_tpu_torch.ops import surfel_rasterize as SR
-from gsl_tpu_torch.ops.projection import project_gaussians
+from gsl_tpu_torch.ops.projection import Projections, project_gaussians
 from gsl_tpu_torch.ops.sh import sh_to_rgb
 from gsl_tpu_torch.ops.surfel import project_surfels
 from gsl_tpu_torch.ops.transforms import quat_to_rotmat
@@ -158,8 +199,10 @@ GRAD_ATOL, GRAD_RTOL, GRAD_SHARE = 1e-4, 1e-3, 0.999
 # them to multiply-adds and the plain version does not, so more pairs round
 # apart than in K3
 SURFEL_GRAD_SHARE = 0.995
-# ... and K7 built without contraction rounds as the plain version does
+# ... and K7 built without contraction rounds as the plain version does;
+# so do K2s and K3s, where a contracted d_p can swap two slots of a window
 UNCONTRACTED_SHARE = 0.99999
+UNCONTRACTED = ("surfel_bwd", "rasterize_fwd_stp", "rasterize_bwd_stp")
 # K4: of the sum of the magnitudes that went into each sum
 SUM_RTOL = 1e-5
 K3_COLUMNS = ("dmx", "dmy", "da", "db", "dc", "dop")
@@ -170,9 +213,13 @@ KERNELS = {"expand": R.expand, "rasterize_fwd": R.rasterize_fwd,
            "rasterize_bwd": R.rasterize_bwd, "reduce_grads": R.reduce_grads,
            "surfel_expand": SR.surfel_expand,
            "surfel_fwd": SR.rasterize_surfels_fwd,
-           "surfel_bwd": SR.rasterize_surfels_bwd}
+           "surfel_bwd": SR.rasterize_surfels_bwd,
+           "rasterize_fwd_stp": STP.rasterize_fwd_stp,
+           "rasterize_bwd_stp": STP.rasterize_bwd_stp}
 GAUSSIAN_KERNELS = ("expand", "rasterize_fwd", "rasterize_bwd",
                     "reduce_grads")
+STP_KERNELS = ("expand", "rasterize_fwd_stp", "rasterize_bwd_stp",
+               "reduce_grads")
 SURFEL_KERNELS = ("surfel_expand", "surfel_fwd", "surfel_bwd",
                   "reduce_grads")
 ALL_OUTPUTS = frozenset({"rgb", "alpha", "exp_depth", "inverse_depth",
@@ -499,15 +546,213 @@ def phase_kernels(state, renderer):
     return rec
 
 
-def phase_small_reference():
-    """The whole renderer on a small scene, card vs CPU (plain versions)."""
+def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
+    """K1 with stp_resort, K2s, K3s and K4 on K3s's rows against their
+    plain versions at one view; with `timed`, their times and bounds."""
+    tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
+    n_tiles = tiles_x * tiles_y
+    n = state.capacity
+    tag = f"{vname} C={C}"
+    proj = project_gaussians(
+        state.get_means(), state.get_scales(), state.get_rotations(),
+        cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, W, H)
+    opac = renderer.get_opacities(state, proj).contiguous()
+    ch = channels_for(state, renderer, proj, cam, C)
+    m2d, con = proj.means2d.contiguous(), proj.conics.contiguous()
+    depths, kz = proj.depths.contiguous(), proj.depth_grads.contiguous()
+    isects = R.isect_encode(proj, H, W, TILE)
+    args = (isects, m2d, con, opac, depths, tiles_x, tiles_y, TILE, True,
+            True, kz)
+    keys_k, gids_k = R.expand(*args)
+    keys_p, gids_p = R.expand_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(keys_k, keys_p) and torch.equal(gids_k, gids_p)):
+        fail(f"K1 stp {tag}: kernel differs from expand_plain at "
+             f"{int((keys_k != keys_p).sum())} slots")
+    plain_keys, _ = R.expand(*args[:9])
+    moved = int((plain_keys != keys_k).sum())
+    sk, gs, order = R.sort_slots(keys_k, gids_k)
+    bounds = R.tile_bounds(sk, n_tiles)
+    n_valid = int(bounds[-1])
+    counts = bounds[1:] - bounds[:-1]
+    off16 = int(((bounds[:-1] % STP.STP_WINDOW != 0) & (counts > 0)).sum())
+    n_windows = int(torch.where(
+        counts > 0, (bounds[1:] - 1) // STP.STP_WINDOW
+        - bounds[:-1] // STP.STP_WINDOW + 1, 0).sum())
+    log(f"K1 stp {tag}: bit-identical; slots {isects.total} real "
+        f"{isects.n_isects} valid {n_valid}; {moved} keys differ from the "
+        f"centre-depth keys; longest tile list {int(counts.max())}, mean "
+        f"{float(counts.float().mean()):.1f}; {off16} of {n_tiles} tile "
+        f"ranges start off a multiple of 16; {n_windows} (tile, window)s")
+
+    fwd = (m2d, con, opac, ch, depths, kz, gs, bounds, H, W, TILE)
+    got = STP.rasterize_fwd_stp(*fwd, checkpoints=True)
+    stats = {}
+    t0 = time.perf_counter()
+    want = STP.rasterize_fwd_stp_plain(*fwd, checkpoints=True, stats=stats)
+    torch.cuda.synchronize()
+    fwd_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not bool((got[2] == R.NEVER_STOPPED).all()):
+        fail(f"K2s {tag}: i_stop is not NEVER_STOPPED everywhere")
+    fwd_err = max(
+        off_share(f"K2s {tag} image", got[0], want[0], OFF_SHARE),
+        off_share(f"K2s {tag} alpha", 1 - got[1], 1 - want[1], OFF_SHARE))
+    share = 1.0 - float(((got[0] - want[0]).abs()
+                         > ATOL + RTOL * want[0].abs()).float().mean())
+    loose = STP.rasterize_fwd_stp(*fwd, checkpoints=True, contract=False)
+    off_share(f"K2s {tag} image, built without contraction", loose[0],
+              want[0], 1.0 - UNCONTRACTED_SHARE)
+    off_share(f"K2s {tag} alpha, built without contraction", 1 - loose[1],
+              1 - want[1], 1.0 - UNCONTRACTED_SHARE)
+    ushare = 1.0 - float(((loose[0] - want[0]).abs()
+                          > ATOL + RTOL * want[0].abs()).float().mean())
+    log(f"K2s {tag}: image within tolerance at {share:.7f} of values "
+        f"({ushare:.7f} when built without contraction), max abs err "
+        f"{fwd_err:.3e}; i_stop never stopped; pixels with T_final == 0: "
+        f"{int((got[1] == 0).sum())}, T_final < 1e-4: "
+        f"{int((got[1] < 1e-4).sum())}; (pixel, window) pairs out of order "
+        f"{stats['unordered_windows']}")
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g_out = torch.randn((H, W, C), generator=gen, device="cuda")
+    g_alpha = torch.randn((H, W), generator=gen, device="cuda")
+    bwd = fwd[:8] + (g_out, g_alpha, got[1], got[3], TILE)
+    rows = STP.rasterize_bwd_stp(*bwd)
+    again = STP.rasterize_bwd_stp(*bwd)
+    t0 = time.perf_counter()
+    rows_p = STP.rasterize_bwd_stp_plain(
+        *fwd[:8], g_out, g_alpha, want[1], want[3], TILE, stats=stats)
+    torch.cuda.synchronize()
+    bwd_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(rows, again):
+        fail(f"K3s {tag}: two runs gave different rows")
+    bwd_err, gshare = check_rows(f"K3s {tag}", rows, rows_p, K3_COLUMNS,
+                                 GRAD_SHARE)
+    rows_u = STP.rasterize_bwd_stp(*fwd[:8], g_out, g_alpha, loose[1],
+                                   loose[3], TILE, contract=False)
+    _, gushare = check_rows(f"K3s {tag} built without contraction", rows_u,
+                            rows_p, K3_COLUMNS, UNCONTRACTED_SHARE)
+    red = (rows, gs, isects.offsets, R.invert_order(order), bounds[-1:], n)
+    summed = R.reduce_grads(*red)
+    summed_p = R.reduce_grads_plain(rows, gs, n)
+    torch.cuda.synchronize()
+    reduce_err = check_sums(f"K4 on K3s's rows {tag}", summed, summed_p,
+                            rows, gs, n, 2)
+    composited = stats["composited_pairs"]
+    log(f"K3s {tag}: every column agrees on >= {gshare:.6f} of its values "
+        f"(>= {gushare:.7f} when built without contraction), max abs err "
+        f"{bwd_err:.3e} (max |ref| {float(rows_p.abs().max()):.3e}); "
+        f"identical in two runs. K4: max abs err {reduce_err:.3e}; "
+        f"composited pairs {composited}")
+    rec = {"fwd_err": fwd_err, "bwd_err": bwd_err}
+    if not timed:
+        return rec
+    # with no stop every pixel visits its tile's whole list
+    ys = torch.arange(H, device="cuda")[:, None] // TILE
+    xs = torch.arange(W, device="cuda")[None, :] // TILE
+    pairs = int(counts[ys * tiles_x + xs].sum())
+    unordered = stats["unordered_windows"]
+    ckpt_bytes = 4 * got[3].numel()
+    fwd_bytes = (n * (36 + 4 * C) + 4 * n_valid + 8 * (n_tiles + 1)
+                 + H * W * (4 * C + 8))
+    rec.update(
+        fwd_plain_ms=fwd_plain_ms, bwd_plain_ms=bwd_plain_ms,
+        expand_ms=cuda_ms(lambda: R.expand(*args), 20),
+        expand_plain_ms=cuda_ms(lambda: R.expand_plain(*args), 3),
+        fwd_ms=cuda_ms(lambda: STP.rasterize_fwd_stp(*fwd), 20),
+        fwd_checkpoints_ms=cuda_ms(
+            lambda: STP.rasterize_fwd_stp(*fwd, checkpoints=True), 20),
+        bwd_ms=cuda_ms(lambda: STP.rasterize_bwd_stp(*bwd), 20),
+        reduce_ms=cuda_ms(lambda: R.reduce_grads(*red), 20),
+        expand_bound=bound(60 * n + 12 * isects.total,
+                           48 * isects.n_isects),
+        fwd_bound=bound(fwd_bytes, 23 * pairs + (3 + 2 * C) * composited
+                        + 408 * unordered),
+        bwd_bound=bound(
+            fwd_bytes + ckpt_bytes + 4 * H * W + 4 * (6 + C) * n_valid,
+            (28 + 2 * C) * pairs + (35 + 4 * C) * composited
+            + 360 * unordered),
+        slots=isects.total, n_isects=isects.n_isects, n_valid=n_valid,
+        pairs=pairs, composited_pairs=composited,
+        unordered_windows=unordered, checkpoint_bytes=ckpt_bytes)
+    log(f"stp {tag} timings " + json.dumps(
+        {k: v for k, v in rec.items() if not k.endswith("_err")}))
+    return rec
+
+
+def phase_stp_kernels(state, renderer):
+    log("== phase 3 (StopThePop): K1 with stp_resort, K2s, K3s and K4 "
+        "against their plain versions, full width")
+    named = views()
+    rec = {}
+    for seed, (vname, C, timed) in enumerate((("bench", 3, True),
+                                              ("orbit_yaw20", 8, False))):
+        r = check_stp_kernels(vname, C, state, renderer,
+                              camera(named[vname]), 20 + seed, timed)
+        for k in ("fwd_err", "bwd_err"):
+            rec[k] = max(rec.get(k, 0.0), r.pop(k))
+        rec.update(r)
+    return rec
+
+
+def phase_stp_saturated():
+    """A tile whose T_final underflows to 0, on the card: 64 Gaussians of
+    opacity 0.99 on one spot. Outputs and every gradient must be finite
+    and match the CPU's (the plain versions)."""
+    rng = np.random.RandomState(5)
+    n = 64
+    arrays = dict(
+        means2d=(8.0 + 0.05 * rng.randn(n, 2)), depths=rng.rand(n) * 3 + 1,
+        conics=np.tile([0.05, 0.0, 0.05], (n, 1)), kz=rng.rand(n, 2) * 0.2,
+        opac=np.full(n, 0.99), ch=rng.rand(n, 3))
+    grads, finals = {}, {}
+    for dev in ("cuda", "cpu"):
+        t = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+             for k, v in arrays.items()}
+        leaves = [t[k].requires_grad_(True)
+                  for k in ("means2d", "conics", "opac", "ch")]
+        proj = Projections(
+            means2d=leaves[0], depths=t["depths"],
+            radii=torch.full((n,), 8, dtype=torch.int32, device=dev),
+            conics=leaves[1], compensations=None, mask=None,
+            depth_grads=t["kz"])
+        with torch.enable_grad():
+            img, alpha, aux = R.rasterize(proj, leaves[2], leaves[3], 16, 16,
+                                          TILE, True, stp_resort=True)
+            wr = torch.rand((16, 16, 3), generator=torch.Generator(
+                ).manual_seed(1)).to(dev)
+            ((img * wr).sum() + alpha.sum()).backward()
+        grads[dev] = [x.grad.cpu() for x in leaves]
+        finals[dev] = (img.detach().cpu(), aux.t_final.cpu())
+    n_zero = int((finals["cuda"][1] == 0).sum())
+    if n_zero == 0:
+        fail("saturated tile: T_final never reached 0 on the card")
+    if not bool(torch.isfinite(finals["cuda"][0]).all()):
+        fail("saturated tile: non-finite image")
+    for name, g, w in zip(("means2d", "conics", "opacities", "channels"),
+                          grads["cuda"], grads["cpu"]):
+        scale = float(w.abs().max())
+        bad = (g - w).abs() > 1e-3 * scale + 1e-2 * w.abs()
+        if not bool(torch.isfinite(g).all()) or bool(bad.any()):
+            fail(f"saturated tile d / d {name}: non-finite, or differs from "
+                 f"the CPU's at {int(bad.sum())} values (max |ref| {scale})")
+    log(f"saturated tile (64 Gaussians of opacity 0.99, 16x16): T_final is "
+        f"0 at {n_zero} pixels; image and all four gradients finite and "
+        "equal to the CPU's")
+
+
+def phase_small_reference(stp=False):
+    """The whole renderer on a small scene, card vs CPU (plain versions);
+    with `stp`, the StopThePop renderer."""
+    config = TileRendererConfig(stp_resort=stp)
+    tag = "small STP scene" if stp else "small scene"
     arrays = scene_arrays(400, seed=1)
     arrays["means"][:, 2] -= 2.0  # nearer: larger splats, longer lists
     c2w = np.eye(4)
     outs = {}
     for dev in ("cuda", "cpu"):
         state = state_from_raw_arrays(arrays, device=dev)
-        renderer = TileRendererConfig().instantiate()
+        renderer = config.instantiate()
         cam = camera(c2w, 96, 128, 120.0, device=dev)
         bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
         outs[dev] = renderer.forward(state, cam, 96, 128, bg, SH_DEGREE,
@@ -519,10 +764,10 @@ def phase_small_reference():
         bad = (g - w).abs() > ATOL + RTOL * w.abs()
         share = 1.0 - float(bad.float().mean())
         if not bool(torch.isfinite(g).all()) or share < STOP_SHARE:
-            fail(f"small scene {key}: card matches the CPU renderer at "
+            fail(f"{tag} {key}: card matches the CPU renderer at "
                  f"{share:.5f} of values")
-    log("small scene (400 Gaussians, 128x96): card renderer matches the "
-        "CPU renderer on every output")
+    log(f"{tag} (400 Gaussians, 128x96): card renderer matches the CPU "
+        "renderer on every output")
     grads = {}
     for dev in ("cuda", "cpu"):
         state = state_from_raw_arrays(arrays, device=dev)
@@ -531,7 +776,7 @@ def phase_small_reference():
         target = torch.rand((96, 128, 3), generator=torch.Generator(
             ).manual_seed(3)).to(dev)
         with torch.enable_grad():
-            out = TileRendererConfig().instantiate().forward(
+            out = config.instantiate().forward(
                 state, camera(c2w, 96, 128, 120.0, device=dev), 96, 128,
                 torch.tensor([0.1, 0.2, 0.3], device=dev), SH_DEGREE)
             loss, _ = train_loss(out.render, target)
@@ -545,9 +790,9 @@ def phase_small_reference():
         share = 1.0 - float(bad.float().mean())
         if (not bool(torch.isfinite(g).all()) or scale <= 0.0
                 or share < STOP_SHARE):
-            fail(f"small scene d loss / d {key}: card matches the CPU at "
+            fail(f"{tag} d loss / d {key}: card matches the CPU at "
                  f"{share:.5f} of values (max |ref| {scale})")
-    log("small scene: the gradients of the L1 + SSIM loss for all six "
+    log(f"{tag}: the gradients of the L1 + SSIM loss for all six "
         "parameter tensors match the CPU's")
 
 
@@ -786,11 +1031,19 @@ def phase_small_surfel_reference():
         "loss for all six parameter tensors match the CPU's")
 
 
-def phase_main_path(ply):
-    log("== phase 4: main path GaussianModelLoader -> ViewerRenderer -> "
-        "TileRenderer at 1088x1920")
+def phase_main_path(ply, stp=False):
+    """The serving main path; with `stp` over the StopThePop renderer.
+    Returns (launches of the path's kernels, its numbers)."""
+    what = "StopThePop serving" if stp else "main path"
+    fwd_kernel = "rasterize_fwd_stp" if stp else "rasterize_fwd"
+    log(f"== phase {'7: StopThePop' if stp else '4:'} main path "
+        "GaussianModelLoader -> ViewerRenderer -> TileRenderer"
+        f"{'(stp_resort=True)' if stp else ''} at 1088x1920")
     state, renderer, sh_degree = GaussianModelLoader.load(ply,
                                                           device="cuda")
+    if stp:
+        # the loader builds the default renderer; stp.yaml's is this one
+        renderer = TileRendererConfig(stp_resort=True).instantiate()
     vr = ViewerRenderer(state, renderer, sh_degree)
     fov_y = math.degrees(2.0 * math.atan(0.5 * H / FOCAL))
     torch.cuda.synchronize()
@@ -803,9 +1056,10 @@ def phase_main_path(ply):
         img = vr.get_outputs(c2w, W, H, fov_y)   # ends in a host copy
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         if img.shape != (H, W, 3) or img.dtype != np.uint8:
-            fail(f"frame at yaw {yaw}: shape {img.shape} {img.dtype}")
+            fail(f"{what}: frame at yaw {yaw}: shape {img.shape} "
+                 f"{img.dtype}")
         if int(img.max()) == 0:
-            fail(f"frame at yaw {yaw} is black")
+            fail(f"{what}: frame at yaw {yaw} is black")
     bg = torch.zeros(3, device="cuda")
     cam = camera(np.eye(4))
     out = renderer.forward(state, cam, H, W, bg, sh_degree,
@@ -814,28 +1068,47 @@ def phase_main_path(ply):
                 "hard_inverse_depth"):
         v = getattr(out, key)
         if v is None or not bool(torch.isfinite(v).all()):
-            fail(f"main path {key}: missing or non-finite")
+            fail(f"{what} {key}: missing or non-finite")
     mean_alpha = float(out.alpha.mean())
     if not mean_alpha > 0.0:
-        fail("main path: mean alpha is 0")
+        fail(f"{what}: mean alpha is 0")
     torch.cuda.synchronize()
     launches = {k: v for k, v in read_launches().items()
-                if k in ("expand", "rasterize_fwd")}
+                if k in ("expand", fwd_kernel)}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     for name, count in launches.items():
         if count <= 0:
-            fail(f"main path never launched kernel {name}")
-    log(f"main path: {len(frame_ms)} rgb frames, ms per frame "
+            fail(f"{what} never launched kernel {name}")
+    stray = {k: v for k, v in read_launches().items()
+             if v and k not in launches}
+    if stray:
+        fail(f"{what} launched kernels of another path: {stray}")
+    log(f"{what}: {len(frame_ms)} rgb frames, ms per frame "
         f"{[round(x, 3) for x in frame_ms]}; all-outputs frame at the bench "
         f"pose: n_isects {out.n_isects}, mean alpha {mean_alpha:.4f}; "
         f"launches {launches}; peak memory {peak_gb:.3f} GiB")
-    stage_ms = stage_times(state, renderer, sh_degree, cam)
+    # one frame per output type through the viewer (after the counts were
+    # read): visualized and quantized on the card, one uint8 copy
+    output_ms = {}
+    for i, name in enumerate(renderer.get_available_outputs()):
+        vr.output_type = name
+        c2w = orbit_c2w(8.0 * i, 0.0, 5.0, TARGET)
+        t0 = time.perf_counter()
+        img = vr.get_outputs(c2w, W, H, fov_y)
+        output_ms[name] = round((time.perf_counter() - t0) * 1e3, 3)
+        if (img.shape != (H, W, 3) or img.dtype != np.uint8
+                or int(img.max()) == 0):
+            fail(f"{what}: {name} frame {img.shape} {img.dtype} is wrong "
+                 "or black")
+    log(f"{what}: one viewer frame per output, ms per frame {output_ms}")
+    stage_ms = stage_times(state, renderer, sh_degree, cam, stp=stp)
     rgb_ms = [1e3 * t for t in timed_frames(renderer, state, cam, bg,
                                             sh_degree)]
-    log("bench-pose rgb frame, host clock ms " + json.dumps(rgb_ms))
-    log("bench-pose stage ms (CUDA events, median of 5) "
+    log(f"{what}: bench-pose rgb frame, host clock ms " + json.dumps(rgb_ms))
+    log(f"{what}: bench-pose stage ms (CUDA events, median of 5) "
         + json.dumps(stage_ms))
-    return launches
+    return launches, {"rgb_frame_ms": rgb_ms, "stage_ms": stage_ms,
+                      "viewer_ms": output_ms, "peak_gib": peak_gb}
 
 
 def timed_frames(renderer, state, cam, bg, sh_degree, reps=5):
@@ -849,7 +1122,7 @@ def timed_frames(renderer, state, cam, bg, sh_degree, reps=5):
     return times
 
 
-def stage_times(state, renderer, sh_degree, cam, reps=5):
+def stage_times(state, renderer, sh_degree, cam, reps=5, stp=False):
     """The rgb render's stages, as TileRenderer.forward runs them."""
     tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
     rows = []
@@ -865,15 +1138,19 @@ def stage_times(state, renderer, sh_degree, cam, reps=5):
         ev[2].record()
         isects = R.isect_encode(proj, H, W, TILE)
         m2d, con = proj.means2d.contiguous(), proj.conics.contiguous()
-        keys, gids = R.expand(isects, m2d, con, opac,
-                              proj.depths.contiguous(), tiles_x, tiles_y,
-                              TILE, True)
+        depths, kz = proj.depths.contiguous(), proj.depth_grads.contiguous()
+        keys, gids = R.expand(isects, m2d, con, opac, depths, tiles_x,
+                              tiles_y, TILE, True, stp, kz)
         ev[3].record()
         sk, gs, _ = R.sort_slots(keys, gids)
         ev[4].record()
         bounds = R.tile_bounds(sk, tiles_x * tiles_y)
         ev[5].record()
-        R.rasterize_fwd(m2d, con, opac, rgb, gs, bounds, H, W, TILE)
+        if stp:
+            STP.rasterize_fwd_stp(m2d, con, opac, rgb, depths, kz, gs,
+                                  bounds, H, W, TILE)
+        else:
+            R.rasterize_fwd(m2d, con, opac, rgb, gs, bounds, H, W, TILE)
         ev[6].record()
         torch.cuda.synchronize()
         rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(6)])
@@ -883,6 +1160,7 @@ def stage_times(state, renderer, sh_degree, cam, reps=5):
 
 
 TRAIN_STEPS, DENSIFY_AT, RESET_AT, STEPS_AFTER = 20, 20, 24, 6
+STP_TRAIN_STEPS, STP_STEPS_AFTER = 12, 3   # phase 7: densify at step 12
 TRAIN_EXTENT = 0.5   # puts percent_dense * extent inside the scene's scales
 
 
@@ -898,13 +1176,15 @@ def perturbed(arrays, seed=1):
 
 def train_stage_times(trainer, state, cam, target, bg, loss_of=None,
                       reps=3):
-    """One training step's stages, as Trainer.train_step runs them.
-    `loss_of(out)`: the loss of a render; L1 + SSIM when None."""
+    """One training step's stages, as Trainer.train_step runs them,
+    after one repetition that is not counted (it pays for the allocator's
+    first blocks). `loss_of(out)`: the loss of a render; L1 + SSIM when
+    None."""
     if loss_of is None:
         def loss_of(out):
             return train_loss(out.render, target)[0]
     rows = []
-    for _ in range(reps):
+    for _ in range(reps + 1):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         leaves = state.params.map(
             lambda _, x: x.detach().requires_grad_(True))
@@ -928,22 +1208,31 @@ def train_stage_times(trainer, state, cam, target, bg, loss_of=None,
         ev[4].record()
         torch.cuda.synchronize()
         rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
-    med = np.median(np.asarray(rows), axis=0)
+    med = np.median(np.asarray(rows[1:]), axis=0)
     names = ("render_forward", "loss", "backward", "adam")
     return {k: float(v) for k, v in zip(names, med)}
 
 
-def phase_training(arrays, rec):
-    log("== phase 5: training main path, Trainer.train_step + "
-        "maybe_density_ops at 1088x1920")
+def phase_training(arrays, raster_ms, stp=False):
+    """The training main path; with `stp` over the StopThePop renderer,
+    cut to STP_TRAIN_STEPS steps, a densify and STP_STEPS_AFTER more.
+    `raster_ms`: the backward's kernels as phase 3 timed them. Returns
+    (launches of the path's kernels, its numbers)."""
+    what = "StopThePop training" if stp else "training"
+    n_steps, densify_at, reset_at, after = (
+        (STP_TRAIN_STEPS, STP_TRAIN_STEPS, None, STP_STEPS_AFTER) if stp
+        else (TRAIN_STEPS, DENSIFY_AT, RESET_AT, STEPS_AFTER))
+    n_mean = 5 if n_steps >= 15 else 3     # steps in the two loss means
+    log(f"== phase {'7: StopThePop' if stp else '5:'} training main path, "
+        "Trainer.train_step + maybe_density_ops at 1088x1920")
     model = VanillaGaussianConfig(sh_degree=SH_DEGREE)
     trainer = Trainer(
-        model=model,
+        model=model, renderer=TileRendererConfig(stp_resort=stp),
         density=VanillaDensityControllerConfig(
-            densify_from_iter=5, densification_interval=DENSIFY_AT,
-            densify_until_iter=100, opacity_reset_interval=RESET_AT,
+            densify_from_iter=5, densification_interval=densify_at,
+            densify_until_iter=100, opacity_reset_interval=reset_at or 1000,
             cull_opacity_threshold=0.3),
-        config=TrainerConfig(max_steps=TRAIN_STEPS + STEPS_AFTER,
+        config=TrainerConfig(max_steps=n_steps + after,
                              sh_degree_interval=2))
     bg = torch.zeros(3, device="cuda")
     cams = [camera(c2w) for c2w in views().values()]
@@ -960,18 +1249,15 @@ def phase_training(arrays, rec):
     stage = train_stage_times(trainer, state, cams[0], targets[0], bg)
     # the backward's kernels as phase 3 timed them at this pose; the rest
     # is autograd through projection, SH and the loss
-    raster = {"rasterize_bwd": rec["bwd_ms"],
-              "invert_order": rec["invert_ms"],
-              "reduce_grads": rec["reduce_ms"]}
     stage["backward_split"] = dict(
-        raster, autograd_rest=stage["backward"] - sum(raster.values()))
-    log(f"training stage ms at capacity {state.params.capacity} (CUDA "
+        raster_ms, autograd_rest=stage["backward"] - sum(raster_ms.values()))
+    log(f"{what} stage ms at capacity {state.params.capacity} (CUDA "
         "events, median of 3) " + json.dumps(stage))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     losses, step_ms, density_ms, alive = [], [], {}, {}
-    for step in range(1, TRAIN_STEPS + STEPS_AFTER + 1):
+    for step in range(1, n_steps + after + 1):
         view = step % len(cams)
         t0 = time.perf_counter()
         state, scalars = trainer.train_step(
@@ -979,7 +1265,7 @@ def phase_training(arrays, rec):
             trainer.sh_degree_at(step), bg)
         losses.append(float(scalars["loss"]))       # waits for the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        if step == DENSIFY_AT:
+        if step == densify_at:
             # a tenth of the seen Gaussians above the threshold
             d = state.density
             stat = (d.grad_accum / d.denom.clamp(min=1.0))[d.denom > 0]
@@ -991,7 +1277,7 @@ def phase_training(arrays, rec):
         t0 = time.perf_counter()
         state = trainer.maybe_density_ops(state, gen, step)
         torch.cuda.synchronize()
-        if step in (DENSIFY_AT, RESET_AT):
+        if step in (densify_at, reset_at):
             density_ms[step] = (time.perf_counter() - t0) * 1e3
             cap = prev.params.capacity
             was, now = prev.alive, state.alive[:cap]
@@ -1006,36 +1292,43 @@ def phase_training(arrays, rec):
                 f"{state.params.capacity}; opacity max "
                 f"{float(state.gaussians.get_opacities().max()):.4f}")
         del prev
-    launches = {k: v for k, v in read_launches().items()
-                if k in GAUSSIAN_KERNELS}
+    counts = read_launches()
+    launches = {k: counts[k] for k in (STP_KERNELS if stp
+                                       else GAUSSIAN_KERNELS)}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(math.isfinite(x) for x in losses):
-        fail(f"training: non-finite loss in {losses}")
-    first, last = (float(np.mean(losses[:5])),
-                   float(np.mean(losses[TRAIN_STEPS - 5:TRAIN_STEPS])))
+        fail(f"{what}: non-finite loss in {losses}")
+    first, last = (float(np.mean(losses[:n_mean])),
+                   float(np.mean(losses[n_steps - n_mean:n_steps])))
     if not last < first:
-        fail(f"training: mean loss of steps {TRAIN_STEPS - 4}-{TRAIN_STEPS} "
-             f"{last} is not below that of steps 1-5 {first}")
+        fail(f"{what}: mean loss of steps {n_steps - n_mean + 1}-{n_steps} "
+             f"{last} is not below that of steps 1-{n_mean} {first}")
     for k in PARAM_FIELDS:
         if not bool(torch.isfinite(getattr(state.params, k)).all()):
-            fail(f"training: non-finite {k}")
-    if alive[DENSIFY_AT + 1] == alive[DENSIFY_AT]:
-        fail("training: the densify changed no alive count")
-    if float(state.opt_state.exp_avg["opacities"].abs().max()) == 0.0:
-        fail("training: no step after the opacity reset")
+            fail(f"{what}: non-finite {k}")
+    if alive[densify_at + 1] == alive[densify_at]:
+        fail(f"{what}: the densify changed no alive count")
+    if (reset_at is not None and float(
+            state.opt_state.exp_avg["opacities"].abs().max()) == 0.0):
+        fail(f"{what}: no step after the opacity reset")
     for name, count in launches.items():
         if count <= 0:
-            fail(f"training path never launched kernel {name}")
-    log(f"training: losses {[round(x, 5) for x in losses]}")
-    log(f"training: mean loss steps 1-5 {first:.5f}, steps "
-        f"{TRAIN_STEPS - 4}-{TRAIN_STEPS} {last:.5f}; SH degree 3 from step "
-        f"6; launches {launches}; peak memory {peak_gb:.3f} GiB")
-    log("training: ms per step (host clock, synchronised) "
+            fail(f"{what} path never launched kernel {name}")
+    stray = {k: v for k, v in counts.items() if v and k not in launches}
+    if stray:
+        fail(f"{what} launched kernels of another path: {stray}")
+    log(f"{what}: losses {[round(x, 5) for x in losses]}")
+    log(f"{what}: mean loss steps 1-{n_mean} {first:.5f}, steps "
+        f"{n_steps - n_mean + 1}-{n_steps} {last:.5f}; SH degree 3 from "
+        f"step 6; launches {launches} in {len(losses)} steps; peak memory "
+        f"{peak_gb:.3f} GiB")
+    log(f"{what}: ms per step (host clock, synchronised) "
         + json.dumps([round(x, 2) for x in step_ms]))
-    stage = train_stage_times(trainer, state, cams[0], targets[0], bg)
-    log(f"training stage ms at capacity {state.params.capacity} (CUDA "
-        "events, median of 3) " + json.dumps(stage))
-    return launches
+    grown = train_stage_times(trainer, state, cams[0], targets[0], bg)
+    log(f"{what} stage ms at capacity {state.params.capacity} (CUDA "
+        "events, median of 3) " + json.dumps(grown))
+    return launches, {"step_ms": step_ms, "stage_ms": stage,
+                      "density_ms": density_ms, "peak_gib": peak_gb}
 
 
 S2D_STEPS, S2D_DENSIFY_AT, S2D_STEPS_AFTER = 12, 12, 3
@@ -1251,8 +1544,14 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {kind} "
         f"x{count}")
     t0 = time.perf_counter()
-    logs = cuda_build.build()
-    log(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        usual = pool.submit(cuda_build.build)
+        loose = pool.submit(cuda_build.build, UNCONTRACTED,
+                            cuda_build.NO_CONTRACTION)
+        logs = usual.result()
+        loose.result()
+    log(f"built {sorted(logs)}, and {sorted(UNCONTRACTED)} a second time "
+        f"without contraction, in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "Used" in line or ("spill" in line
@@ -1273,17 +1572,50 @@ def main():
         with torch.no_grad():
             rec = phase_kernels(state, renderer)
             phase_small_reference()
+            trec = phase_stp_kernels(state, renderer)
+            phase_small_reference(stp=True)
             del state
             torch.cuda.empty_cache()
             srec = phase_surfel_kernels(state_from_raw_arrays(
                 surfel_arrays(arrays), device="cuda"))
             phase_small_surfel_reference()
             torch.cuda.empty_cache()
-            launches = phase_main_path(ply)
+            launches, serving = phase_main_path(ply)
+        phase_stp_saturated()
         torch.cuda.empty_cache()
-        train_launches = phase_training(arrays, rec)
-    torch.cuda.empty_cache()
-    surfel_serving, surfel_launches = phase_surfel_main_path(arrays)
+        train_launches, training = phase_training(
+            arrays, {"rasterize_bwd": rec["bwd_ms"],
+                     "invert_order": rec["invert_ms"],
+                     "reduce_grads": rec["reduce_ms"]})
+        torch.cuda.empty_cache()
+        surfel_serving, surfel_launches = phase_surfel_main_path(arrays)
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            stp_serving_launches, stp_serving = phase_main_path(ply,
+                                                                stp=True)
+        torch.cuda.empty_cache()
+        stp_launches, stp_training = phase_training(
+            arrays, {"rasterize_bwd_stp": trec["bwd_ms"],
+                     "invert_order": rec["invert_ms"],
+                     "reduce_grads": trec["reduce_ms"]}, stp=True)
+    # StopThePop beside plain 3DGS, phases 7 and 4/5 of this run
+    log("StopThePop over plain 3DGS, this run: bench-pose rgb frame ms "
+        f"{[round(x, 2) for x in stp_serving['rgb_frame_ms']]} vs "
+        f"{[round(x, 2) for x in serving['rgb_frame_ms']]}; stage ms "
+        f"{json.dumps(stp_serving['stage_ms'])} vs "
+        f"{json.dumps(serving['stage_ms'])}; viewer frames "
+        f"{stp_serving['viewer_ms']} vs {serving['viewer_ms']}; serving peak "
+        f"{stp_serving['peak_gib']:.3f} vs {serving['peak_gib']:.3f} GiB")
+    log("StopThePop over plain 3DGS, this run: ms per step at capacity 1M, "
+        f"steps 6-{STP_TRAIN_STEPS}, median "
+        f"{float(np.median(stp_training['step_ms'][5:STP_TRAIN_STEPS])):.2f}"
+        f" vs {float(np.median(training['step_ms'][5:TRAIN_STEPS])):.2f} "
+        f"(steps 6-{TRAIN_STEPS}); stage ms "
+        f"{json.dumps(stp_training['stage_ms'])} vs "
+        f"{json.dumps(training['stage_ms'])}; densify ms "
+        f"{stp_training['density_ms']} vs {training['density_ms']}; "
+        f"training peak {stp_training['peak_gib']:.3f} vs "
+        f"{training['peak_gib']:.3f} GiB")
 
     def entry(name, line, err, key, library_ms=None):
         # launches: on the training main path, which runs all four;
@@ -1318,14 +1650,38 @@ def main():
         surfel_bound_ms=srec["reduce_bound"][0],
         surfel_bound_by=srec["reduce_bound"][1],
         surfel_library_ms=srec["reduce_library_ms"])
+    def stp_entry(name, line, err, key):
+        bound_ms, bound_by = trec[f"{key}_bound"]
+        return {"name": name, "route": "cuda",
+                "source": f"gsl_tpu_torch/csrc/{name}.cu",
+                "replaces": f"gsl_tpu/ops/rasterize_pallas.py:{line}",
+                "branch": "stp_resort",
+                "launches": stp_launches[name],
+                "serving_launches": stp_serving_launches.get(name, 0),
+                "max_abs_err": err, "ms": trec[f"{key}_ms"],
+                "plain_ms": trec[f"{key}_plain_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+
+    expand_entry = entry("expand", 227, 0.0, "expand")
+    expand_entry.update(
+        stp_launches=stp_launches["expand"],
+        stp_serving_launches=stp_serving_launches["expand"],
+        stp_max_abs_err=0.0, stp_ms=trec["expand_ms"],
+        stp_plain_ms=trec["expand_plain_ms"],
+        stp_bound_ms=trec["expand_bound"][0],
+        stp_bound_by=trec["expand_bound"][1], stp_library_ms=None)
+    reduce_entry.update(stp_launches=stp_launches["reduce_grads"],
+                        stp_ms=trec["reduce_ms"])
     kernels = [
-        entry("expand", 227, 0.0, "expand"),
+        expand_entry,
         entry("rasterize_fwd", 869, rec["fwd_err"], "fwd"),
         entry("rasterize_bwd", 1069, rec["bwd_err"], "bwd"),
         reduce_entry,
         surfel_entry("surfel_expand", 61, 0.0, "expand"),
         surfel_entry("surfel_fwd", 253, srec["fwd_err"], "fwd"),
         surfel_entry("surfel_bwd", 428, srec["bwd_err"], "bwd"),
+        stp_entry("rasterize_fwd_stp", 869, trec["fwd_err"], "fwd"),
+        stp_entry("rasterize_bwd_stp", 1069, trec["bwd_err"], "bwd"),
     ]
     log(f"surfel backward at the bench pose: K6's median depth differs by "
         f"up to {srec['median_err']:.3e} (a flipped crossing); K7 errors "

@@ -2,13 +2,15 @@
 
 Same layout as ``gsl_tpu``, PyTorch idiom inside:
 
-- ``ops``       projection, spherical harmonics, the tile rasterizer and
-                the 2DGS surfel rasterizer with their gradients (CUDA
-                kernels under ``csrc/`` with plain PyTorch versions
-                beside), SSIM, nearest neighbours.
+- ``ops``       projection, spherical harmonics, the tile rasterizer, its
+                StopThePop (per-pixel resort) variant and the 2DGS surfel
+                rasterizer with their gradients (CUDA kernels under
+                ``csrc/`` with plain PyTorch versions beside), SSIM,
+                nearest neighbours.
 - ``models``    Gaussian parameters and the alive mask, as tensors;
                 initialization and capacity growth; the 2D (surfel) model.
-- ``renderers`` ``TileRenderer`` and ``SurfelRenderer``: camera -> image.
+- ``renderers`` ``TileRenderer`` (``stp_resort`` selects StopThePop) and
+                ``SurfelRenderer``: camera -> image.
 - ``training``  loss, per-property Adam, density control, ``Trainer`` and
                 ``GS2DTrainer``.
 - ``data``      cameras.

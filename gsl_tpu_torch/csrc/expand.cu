@@ -8,6 +8,11 @@
 // (op * exp(-min sigma over the tile box) < 1/255 marks the slot invalid).
 // A Gaussian culled by projection keeps one dummy slot, invalid as well.
 // Invalid slots get key INT64_MAX so the sort puts them last.
+// With stp_resort (the StopThePop branch of _expand_kernel) the depth in the
+// key is the Gaussian's depth plane at the centre of the slot's tile,
+//   depth + kz_x * (tc_x - mean_x) + kz_y * (tc_y - mean_y),
+// kz = depth_grads; the centre depth and kz are not carried along: the
+// per-pixel-resort kernels gather them by id.
 //
 // What the TPU needed and this does not: slot -> Gaussian lookup by windowed
 // one-hot matmuls, f32 slot offsets (exact only below 2^24), and a payload
@@ -16,8 +21,9 @@
 // payload by Gaussian id after the sort.
 //
 // Bound on the H100: bytes. Each Gaussian reads 52 bytes (offset 8, rect 16,
-// depth 4, mean 8, conic 12, opacity 4) and each slot writes 12 (key 8,
-// id 4); the cull is ~40 flops and one exp per slot, far below the card's
+// depth 4, mean 8, conic 12, opacity 4; 8 more of depth_grads with
+// stp_resort) and each slot writes 12 (key 8, id 4); the cull is ~40 flops
+// and one exp per slot (the plane key 8 more), far below the card's
 // 67 TFLOP/s f32 rate at the ~2.6 slots per Gaussian of the bench scene.
 // Writes of one thread's slots are contiguous, so neighbouring threads
 // write neighbouring runs; the design keeps the kernel to one pass over
@@ -50,7 +56,9 @@ __global__ void __launch_bounds__(kThreads) expand_kernel(
     const float* __restrict__ means2d,    // [N, 2]
     const float* __restrict__ conics,     // [N, 3]
     const float* __restrict__ opacities,  // [N]
+    const float* __restrict__ depth_grads,  // [N, 2], read with stp_resort
     int n, int tile_size, int tiles_x, int tiles_y, int culling,
+    int stp_resort,
     int64_t* __restrict__ keys,           // [total]
     int* __restrict__ gids) {             // [total]
   const int g = blockIdx.x * kThreads + threadIdx.x;
@@ -66,8 +74,9 @@ __global__ void __launch_bounds__(kThreads) expand_kernel(
     gids[off] = g;
     return;
   }
-  const int64_t dbits =
-      static_cast<int64_t>(__float_as_uint(fmaxf(depths[g], 0.0f)));
+  const float depth = depths[g];
+  const float kzx = stp_resort ? depth_grads[2 * g + 0] : 0.0f;
+  const float kzy = stp_resort ? depth_grads[2 * g + 1] : 0.0f;
   const float mx = means2d[2 * g + 0];
   const float my = means2d[2 * g + 1];
   const float ca = conics[3 * g + 0];
@@ -104,6 +113,14 @@ __global__ void __launch_bounds__(kThreads) expand_kernel(
       smin = inside ? 0.0f : fmaxf(smin, 0.0f);
       valid = !(op * expf(-smin) < threshold);
     }
+    float key_depth = depth;
+    if (stp_resort) {
+      const float tcx = (static_cast<float>(tx) + 0.5f) * ts;
+      const float tcy = (static_cast<float>(ty) + 0.5f) * ts;
+      key_depth = depth + kzx * (tcx - mx) + kzy * (tcy - my);
+    }
+    const int64_t dbits =
+        static_cast<int64_t>(__float_as_uint(fmaxf(key_depth, 0.0f)));
     const int64_t tile = static_cast<int64_t>(ty) * tiles_x + tx;
     keys[off + local] = valid ? ((tile << 32) | dbits) : INT64_MAX;
     gids[off + local] = g;
@@ -120,15 +137,18 @@ const char* gsl_error_string(int code) {
 
 int gsl_expand(const int64_t* offsets, const int* rect, const float* depths,
                const float* means2d, const float* conics,
-               const float* opacities, int n, int tile_size, int tiles_x,
-               int tiles_y, int culling, int64_t* keys, int* gids,
-               void* stream) {
+               const float* opacities, const float* depth_grads, int n,
+               int tile_size, int tiles_x, int tiles_y, int culling,
+               int stp_resort, int64_t* keys, int* gids, void* stream) {
+  if (stp_resort && depth_grads == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
     expand_kernel<<<blocks, kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
-        offsets, rect, depths, means2d, conics, opacities, n, tile_size,
-        tiles_x, tiles_y, culling, keys, gids);
+        offsets, rect, depths, means2d, conics, opacities, depth_grads, n,
+        tile_size, tiles_x, tiles_y, culling, stp_resort, keys, gids);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,7 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("expand", "rasterize_fwd", "rasterize_bwd", "reduce_grads",
-           "surfel_expand", "surfel_fwd", "surfel_bwd")
+           "surfel_expand", "surfel_fwd", "surfel_bwd", "rasterize_fwd_stp",
+           "rasterize_bwd_stp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # expand.cu must round exactly as PyTorch's elementwise ops do (its plain
@@ -60,8 +61,9 @@ def library_path(name: str, extra: tuple = ()) -> Path:
 
 def build(names=SOURCES, extra: tuple = ()) -> dict:
     """Compile every missing library of `names` (with the `extra` flags
-    added), one nvcc per source, all started together. Returns {name: compiler log} (ptxas prints each
-    kernel's registers and shared memory). Raises if any build fails."""
+    added), one nvcc per source, all started together. Returns
+    {name: compiler log} (ptxas prints each kernel's registers and shared
+    memory). Raises if any build fails."""
     BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}

@@ -27,7 +27,10 @@ with the same outputs:
    surfel rasterizer (``ops/surfel_rasterize.py``) sums its 13 + C
    columns with the same kernel.
 
-`rasterize` ties them into one differentiable op (`_Rasterize`).
+`rasterize` ties them into one differentiable op (`_Rasterize`). With
+``stp_resort=True`` (StopThePop) step 2 keys each slot by its Gaussian's
+depth plane at the tile centre, and steps 5 and 6 are the per-pixel-resort
+kernels of ``ops/rasterize_stp.py`` (K2s, K3s).
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors, or raises,
 and runs its plain PyTorch version (``expand_plain``,
@@ -107,21 +110,33 @@ def slot_tiles(isects: Isects, tiles_y: int):
     return gid, t_x, t_y, hits[gid] > 0
 
 
-def slot_keys(valid, t_x, t_y, tiles_x: int, depths, gid):
+def slot_keys(valid, t_x, t_y, tiles_x: int, depths, gid,
+              stp_resort: bool = False, means2d=None, depth_grads=None,
+              tile_size: int = 16):
     """[total] int64 (tile << 32) | bits(max(depth, 0)); INVALID_KEY where
-    not valid."""
-    dbits = (torch.clamp(depths, min=0.0).view(torch.int32)
-             .to(torch.int64))[gid]
+    not valid. With `stp_resort` the depth of a slot is the Gaussian's
+    depth plane at the centre of the slot's tile,
+    depth + kz . (tile centre - mean), kz = depth_grads."""
+    depth = depths[gid]
+    if stp_resort:
+        ts = float(tile_size)
+        tcx = (t_x.to(torch.float32) + 0.5) * ts
+        tcy = (t_y.to(torch.float32) + 0.5) * ts
+        depth = (depth + depth_grads[gid, 0] * (tcx - means2d[gid, 0])
+                 + depth_grads[gid, 1] * (tcy - means2d[gid, 1]))
+    dbits = torch.clamp(depth, min=0.0).view(torch.int32).to(torch.int64)
     return torch.where(valid, ((t_y * tiles_x + t_x) << 32) | dbits,
                        torch.full_like(dbits, INVALID_KEY))
 
 
 def expand_plain(isects: Isects, means2d, conics, opacities, depths,
                  tiles_x: int, tiles_y: int, tile_size: int,
-                 tile_based_culling: bool = True):
+                 tile_based_culling: bool = True, stp_resort: bool = False,
+                 depth_grads=None):
     """Plain PyTorch version of kernel K1; same arithmetic, same order of
     rounding. Returns (keys [total] int64, gids [total] int32) in slot
-    order."""
+    order. `stp_resort` keys each slot by the depth plane at its tile's
+    centre (see `slot_keys`) and needs `depth_grads` [N, 2]."""
     gid, t_x, t_y, valid = slot_tiles(isects, tiles_y)
     if tile_based_culling:
         mx, my = means2d[gid, 0], means2d[gid, 1]
@@ -150,7 +165,8 @@ def expand_plain(isects: Isects, means2d, conics, opacities, depths,
                            torch.clamp(smin, min=0.0))
         peak = opacities[gid] * torch.exp(-smin)
         valid = valid & ~(peak < ALPHA_THRESHOLD)
-    keys = slot_keys(valid, t_x, t_y, tiles_x, depths, gid)
+    keys = slot_keys(valid, t_x, t_y, tiles_x, depths, gid, stp_resort,
+                     means2d, depth_grads, tile_size)
     return keys, gid.to(torch.int32)
 
 
@@ -174,32 +190,41 @@ def _stream(dev) -> ctypes.c_void_p:
 def _expand_lib():
     lib = cuda_build.load("expand")
     lib.gsl_expand.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
     lib.gsl_expand.restype = ctypes.c_int
     return lib
 
 
 def expand(isects: Isects, means2d, conics, opacities, depths,
            tiles_x: int, tiles_y: int, tile_size: int,
-           tile_based_culling: bool = True):
+           tile_based_culling: bool = True, stp_resort: bool = False,
+           depth_grads=None):
     """Kernel K1 on CUDA tensors, `expand_plain` on CPU tensors.
-    Returns (keys [total] int64, gids [total] int32) in slot order."""
+    Returns (keys [total] int64, gids [total] int32) in slot order.
+    `stp_resort`: StopThePop keys, the depth plane (slope `depth_grads`
+    [N, 2]) at each slot's tile centre."""
+    if stp_resort and depth_grads is None:
+        raise ValueError("expand: stp_resort needs depth_grads")
     if not means2d.is_cuda:
         return expand_plain(isects, means2d, conics, opacities, depths,
-                            tiles_x, tiles_y, tile_size, tile_based_culling)
+                            tiles_x, tiles_y, tile_size, tile_based_culling,
+                            stp_resort, depth_grads)
     f32 = [means2d, conics, opacities, depths]
+    if stp_resort:
+        f32.append(depth_grads)
     if any(t.dtype != torch.float32 for t in f32):
-        raise TypeError("expand: means2d, conics, opacities and depths "
-                        "must be float32")
+        raise TypeError("expand: means2d, conics, opacities, depths and "
+                        "depth_grads must be float32")
     dev = _check_cuda("expand", isects.offsets, isects.rect, *f32)
     keys = torch.empty(isects.total, dtype=torch.int64, device=dev)
     gids = torch.empty(isects.total, dtype=torch.int32, device=dev)
     lib = _expand_lib()
     code = lib.gsl_expand(
         _ptr(isects.offsets), _ptr(isects.rect), _ptr(depths),
-        _ptr(means2d), _ptr(conics), _ptr(opacities), means2d.shape[0],
-        tile_size, tiles_x, tiles_y, int(tile_based_culling), _ptr(keys),
-        _ptr(gids), _stream(dev))
+        _ptr(means2d), _ptr(conics), _ptr(opacities),
+        _ptr(depth_grads) if stp_resort else None, means2d.shape[0],
+        tile_size, tiles_x, tiles_y, int(tile_based_culling),
+        int(stp_resort), _ptr(keys), _ptr(gids), _stream(dev))
     cuda_build.check(lib, code, "expand")
     if means2d.shape[0]:
         expand.launches += 1
@@ -586,78 +611,121 @@ def reduce_grads(rows, gids, offsets, inv_order, n_valid, n: int,
 reduce_grads.launches = 0
 
 
+def _stp():
+    # rasterize_stp imports this module's helpers, so it is imported late
+    from . import rasterize_stp
+    return rasterize_stp
+
+
 class _Rasterize(torch.autograd.Function):
-    """expand -> sort -> ranges -> K2 with K3 + K4 as its gradient.
+    """expand -> sort -> ranges -> K2 with K3 + K4 as its gradient; with
+    `stp_resort`, K2s with K3s + K4 (``ops/rasterize_stp.py``).
 
     Differentiable inputs: means2d, conics, opacities, channels and
     absgrad_tap [N, 2], whose "gradient" is the AbsGS statistic (the sum
     over tiles of |per-(tile, Gaussian) mean gradient|), as in
-    ``rasterize_pallas``. depths and radii only order and place the splats
-    and carry no gradient. `info` is filled with n_isects, t_final and
-    i_stop."""
+    ``rasterize_pallas``. depths, depth_grads and radii only order and
+    place the splats and carry no gradient. `checkpoints`: a backward will
+    follow (K3s needs the forward's per-window T). `info` is filled with
+    n_isects, t_final and i_stop."""
 
     @staticmethod
     def forward(ctx, means2d, conics, opacities, channels, absgrad_tap,
-                depths, radii, img_height, img_width, tile_size,
-                tile_based_culling, info):
+                depths, depth_grads, radii, img_height, img_width,
+                tile_size, tile_based_culling, stp_resort, checkpoints,
+                info):
         tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
         means2d = means2d.contiguous()
         conics = conics.contiguous()
         opacities = opacities.contiguous()
         channels = channels.contiguous()
+        depths = depths.contiguous()
+        if stp_resort:
+            depth_grads = depth_grads.contiguous()
         proj = Projections(means2d=means2d, depths=depths, radii=radii,
                            conics=conics, compensations=None, mask=None)
         isects = isect_encode(proj, img_height, img_width, tile_size)
-        keys, gids = expand(isects, means2d, conics, opacities,
-                            depths.contiguous(), tiles_x, tiles_y,
-                            tile_size, tile_based_culling)
+        keys, gids = expand(isects, means2d, conics, opacities, depths,
+                            tiles_x, tiles_y, tile_size, tile_based_culling,
+                            stp_resort, depth_grads)
         sorted_keys, gids_sorted, order = sort_slots(keys, gids)
         bounds = tile_bounds(sorted_keys, tiles_x * tiles_y)
-        out, t_fin, i_stop = rasterize_fwd(
-            means2d, conics, opacities, channels, gids_sorted, bounds,
-            img_height, img_width, tile_size)
+        ckpt = None
+        if stp_resort:
+            out, t_fin, i_stop, ckpt = _stp().rasterize_fwd_stp(
+                means2d, conics, opacities, channels, depths, depth_grads,
+                gids_sorted, bounds, img_height, img_width, tile_size,
+                checkpoints=checkpoints)
+        else:
+            out, t_fin, i_stop = rasterize_fwd(
+                means2d, conics, opacities, channels, gids_sorted, bounds,
+                img_height, img_width, tile_size)
         info.update(n_isects=isects.n_isects, t_final=t_fin, i_stop=i_stop)
         ctx.save_for_backward(means2d, conics, opacities, channels,
                               gids_sorted, bounds, t_fin, i_stop, order,
-                              isects.offsets)
+                              isects.offsets, depths, depth_grads, ckpt)
         ctx.tile_size = tile_size
+        ctx.stp_resort = stp_resort
         return out, 1.0 - t_fin
 
     @staticmethod
     def backward(ctx, g_out, g_alpha):
         (means2d, conics, opacities, channels, gids_sorted, bounds, t_fin,
-         i_stop, order, offsets) = ctx.saved_tensors
+         i_stop, order, offsets, depths, depth_grads,
+         ckpt) = ctx.saved_tensors
         n = means2d.shape[0]
         # invalid keys sort last: the valid slots are the first bounds[-1],
         # and the rows behind them stay zero
-        rows = rasterize_bwd(means2d, conics, opacities, channels,
-                             gids_sorted, bounds, g_out.contiguous(),
-                             g_alpha.contiguous(), t_fin, i_stop,
-                             ctx.tile_size)
+        if ctx.stp_resort:
+            rows = _stp().rasterize_bwd_stp(
+                means2d, conics, opacities, channels, depths, depth_grads,
+                gids_sorted, bounds, g_out.contiguous(),
+                g_alpha.contiguous(), t_fin, ckpt, ctx.tile_size)
+        else:
+            rows = rasterize_bwd(means2d, conics, opacities, channels,
+                                 gids_sorted, bounds, g_out.contiguous(),
+                                 g_alpha.contiguous(), t_fin, i_stop,
+                                 ctx.tile_size)
         summed = reduce_grads(rows, gids_sorted, offsets,
                               invert_order(order), bounds[-1:], n)
         return (summed[:, 0:2], summed[:, 2:5], summed[:, 5],
-                summed[:, 8:], summed[:, 6:8]) + (None,) * 7
+                summed[:, 8:], summed[:, 6:8]) + (None,) * 10
 
 
 def rasterize(projections: Projections, opacities, channels,
               img_height: int, img_width: int, tile_size: int = 16,
-              tile_based_culling: bool = True, absgrad_tap=None):
+              tile_based_culling: bool = True, absgrad_tap=None,
+              stp_resort: bool = False):
     """Rasterize projected splats front to back; differentiable in
     projections.means2d, projections.conics, opacities and channels.
 
     projections supplies means2d, conics, depths (sort key) and radii (tile
     rectangles); opacities [N]; channels [N, C] with any C. The gradient
     that arrives at `absgrad_tap` ([N, 2] zeros) is the AbsGS statistic.
+    `stp_resort` is StopThePop: slots keyed by the depth plane
+    (projections.depth_grads) at the tile centre, every pixel re-sorting
+    windows of 16 by its own depth, and no transmittance stop
+    (``ops/rasterize_stp.py``).
     Returns (img_nobg [H, W, C] without background, alpha [H, W], aux).
     Blend a background as ``img + (1 - alpha)[..., None] * bg``."""
     if absgrad_tap is None:
         absgrad_tap = torch.zeros_like(projections.means2d)
+    depth_grads = None
+    if stp_resort:
+        if projections.depth_grads is None:
+            raise ValueError("rasterize: stp_resort needs "
+                             "projections.depth_grads")
+        depth_grads = projections.depth_grads.detach()
+    differentiable = (projections.means2d, projections.conics, opacities,
+                      channels, absgrad_tap)
+    wants_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in differentiable)
     info = {}
     out, alpha = _Rasterize.apply(
         projections.means2d, projections.conics, opacities, channels,
-        absgrad_tap, projections.depths.detach(), projections.radii,
-        img_height, img_width, tile_size, tile_based_culling, info)
+        absgrad_tap, projections.depths.detach(), depth_grads,
+        projections.radii, img_height, img_width, tile_size,
+        tile_based_culling, stp_resort, stp_resort and wants_grad, info)
     aux = RasterAux(n_isects=info["n_isects"], n_dropped=0,
                     t_final=info["t_final"], i_stop=info["i_stop"])
     return out, alpha, aux

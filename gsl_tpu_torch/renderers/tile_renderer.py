@@ -50,8 +50,9 @@ class TileRendererConfig:
                                        # slots whose peak alpha over the tile
                                        # is below the 1/255 threshold
     max_viewspace_grad_scale: float = 65535.0
-    stp_resort: bool = False           # StopThePop per-tile depth keys: not
-                                       # ported yet (ROADMAP.md)
+    stp_resort: bool = False           # StopThePop: per-tile depth-plane
+                                       # keys, per-pixel resort of windows of
+                                       # 16, no transmittance stop
 
     def instantiate(self) -> "TileRenderer":
         return TileRenderer(self)
@@ -59,10 +60,6 @@ class TileRendererConfig:
 
 class TileRenderer:
     def __init__(self, config: TileRendererConfig):
-        if config.stp_resort:
-            raise NotImplementedError(
-                "stp_resort is not ported yet: StopThePop is queued in "
-                "ROADMAP.md")
         self.config = config
 
     def supports_absgrad(self) -> bool:
@@ -141,7 +138,7 @@ class TileRenderer:
 
         img_nobg, alpha, aux = rasterize(
             proj, opacities, ch, img_height, img_width, cfg.tile_size,
-            cfg.tile_based_culling, absgrad_tap)
+            cfg.tile_based_culling, absgrad_tap, cfg.stp_resort)
         img = img_nobg + (1.0 - alpha)[..., None] * bgv
 
         hard_inv = None
@@ -153,7 +150,7 @@ class TileRenderer:
             inv_d = 1.0 / torch.clamp(proj.depths[:, None], min=1e-8)
             hd_img, _, _ = rasterize(
                 proj, hard_op, inv_d, img_height, img_width, cfg.tile_size,
-                cfg.tile_based_culling)
+                cfg.tile_based_culling, stp_resort=cfg.stp_resort)
             hard_inv = hd_img[..., 0]
 
         acc_depth = img[..., idx["acc_depth"]] if "acc_depth" in idx else None

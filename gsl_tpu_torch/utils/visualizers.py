@@ -1,8 +1,12 @@
-"""Output visualizers (turbo depth colormap, normal maps), a copy of
-``gsl_tpu/utils/visualizers.py``; numpy in, numpy out."""
+"""Output visualizers (turbo depth colormap, normal maps): the functions of
+``gsl_tpu/utils/visualizers.py`` on tensors. Each takes a float tensor and
+returns one on the same device, so a frame rendered on the card is
+visualized there and only its uint8 image goes to the host."""
 from __future__ import annotations
 
-import numpy as np
+from typing import Optional
+
+import torch
 
 # polynomial approximation of the Turbo colormap (Google AI blog, public)
 _TURBO_R = (0.13572138, 4.61539260, -42.66032258, 132.13108234,
@@ -18,30 +22,37 @@ def _poly(x, c):
             + x * c[5])))))
 
 
-def turbo_colormap(x: np.ndarray) -> np.ndarray:
+def turbo_colormap(x: torch.Tensor) -> torch.Tensor:
     """x in [0,1] [H, W] -> rgb [H, W, 3] in [0,1]."""
-    x = np.clip(x, 0.0, 1.0)
-    rgb = np.stack([_poly(x, _TURBO_R), _poly(x, _TURBO_G),
-                    _poly(x, _TURBO_B)], axis=-1)
-    return np.clip(rgb, 0.0, 1.0)
+    x = torch.clamp(x, 0.0, 1.0)
+    rgb = torch.stack([_poly(x, _TURBO_R), _poly(x, _TURBO_G),
+                       _poly(x, _TURBO_B)], dim=-1)
+    return torch.clamp(rgb, 0.0, 1.0)
 
 
-def visualize_depth(depth: np.ndarray, max_depth: float = None) -> np.ndarray:
-    d = np.asarray(depth, np.float32)
+def visualize_depth(depth: torch.Tensor,
+                    max_depth: Optional[float] = None) -> torch.Tensor:
+    """Depth over its largest finite positive value (1 when there is
+    none), through the colormap. The maximum stays on the device."""
+    d = depth.to(torch.float32)
     if max_depth is None:
-        finite = d[np.isfinite(d) & (d > 0)]
-        max_depth = float(finite.max()) if finite.size else 1.0
-    return turbo_colormap(d / max(max_depth, 1e-8))
+        valid = torch.isfinite(d) & (d > 0)
+        largest = torch.where(valid, d, torch.zeros_like(d)).max()
+        scale = torch.where(valid.any(), largest, torch.ones_like(largest))
+    else:
+        scale = torch.as_tensor(max_depth, dtype=torch.float32,
+                                device=d.device)
+    return turbo_colormap(d / torch.clamp(scale, min=1e-8))
 
 
-def visualize_normal(normal: np.ndarray) -> np.ndarray:
+def visualize_normal(normal: torch.Tensor) -> torch.Tensor:
     """[-1,1] normals -> rgb."""
-    return np.clip(np.asarray(normal) * 0.5 + 0.5, 0.0, 1.0)
+    return torch.clamp(normal * 0.5 + 0.5, 0.0, 1.0)
 
 
-def visualize_output(key_type: str, arr: np.ndarray) -> np.ndarray:
+def visualize_output(key_type: str, img: torch.Tensor) -> torch.Tensor:
     if key_type == "gray":
-        return visualize_depth(arr)
+        return visualize_depth(img)
     if key_type == "normal_map":
-        return visualize_normal(arr)
-    return np.clip(np.asarray(arr), 0.0, 1.0)
+        return visualize_normal(img)
+    return torch.clamp(img, 0.0, 1.0)

@@ -1,7 +1,8 @@
 """Viewer-side rendering: camera pose -> visualized uint8 image.
 
 Port of ``gsl_tpu/viewer/renderer.py``. The camera is built on the
-state's device.
+state's device, the frame is rendered, visualized and quantized there, and
+one uint8 image goes to the host, whatever the output type.
 """
 from __future__ import annotations
 
@@ -54,7 +55,6 @@ class ViewerRenderer:
             img = out.render
         else:
             info = self.renderer.get_available_outputs()[self.output_type]
-            img = torch.from_numpy(visualize_output(
-                info.type.value, getattr(out, info.key).cpu().numpy()))
+            img = visualize_output(info.type.value, getattr(out, info.key))
         # quantize on the device: one uint8 copy to the host, not a float one
         return (torch.clamp(img, 0.0, 1.0) * 255).to(torch.uint8).cpu().numpy()

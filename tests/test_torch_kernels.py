@@ -37,6 +37,14 @@ more pairs round apart than in K3. Built without contraction
 held at >= 99.9% here, at >= 99.999% at full width by `chip_smoke.py`. The K4 sums of those rows (no absolute columns
 there) may differ from `index_add_`'s by 1e-5 of the summed magnitudes of
 the rows that went into each sum, and by nothing more.
+
+The StopThePop kernels: K1 with `stp_resort` is bit-identical to
+`expand_plain` like K1 without. K2s has no skip-or-stop decision but the
+1/255 skip, and one more on rounded values: two slots of a window whose
+depths at a pixel differ by a rounding may swap between the contracted
+kernel and the plain version, moving the pixel by up to one weight; image,
+alpha and K3s's rows are held at the shares of K2 and K3. A saturated tile
+(T_final == 0) must give finite gradients equal to the CPU's.
 """
 import math
 import pathlib
@@ -49,8 +57,9 @@ import torch
 
 from gsl_tpu_torch.data.cameras import make_camera
 from gsl_tpu_torch.ops import rasterize as R
+from gsl_tpu_torch.ops import rasterize_stp as STP
 from gsl_tpu_torch.ops import surfel_rasterize as SR
-from gsl_tpu_torch.ops.projection import project_gaussians
+from gsl_tpu_torch.ops.projection import Projections, project_gaussians
 from gsl_tpu_torch.ops.surfel import project_surfels
 from gsl_tpu_torch.renderers.surfel_renderer import SurfelRendererConfig
 from gsl_tpu_torch.renderers.tile_renderer import TileRendererConfig
@@ -430,6 +439,163 @@ def test_surfel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):    # absolute columns need K3's layout
         R.reduce_grads(rows[:, :4].contiguous(), gs, isects.offsets,
                        R.invert_order(order), bounds[-1:], 100, n_abs=2)
+
+
+def _stp_inputs(cuda, n_channels, n=3000):
+    state = state_from_raw_arrays(scene(n), device=cuda)
+    cam = camera(cuda)
+    proj = project_gaussians(state.get_means(), state.get_scales(),
+                             state.get_rotations(), cam.world_to_camera,
+                             cam.fx, cam.fy, cam.cx, cam.cy, W, H)
+    op = state.get_opacities().contiguous()
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    ch = torch.rand((n, n_channels), generator=gen).to(cuda)
+    isects = R.isect_encode(proj, H, W, TS)
+    args = (isects, proj.means2d, proj.conics, op, proj.depths, W // TS,
+            H // TS, TS, True, True, proj.depth_grads.contiguous())
+    return proj, op, ch, isects, args, gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_channels", [3, 8, 11])
+def test_stp_kernels_match_plain(cuda, n_channels):
+    """C = 11 takes two K2s launches (8 + 3) and K3s's path with the
+    cotangents in shared memory."""
+    proj, op, ch, isects, args, gen = _stp_inputs(cuda, n_channels)
+    before = R.expand.launches
+    keys, gids = R.expand(*args)
+    assert R.expand.launches == before + 1
+    keys_p, gids_p = R.expand_plain(*args)
+    assert torch.equal(keys, keys_p) and torch.equal(gids, gids_p)
+    assert not torch.equal(keys, R.expand(*args[:9])[0])
+    sk, gs, order = R.sort_slots(keys, gids)
+    bounds = R.tile_bounds(sk, (W // TS) * (H // TS))
+    assert bool((bounds[:-1] % STP.STP_WINDOW != 0).any())
+    fwd = (proj.means2d, proj.conics, op, ch, proj.depths,
+           proj.depth_grads.contiguous(), gs, bounds, H, W, TS)
+    before = STP.rasterize_fwd_stp.launches
+    out, t_fin, stop, ckpt = STP.rasterize_fwd_stp(*fwd, checkpoints=True)
+    torch.cuda.synchronize()
+    assert STP.rasterize_fwd_stp.launches == before + -(-n_channels // 8)
+    out_p, t_p, stop_p, ckpt_p = STP.rasterize_fwd_stp_plain(
+        *fwd, checkpoints=True)
+    assert bool((stop == R.NEVER_STOPPED).all()) and torch.equal(stop, stop_p)
+    assert close_share(out, out_p) >= SHARE
+    assert close_share(t_fin, t_p) >= SHARE
+    assert STP.rasterize_fwd_stp(*fwd)[3] is None
+    loose = STP.rasterize_fwd_stp(*fwd, contract=False)
+    assert close_share(loose[0], out_p) >= SHARE
+
+    g_out = torch.randn((H, W, n_channels), generator=gen).to(cuda)
+    g_alpha = torch.randn((H, W), generator=gen).to(cuda)
+    before = STP.rasterize_bwd_stp.launches
+    rows = STP.rasterize_bwd_stp(*fwd[:8], g_out, g_alpha, t_fin, ckpt, TS)
+    torch.cuda.synchronize()
+    assert STP.rasterize_bwd_stp.launches == before + 1
+    rows_p = STP.rasterize_bwd_stp_plain(*fwd[:8], g_out, g_alpha, t_p,
+                                         ckpt_p, TS)
+    assert rows.shape == rows_p.shape == (gs.numel(), 6 + n_channels)
+    assert bool(torch.isfinite(rows).all())
+    assert float(rows_p.abs().max()) > 1.0
+    assert close_share_grad(rows, rows_p) >= SHARE
+    assert torch.equal(rows, STP.rasterize_bwd_stp(
+        *fwd[:8], g_out, g_alpha, t_fin, ckpt, TS))
+    n = proj.means2d.shape[0]
+    summed = R.reduce_grads(rows, gs, isects.offsets, R.invert_order(order),
+                            bounds[-1:], n)
+    torch.testing.assert_close(summed, R.reduce_grads_plain(rows, gs, n),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_stp_renderer_and_gradients_on_card_match_cpu(cuda):
+    arrays = scene(1500, seed=1)
+    types = frozenset({"rgb", "alpha", "exp_depth", "inverse_depth",
+                       "normal", "hard_inverse_depth"})
+    outs, grads = [], []
+    for dev in (cuda, torch.device("cpu")):
+        state = state_from_raw_arrays(arrays, device=dev)
+        leaves = state.params.map(lambda _, x: x.requires_grad_(True))
+        state.params = leaves
+        renderer = TileRendererConfig(stp_resort=True).instantiate()
+        out = renderer.forward(state, camera(dev), H, W,
+                               torch.tensor([0.1, 0.2, 0.3], device=dev), 3,
+                               render_types=types)
+        target = torch.rand((H, W, 3), generator=torch.Generator(
+            device="cpu").manual_seed(2)).to(dev)
+        ((out.render - target) ** 2).sum().backward()
+        outs.append(out)
+        grads.append({k: getattr(leaves, k).grad.cpu()
+                      for k in ("means", "scales", "rotations", "opacities",
+                                "shs_dc", "shs_rest")})
+    for key in ("render", "alpha", "exp_depth", "inverse_depth", "normal",
+                "hard_inverse_depth"):
+        got = getattr(outs[0], key).detach().cpu()
+        assert bool(torch.isfinite(got).all()), key
+        assert close_share(got, getattr(outs[1], key).detach()) >= SHARE, key
+    for k, got in grads[0].items():
+        want = grads[1][k]
+        assert bool(torch.isfinite(got).all()), k
+        scale = float(want.abs().max())
+        bad = (got - want).abs() > 1e-3 * scale + 1e-2 * want.abs()
+        assert float(bad.float().mean()) <= 1e-3, k
+
+
+@pytest.mark.cuda
+def test_stp_saturated_tile_is_finite_on_the_card(cuda):
+    """64 Gaussians of opacity 0.99 on one spot: T_final is 0 there, and
+    the card's gradients are finite and the CPU's."""
+    rng = np.random.RandomState(5)
+    n = 64
+    arrays = dict(means2d=8.0 + 0.05 * rng.randn(n, 2),
+                  conics=np.tile([0.05, 0.0, 0.05], (n, 1)),
+                  opac=np.full(n, 0.99), ch=rng.rand(n, 3))
+    depths, kz = rng.rand(n) * 3 + 1, rng.rand(n, 2) * 0.2
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [torch.tensor(arrays[k], dtype=torch.float32, device=dev,
+                               requires_grad=True)
+                  for k in ("means2d", "conics", "opac", "ch")]
+        proj = Projections(
+            means2d=leaves[0], conics=leaves[1],
+            depths=torch.tensor(depths, dtype=torch.float32, device=dev),
+            radii=torch.full((n,), 8, dtype=torch.int32, device=dev),
+            compensations=None, mask=None,
+            depth_grads=torch.tensor(kz, dtype=torch.float32, device=dev))
+        img, alpha, aux = R.rasterize(proj, leaves[2], leaves[3], 16, 16, TS,
+                                      True, stp_resort=True)
+        assert float(aux.t_final.min()) == 0.0
+        (img.sum() + 2.0 * alpha.sum()).backward()
+        grads.append([x.grad.cpu() for x in leaves])
+    for got, want in zip(*grads):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=1e-2,
+                                   atol=1e-3 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_stp_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    proj, op, ch, isects, args, gen = _stp_inputs(cuda, 3, n=100)
+    with pytest.raises(ValueError):
+        R.expand(*args[:9], True)                  # no depth_grads
+    with pytest.raises(TypeError):
+        R.expand(*args[:10], args[10].double())
+    keys, gids = R.expand(*args)
+    sk, gs, _ = R.sort_slots(keys, gids)
+    bounds = R.tile_bounds(sk, (W // TS) * (H // TS))
+    fwd = (proj.means2d, proj.conics, op, ch, proj.depths,
+           proj.depth_grads.contiguous(), gs, bounds, H, W, TS)
+    with pytest.raises(TypeError):
+        STP.rasterize_fwd_stp(*fwd[:4], fwd[4].double(), *fwd[5:])
+    with pytest.raises(ValueError):
+        STP.rasterize_fwd_stp(*fwd[:5], fwd[5].cpu(), *fwd[6:])
+    out, t_fin, _, ckpt = STP.rasterize_fwd_stp(*fwd, checkpoints=True)
+    g_out, g_alpha = torch.zeros_like(out), torch.zeros_like(t_fin)
+    with pytest.raises(ValueError):                # another scene's rows
+        STP.rasterize_bwd_stp(*fwd[:8], g_out, g_alpha, t_fin, ckpt[:-1], TS)
+    with pytest.raises(TypeError):
+        STP.rasterize_bwd_stp(*fwd[:8], g_out.double(), g_alpha, t_fin, ckpt,
+                              TS)
 
 
 @pytest.mark.cuda

@@ -15,6 +15,7 @@ import torch
 
 from gsl_tpu_torch.ops import cuda_build
 from gsl_tpu_torch.ops import rasterize as R
+from gsl_tpu_torch.ops import rasterize_stp as STP
 from gsl_tpu_torch.ops import surfel_rasterize as SR
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -29,6 +30,8 @@ KERNELS = {
     "surfel_expand": (SR, "surfel_expand"),
     "surfel_fwd": (SR, "rasterize_surfels_fwd"),
     "surfel_bwd": (SR, "rasterize_surfels_bwd"),
+    "rasterize_fwd_stp": (STP, "rasterize_fwd_stp"),
+    "rasterize_bwd_stp": (STP, "rasterize_bwd_stp"),
 }
 
 
@@ -118,6 +121,11 @@ def test_cpu_tensors_launch_no_kernel():
                                   32, 32)
     (res.channels.sum() + res.distortion.sum()).backward()
     assert float(channels.grad.abs().max()) > 0.0
+    colors.grad = None
+    img, alpha, _ = R.rasterize(proj, torch.full((n,), 0.5), colors, 32, 32,
+                                stp_resort=True)
+    (img.sum() + alpha.sum()).backward()
+    assert float(colors.grad.abs().max()) > 0.0
     assert before == _launch_counts()
 
 

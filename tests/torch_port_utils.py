@@ -6,6 +6,7 @@ import torch
 from gsl_tpu.ops.projection import project_gaussians as jax_project
 
 from gsl_tpu_torch.ops.projection import project_gaussians
+from gsl_tpu_torch.utils.convert import state_from_raw_arrays
 
 from scene_utils import random_scene, simple_camera
 
@@ -33,6 +34,19 @@ def both_projections(n, seed, width, height, **scene_kw):
         to_torch(cam.world_to_camera), to_torch(cam.fx), to_torch(cam.fy),
         to_torch(cam.cx), to_torch(cam.cy), width, height)
     return pj, pt, np.asarray(opac), np.asarray(colors)
+
+
+def small_port_state(n=200, seed=21, sh_rest=0.1):
+    """A random scene as a port GaussianState on the CPU, every row alive,
+    SH degree 3 with `sh_rest` N(0, 1) in the higher bands."""
+    means, scales, quats, opac, colors = (np.asarray(a) for a in
+                                          random_scene(n, seed))
+    rng = np.random.RandomState(seed + 100)
+    return state_from_raw_arrays(dict(
+        means=means, scales=np.log(scales), rotations=quats,
+        opacities=np.log(opac / (1 - opac))[:, None],
+        shs_dc=((colors - 0.5) / 0.28209479177387814)[:, None, :],
+        shs_rest=sh_rest * rng.normal(size=(n, 15, 3))), device="cpu")
 
 
 PARAM_FIELDS = ("means", "scales", "rotations", "opacities", "shs_dc",
