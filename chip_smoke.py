@@ -68,6 +68,12 @@ package is not beside this script. Phases, each fatal on failure:
    TileRenderer(stp_resort=True), card against CPU: every output and all
    six gradients. A tile of 64 near-opaque Gaussians whose T_final
    underflows to 0: image and gradients finite and equal to the CPU's.
+   For K3s and K7 (the backward kernels of csrc/warp_reduce.cuh's
+   transposed sums) it also prints registers, local (spill) bytes, shared
+   bytes and resident blocks per SM as the card's runtime reports them,
+   and the count of (slot, warp)s, 32 pixels of a tile, in which some pixel
+   composites the slot: where the kernels sum a row over a warp (the plain
+   versions count them).
 4. main path: GaussianModelLoader.load(ply) -> ViewerRenderer -> orbit
    frames at 1088x1920 in rgb, then one frame with alpha, exp_depth,
    inverse_depth, normal and hard_inverse_depth (8 composited channels).
@@ -334,6 +340,14 @@ def visited_pairs(i_stop, bounds, tiles_x):
     stop = i_stop.to(torch.int64)
     last = torch.where(stop < R.NEVER_STOPPED, stop + 1, end)
     return int((last - start).sum())
+
+
+def log_attributes(name, C, attrs):
+    """A backward kernel's resources as the card's runtime reports them."""
+    log(f"{name} C={C} attributes: {attrs['registers']} registers, "
+        f"{attrs['local_bytes']} local (spill) bytes per thread, "
+        f"{attrs['shared_bytes']} dynamic shared bytes per block, "
+        f"{attrs['blocks_per_sm']} resident blocks per SM")
 
 
 def reset_launches():
@@ -643,10 +657,13 @@ def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
         f"(>= {gushare:.7f} when built without contraction), max abs err "
         f"{bwd_err:.3e} (max |ref| {float(rows_p.abs().max()):.3e}); "
         f"identical in two runs. K4: max abs err {reduce_err:.3e}; "
-        f"composited pairs {composited}")
+        f"composited pairs {composited}; (slot, warp)s with a composited "
+        f"pixel {stats['composited_slot_warps']}")
     rec = {"fwd_err": fwd_err, "bwd_err": bwd_err}
     if not timed:
         return rec
+    attrs = STP.rasterize_bwd_stp_attributes(C, TILE)
+    log_attributes("K3s", C, attrs)
     # with no stop every pixel visits its tile's whole list
     ys = torch.arange(H, device="cuda")[:, None] // TILE
     xs = torch.arange(W, device="cuda")[None, :] // TILE
@@ -674,7 +691,9 @@ def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
             + 360 * unordered),
         slots=isects.total, n_isects=isects.n_isects, n_valid=n_valid,
         pairs=pairs, composited_pairs=composited,
-        unordered_windows=unordered, checkpoint_bytes=ckpt_bytes)
+        unordered_windows=unordered, checkpoint_bytes=ckpt_bytes,
+        composited_slot_warps=stats["composited_slot_warps"],
+        bwd_attributes=attrs)
     log(f"stp {tag} timings " + json.dumps(
         {k: v for k, v in rec.items() if not k.endswith("_err")}))
     return rec
@@ -915,15 +934,14 @@ def check_surfel_kernels(vname, C, state, cam, seed, timed):
         f"(>= {ushare:.7f} when built without contraction), "
         f"max abs err {bwd_err:.3e} (max |ref| {scale:.3e}); identical in "
         f"two runs. K4 with 13 + C columns: max abs err {reduce_err:.3e} "
-        f"(max |ref| {sscale:.3e}); composited pairs {composited}")
+        f"(max |ref| {sscale:.3e}); composited pairs {composited}; (slot, "
+        f"warp)s with a composited pixel {stats['composited_slot_warps']}")
     rec = {"fwd_err": fwd_err, "median_err": plane_err["median depth"],
            "bwd_err": bwd_err, "reduce_err": reduce_err}
     if not timed:
         return rec
     attrs = SR.rasterize_surfels_bwd_attributes(C, TILE)
-    log(f"K7 C={C} per cudaFuncGetAttributes: {attrs['registers']} "
-        f"registers, {attrs['local_bytes']} local bytes per thread, "
-        f"{attrs['shared_bytes']} dynamic shared bytes per block")
+    log_attributes("K7", C, attrs)
     gids64 = gs.long()
     sums = torch.empty((n, rows.shape[1]), device=rows.device)
     pairs = visited_pairs(stop, bounds, tiles_x)
@@ -954,7 +972,9 @@ def check_surfel_kernels(vname, C, state, cam, seed, timed):
         reduce_bound=bound(4 * R_ * n_valid + 4 * isects.total + 8 * n
                            + 4 * R_ * n, R_ * n_valid),
         slots=isects.total, n_isects=isects.n_isects, pairs=pairs,
-        pairs_bwd=pairs_bwd, composited_pairs=composited)
+        pairs_bwd=pairs_bwd, composited_pairs=composited,
+        composited_slot_warps=stats["composited_slot_warps"],
+        bwd_attributes=attrs)
     log(f"surfel {tag} timings " + json.dumps(
         {k: v for k, v in rec.items() if k.endswith(("_ms", "_bound"))
          or k in ("slots", "n_isects", "pairs", "pairs_bwd",
@@ -1683,6 +1703,9 @@ def main():
         stp_entry("rasterize_fwd_stp", 869, trec["fwd_err"], "fwd"),
         stp_entry("rasterize_bwd_stp", 1069, trec["bwd_err"], "bwd"),
     ]
+    for e, r in ((kernels[6], srec), (kernels[8], trec)):
+        e.update(composited_slot_warps=r["composited_slot_warps"],
+                 attributes=r["bwd_attributes"])
     log(f"surfel backward at the bench pose: K6's median depth differs by "
         f"up to {srec['median_err']:.3e} (a flipped crossing); K7 errors "
         f"are of rows up to {srec['bwd_scale']:.3e}, K4's of sums up to "

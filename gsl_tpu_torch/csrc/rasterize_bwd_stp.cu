@@ -20,55 +20,143 @@
 // drives T_final to 0 and there is nothing to divide. (The TPU kernel has the
 // same hazard, T_run * exp(-S_inc) = 0 * inf.) The forward (K2s) leaves T at
 // the start of every window; this kernel walks a tile's windows back to
-// front, starts each from its checkpoint, orders it with the forward's own
-// code (stp_order.cuh) and runs the forward's own rule T_exc = T; T *= 1 - a
-// over it, so T_exc is the forward's to the bit. Then q is laid out by rank
-// and summed from the back, which gives S_after for every entry and the
-// carry for the window in front. Every term is a product with T_exc, so a
-// slot behind the point where T reached 0 gets exactly 0, and no gradient
-// can be anything but finite.
+// front, starts each from its checkpoint and runs the forward's rule
+// T_exc = T; T *= 1 - a in the forward's order (stp_order.cuh), so T_exc is
+// the forward's to the bit. Every term is a product with T_exc, so a slot
+// behind the point where T reached 0 gets exactly 0, and no gradient can be
+// anything but finite.
 //
 // What the TPU needed and this does not: log1p/exp closures with window-level
 // triangle matmuls, 2 x 15 shifted masked adds per sum, merge flags for
 // stream blocks revisited at tile borders, a payload carried through the sort.
-// Here one block of tile_size^2 threads owns one tile, one thread one pixel.
-// Per window the 16 slots' fields are gathered by id into shared memory (one
-// value per thread), each thread orders the window in registers and keeps
-// T_exc and S_after by rank in its own two columns of shared memory, and the
-// 6 + C per-pixel values of each slot are summed over each warp with shuffles
-// (a warp in which no pixel composites the slot skips them), over the warps
-// in warp order, and written as one row. No atomics: the same rows in every
-// run.
 //
 // Bound on the H100: operations. Every (pixel, slot) pair costs 28 + 2C: the
 // forward's 23, T_exc 2, cg 2C, q 2 and the suffix 1. A pair with a > 0
 // costs K3's 35 + 4C more. A (pixel, window) whose live entries are out of
-// order costs 360 more (the rank count). The bytes are the forward's, the
-// checkpoints (64 per sorted slot), the cotangents and one row per valid
-// slot.
+// order costs 360 more (the forward's rank count). The bytes are the
+// forward's, the checkpoints (64 per sorted slot), the cotangents and one row
+// per valid slot. Before this design the kernel ran at 24x that bound, and
+// removing one part at a time showed where (NVIDIA H100, 1M Gaussians,
+// 1088x1920, C = 3): the 6 + C five-step shuffle sums of each (slot, warp)
+// in which a pixel composites cost 4.2 of 8.3 ms, the 120-compare rank
+// count run by a whole warp for one out-of-order lane 3.7; the gather sat
+// behind two barriers per window; 2 blocks of 256 threads per SM.
+// What the design does about each:
 //
-// Any C works: C <= 8 is a template parameter (cotangents in registers),
-// larger C keeps the cotangents in shared memory.
+// - Two passes over a window per thread. Pass 1 evaluates each slot's
+//   pair terms once, keeps T_exc (position order) in the thread's own
+//   column of shared memory and a 16-bit mask of the live entries (a > 0)
+//   in a register, and tests whether the live entries already ascend
+//   (stp_order.cuh's in_order, the common case). No 16-entry register
+//   arrays: the kernel fits 64 registers, four blocks of 256 per SM.
+// - A lane whose live entries are out of order ranks only those (n_live^2
+//   compares of d_p laid out in its second column; 2.2 live entries per
+//   (pixel, window) on average in the bench scene),
+//   with stp_order.cuh's pairwise rule, so their relative order, and T_exc,
+//   are the forward's to the bit: an entry with a == 0 multiplies T by
+//   exactly 1 wherever it stands. It then redoes T_exc over the live
+//   entries in that order and lays S_after out by position in the second
+//   column.
+// - Pass 2 visits, back to front, only the slots some pixel of the warp
+//   composites (the live masks, __any_sync), evaluates their pair terms again
+//   for the gradient, carries S itself where the window was in order, and
+//   sums the 6 + C values over the warp with one transposed sum
+//   (warp_reduce.cuh): 12 shuffles at C = 3 instead of 45, the warp's row
+//   left in 6 + C lanes that store it at once. Its loop is not unrolled:
+//   sixteen copies of the body took 1.7 times as long (5.2 ms against 3.0).
+// - A slot's fields lie together in shared memory (a record of 9 + C floats
+//   padded to 16 bytes), read with three 16-byte loads where the strided
+//   layout took nine 4-byte ones: shared-memory instructions, which the
+//   shuffles share a pipe with, bounded pass 1.
+// - The ids and records of the next window are copied into a second buffer
+//   with cp.async (__pipeline_memcpy_async) while this one is computed, the
+//   ids two windows ahead. The copies gather by Gaussian id, 4 bytes from
+//   arrays of 2, 3 and 1 floats per Gaussian, which TMA's tiled copies do
+//   not serve. The warps' partial rows and their masks are double-buffered
+//   too, so the cross-warp sum of one window (in warp order, one thread per
+//   value of the window's rows) runs during the next one: one __syncthreads
+//   per window. The checkpoint row is read one window ahead, coalesced.
+// - The tensor cores play no part: there is no matrix product, and TF32
+//   sums would not hold the rows to their tolerances.
+//
+// No atomics: the order of every addition is fixed, the same rows in every
+// run. Any C works: C <= 8 is a template parameter (cotangents in
+// registers), larger C keeps the cotangents in shared memory and sums the
+// row in chunks of 32 values.
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "stp_order.cuh"
+#include "warp_reduce.cuh"
 
 namespace {
 
 constexpr int kMaxTemplateC = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMaxThreads = 1024;  // tile_size <= 32
 constexpr int kW = stp::kWindow;
+using gsl::kFullMask;
 
-__device__ __forceinline__ float warp_sum(float v) {
+// Where field `field` of Gaussian `g` lies (the order of stp::Field, then
+// the C channels).
+__device__ __forceinline__ const float* field_address(
+    int field, int g, int n_channels, const float* __restrict__ means2d,
+    const float* __restrict__ conics, const float* __restrict__ opacities,
+    const float* __restrict__ channels, const float* __restrict__ depths,
+    const float* __restrict__ depth_grads) {
+  switch (field) {
+    case stp::kMx: return means2d + 2 * g;
+    case stp::kMy: return means2d + 2 * g + 1;
+    case stp::kCa: return conics + 3 * g;
+    case stp::kCb: return conics + 3 * g + 1;
+    case stp::kCc: return conics + 3 * g + 2;
+    case stp::kOp: return opacities + g;
+    case stp::kDepth: return depths + g;
+    case stp::kKzx: return depth_grads + 2 * g;
+    case stp::kKzy: return depth_grads + 2 * g + 1;
+    default:
+      return channels + static_cast<int64_t>(g) * n_channels +
+             (field - stp::kFields);
+  }
+}
+
+// A slot's record in shared memory: its nine fields (stp::Field order), its
+// C channels, padded to whole 16-byte loads.
+__host__ __device__ __forceinline__ int record_floats(int n_channels) {
+  return (stp::kFields + n_channels + 3) & ~3;
+}
+
+// The first kLoad values of a record, in three 16-byte loads: the nine
+// fields pair_terms reads and the first channels.
+constexpr int kLoad = 12;
+__device__ __forceinline__ void load_record(const float* rec,
+                                            float (&r)[kLoad]) {
+  const float4* r4 = reinterpret_cast<const float4*>(rec);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFullMask, v, o);
-  return v;
+  for (int i = 0; i < kLoad / 4; ++i) {
+    const float4 v = r4[i];
+    r[4 * i] = v.x;
+    r[4 * i + 1] = v.y;
+    r[4 * i + 2] = v.z;
+    r[4 * i + 3] = v.w;
+  }
+}
+
+size_t smem_words(int n_channels, int bs, bool g_shared) {
+  const int n_warps = bs / 32;
+  const int R = 6 + n_channels;
+  size_t words = 2 * static_cast<size_t>(record_floats(n_channels)) * kW +
+                 2 * static_cast<size_t>(kW) +                 // ids
+                 2 * static_cast<size_t>(n_warps) * kW * R +   // partial rows
+                 2 * static_cast<size_t>(n_warps) +            // masks
+                 2 * static_cast<size_t>(kW) * bs;             // columns
+  if (g_shared) words += static_cast<size_t>(n_channels) * bs;
+  return words;
 }
 
 // CT > 0: the channel count, known at compile time; CT == 0: n_channels.
 template <int CT>
-__global__ void rasterize_bwd_stp_kernel(
+__global__ void __launch_bounds__(kMaxThreads) rasterize_bwd_stp_kernel(
     const float* __restrict__ means2d,      // [N, 2]
     const float* __restrict__ conics,       // [N, 3]
     const float* __restrict__ opacities,    // [N]
@@ -84,18 +172,21 @@ __global__ void rasterize_bwd_stp_kernel(
     const float* __restrict__ t_final,      // [H, W]
     const float* __restrict__ checkpoints,  // [rows, bs], the forward's
     float* __restrict__ rows) {             // [n_slots, 6 + C], zeroed
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int C = CT > 0 ? CT : n_channels;
   const int R = 6 + C;
-  const int bs = blockDim.x;  // tile_size^2, a multiple of 32
+  const int RS = record_floats(C);
+  const int F = kW * RS;  // one buffer of gathered records
+  const int bs = blockDim.x;              // tile_size^2, a multiple of 32
   const int n_warps = bs >> 5;
-  float* s_geom = smem;                          // [kFields, kW]
-  float* s_col = s_geom + stp::kFields * kW;     // [C, kW]
-  float* s_part = s_col + C * kW;                // [n_warps, kW, R]
-  int* s_flag = reinterpret_cast<int*>(s_part + n_warps * kW * R);
-  float* s_texc = reinterpret_cast<float*>(s_flag + n_warps * kW);  // [kW, bs]
-  float* s_after = s_texc + kW * bs;             // [kW, bs]
-  float* s_g = s_after + kW * bs;                // [C, bs], CT == 0 only
+  float* s_fields = smem;                                     // [2][F]
+  int* s_ids = reinterpret_cast<int*>(s_fields + 2 * F);      // [2][kW]
+  float* s_part = reinterpret_cast<float*>(s_ids + 2 * kW);   // [2][nw][kW][R]
+  unsigned* s_mask =
+      reinterpret_cast<unsigned*>(s_part + 2 * n_warps * kW * R);  // [2][nw]
+  float* s_texc = reinterpret_cast<float*>(s_mask + 2 * n_warps);  // [kW][bs]
+  float* s_after = s_texc + kW * bs;                          // [kW][bs]
+  float* s_g = s_after + kW * bs;                   // [C][bs], CT == 0 only
 
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
@@ -126,131 +217,235 @@ __global__ void rasterize_bwd_stp_kernel(
   }
   float* texc_column = s_texc + tid;
   float* after_column = s_after + tid;
+  // cg of the slot whose record is `rec`, its first kLoad values in r
+  auto channel_dot = [&](const float* rec, const float (&r)[kLoad]) {
+    float cg = 0.0f;
+    if constexpr (CT > 0) {
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        constexpr int k0 = stp::kFields;
+        cg += g[c] * (k0 + c < kLoad ? r[k0 + c < kLoad ? k0 + c : 0]
+                                     : rec[k0 + c]);
+      }
+    } else {
+      for (int c = 0; c < C; ++c)
+        cg += s_g[c * bs + tid] * rec[stp::kFields + c];
+    }
+    return cg;
+  };
 
-  const int64_t first_window = start / kW;
-  for (int64_t window = (end - 1) / kW; window >= first_window; --window) {
-    const int64_t base = window * kW;
-    __syncthreads();  // the previous window's rows have been written out
+  const int64_t first = start / kW;
+  const int64_t last = (end - 1) / kW;
+  // window wd's ids into s_ids[wd & 1]; positions off the tile's range are
+  // never read
+  auto issue_ids = [&](int64_t wd) {
+    const int64_t idx = wd * kW + tid;
+    if (wd >= first && tid < kW && idx >= start && idx < end) {
+      __pipeline_memcpy_async(s_ids + (wd & 1) * kW + tid, gids + idx,
+                              sizeof(int));
+    }
+  };
+  // window wd's records into s_fields[wd & 1] by the ids in s_ids[wd & 1];
+  // a slot off the tile's range is zeros: opacity 0, a == 0
+  auto issue_fields = [&](int64_t wd) {
+    if (wd < first) return;
+    float* buf = s_fields + (wd & 1) * F;
+    const int* ids = s_ids + (wd & 1) * kW;
     for (int v = tid; v < (stp::kFields + C) * kW; v += bs) {
       const int f = v / kW;
       const int l = v - f * kW;
-      const int64_t idx = base + l;
-      float value = 0.0f;  // outside the tile's range: opacity 0, a == 0
+      const int64_t idx = wd * kW + l;
+      float* dst = buf + l * RS + f;
       if (idx >= start && idx < end) {
-        const int gid = gids[idx];
-        value = f < stp::kFields
-                    ? stp::load_field(f, gid, means2d, conics, opacities,
-                                      depths, depth_grads)
-                    : channels[static_cast<int64_t>(gid) * C +
-                               (f - stp::kFields)];
-      }
-      s_geom[v] = value;  // s_col follows s_geom
-    }
-    __syncthreads();
-
-    float a[kW], d[kW];
-#pragma unroll
-    for (int l = 0; l < kW; ++l) {
-      const stp::Pair p = stp::pair_terms(s_geom, kW, l, px, py);
-      a[l] = p.a;
-      d[l] = p.d;
-    }
-    const uint64_t ranks = stp::window_ranks(a, d);
-    stp::window_transmittance(a, ranks, checkpoints[(window + tile) * bs + tid],
-                              texc_column, bs);
-    // q by rank, then summed from the back: S_after of every entry, and S
-    // for the window in front
-#pragma unroll
-    for (int l = 0; l < kW; ++l) {
-      const int r = stp::rank_of(ranks, l);
-      float cg = 0.0f;
-      if (CT > 0) {
-#pragma unroll
-        for (int c = 0; c < CT; ++c) cg += g[c] * s_col[c * kW + l];
+        __pipeline_memcpy_async(
+            dst,
+            field_address(f, ids[l], C, means2d, conics, opacities, channels,
+                          depths, depth_grads),
+            sizeof(float));
       } else {
-        for (int c = 0; c < C; ++c) cg += s_g[c * bs + tid] * s_col[c * kW + l];
-      }
-      after_column[r * bs] = a[l] * texc_column[r * bs] * cg;
-    }
-#pragma unroll
-    for (int r = kW - 1; r >= 0; --r) {
-      const float q = after_column[r * bs];
-      after_column[r * bs] = S;
-      S += q;
-    }
-
-#pragma unroll
-    for (int l = 0; l < kW; ++l) {
-      const bool comp = a[l] > 0.0f;
-      const bool any = __any_sync(kFullMask, comp);
-      if (lane == 0) s_flag[warp * kW + l] = any;
-      if (!any) continue;  // uniform over the warp
-
-      const stp::Pair p = stp::pair_terms(s_geom, kW, l, px, py);
-      const float ca = s_geom[stp::kCa * kW + l];
-      const float cb = s_geom[stp::kCb * kW + l];
-      const float cc = s_geom[stp::kCc * kW + l];
-      const int r = stp::rank_of(ranks, l);
-      const float t_exc = texc_column[r * bs];
-      const float s_behind = after_column[r * bs];
-      float cg = 0.0f;
-      if (CT > 0) {
-#pragma unroll
-        for (int c = 0; c < CT; ++c) cg += g[c] * s_col[c * kW + l];
-      } else {
-        for (int c = 0; c < C; ++c) cg += s_g[c * bs + tid] * s_col[c * kW + l];
-      }
-      const float dalpha =
-          comp ? t_exc * cg - s_behind / fmaxf(1.0f - a[l], min_one_minus)
-               : 0.0f;
-      const float w = a[l] * t_exc;
-      const bool unclamped = p.raw < max_alpha;
-      const float dsigma = unclamped ? -a[l] * dalpha : 0.0f;
-      const float dop = (unclamped && comp) ? dalpha * p.e : 0.0f;
-      const float gx = ca * p.dx + cb * p.dy;
-      const float gy = cc * p.dy + cb * p.dx;
-
-      float* part = s_part + (warp * kW + l) * R;
-      float v;
-      v = warp_sum(dsigma * gx);
-      if (lane == 0) part[0] = v;
-      v = warp_sum(dsigma * gy);
-      if (lane == 0) part[1] = v;
-      v = warp_sum(dsigma * 0.5f * p.dx * p.dx);
-      if (lane == 0) part[2] = v;
-      v = warp_sum(dsigma * p.dx * p.dy);
-      if (lane == 0) part[3] = v;
-      v = warp_sum(dsigma * 0.5f * p.dy * p.dy);
-      if (lane == 0) part[4] = v;
-      v = warp_sum(dop);
-      if (lane == 0) part[5] = v;
-      if (CT > 0) {
-#pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          v = warp_sum(w * g[c]);
-          if (lane == 0) part[6 + c] = v;
-        }
-      } else {
-        for (int c = 0; c < C; ++c) {
-          v = warp_sum(w * s_g[c * bs + tid]);
-          if (lane == 0) part[6 + c] = v;
-        }
+        *dst = 0.0f;
       }
     }
-    __syncthreads();
-    // the warps' sums, added in warp order: one row per sorted position
+  };
+  // the warps' partial rows of window wd, added in warp order: one row per
+  // sorted position of the tile
+  auto write_rows = [&](int64_t wd) {
+    const float* part = s_part + (wd & 1) * n_warps * kW * R;
+    const unsigned* mask = s_mask + (wd & 1) * n_warps;
     for (int idx = tid; idx < kW * R; idx += bs) {
       const int l = idx / R;
-      const int v = idx - l * R;
-      const int64_t pos = base + l;
+      const int64_t pos = wd * kW + l;
       if (pos < start || pos >= end) continue;  // another tile's slot
       float sum = 0.0f;
       for (int wp = 0; wp < n_warps; ++wp) {
-        if (s_flag[wp * kW + l]) sum += s_part[(wp * kW + l) * R + v];
+        if ((mask[wp] >> l) & 1u) sum += part[wp * kW * R + idx];
       }
-      rows[pos * R + v] = sum;
+      rows[pos * R + (idx - l * R)] = sum;
     }
+  };
+
+  issue_ids(last);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  issue_fields(last);
+  issue_ids(last - 1);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  float t_next = checkpoints[(last + tile) * bs + tid];
+
+  for (int64_t wd = last; wd >= first; --wd) {
+    // in flight during this window: the next window's fields (their ids
+    // arrived before the last barrier) and the ids of the one after
+    issue_fields(wd - 1);
+    issue_ids(wd - 2);
+    __pipeline_commit();
+    const float T0 = t_next;
+    if (wd > first) t_next = checkpoints[(wd - 1 + tile) * bs + tid];
+    if (wd < last) write_rows(wd + 1);
+
+    const float* sf = s_fields + (wd & 1) * F;
+    // pass 1: pair terms once per slot; T_exc in position order into the
+    // thread's column, the live mask, the in-order test
+    float T = T0;
+    float last_d = -INFINITY;
+    bool ordered = true;
+    unsigned live = 0u;
+#pragma unroll
+    for (int l = 0; l < kW; ++l) {
+      float r[kLoad];
+      load_record(sf + l * RS, r);
+      const stp::Pair p = stp::pair_terms(r, 1, 0, px, py);
+      const bool lv = p.a > 0.0f;
+      ordered = ordered && !(lv && p.d < last_d);
+      last_d = lv ? p.d : last_d;
+      live |= lv ? 1u << l : 0u;
+      texc_column[l * bs] = T;
+      T *= 1.0f - p.a;
+    }
+    if (!ordered) {
+      // a and d_p of the live entries into the two columns
+      for (unsigned m = live; m != 0u; m &= m - 1u) {
+        const int i = __ffs(m) - 1;
+        float r[kLoad];
+        load_record(sf + i * RS, r);
+        const stp::Pair p = stp::pair_terms(r, 1, 0, px, py);
+        texc_column[i * bs] = p.a;
+        after_column[i * bs] = p.d;
+      }
+      // the live entries in this pixel's order: stp_order.cuh's pairwise
+      // rule (ascending d_p, ties by position) among them alone; rank r's
+      // position in bits [4r, 4r + 4)
+      uint64_t order = 0;
+      int n_live = 0;
+      for (unsigned m = live; m != 0u; m &= m - 1u) {
+        const int i = __ffs(m) - 1;
+        const float di = after_column[i * bs];
+        int r = 0;
+        for (unsigned m2 = live & ~(1u << i); m2 != 0u; m2 &= m2 - 1u) {
+          const int j = __ffs(m2) - 1;
+          const float dj = after_column[j * bs];
+          r += j < i ? (dj <= di ? 1 : 0) : (di <= dj ? 0 : 1);
+        }
+        order |= static_cast<uint64_t>(i) << (4 * r);
+        ++n_live;
+      }
+      // T_exc by the forward's rule in that order, q by position, then
+      // S_after by position from the back of the order
+      float Tr = T0;
+      for (int k = 0; k < n_live; ++k) {
+        const int l = static_cast<int>((order >> (4 * k)) & 15u);
+        const float a = texc_column[l * bs];
+        float r[kLoad];
+        load_record(sf + l * RS, r);
+        texc_column[l * bs] = Tr;
+        after_column[l * bs] = a * Tr * channel_dot(sf + l * RS, r);
+        Tr *= 1.0f - a;
+      }
+      for (int r = n_live - 1; r >= 0; --r) {
+        const int l = static_cast<int>((order >> (4 * r)) & 15u);
+        const float q = after_column[l * bs];
+        after_column[l * bs] = S;
+        S += q;
+      }
+    }
+
+    // pass 2, back to front: the slots some pixel of the warp composites
+    // (not unrolled, see the note at the top)
+    unsigned warp_mask = 0u;
+    float* part = s_part + ((wd & 1) * n_warps + warp) * kW * R;
+#pragma unroll 1
+    for (int l = kW - 1; l >= 0; --l) {
+      const bool comp = (live >> l) & 1u;
+      if (!__any_sync(kFullMask, comp)) continue;  // uniform over the warp
+      warp_mask |= 1u << l;
+
+      const float* rec = sf + l * RS;
+      float r[kLoad];
+      load_record(rec, r);
+      const stp::Pair p = stp::pair_terms(r, 1, 0, px, py);
+      const float ca = r[stp::kCa];
+      const float cb = r[stp::kCb];
+      const float cc = r[stp::kCc];
+      const float t_exc = texc_column[l * bs];
+      const float cg = channel_dot(rec, r);
+      float s_behind;
+      if (ordered) {  // position order is the pixel's: carry S here
+        s_behind = S;
+        S += p.a * t_exc * cg;
+      } else {
+        s_behind = after_column[l * bs];
+      }
+      const float dalpha =
+          comp ? t_exc * cg - s_behind / fmaxf(1.0f - p.a, min_one_minus)
+               : 0.0f;
+      const float w = p.a * t_exc;
+      const bool unclamped = p.raw < max_alpha;
+      const float dsigma = unclamped ? -p.a * dalpha : 0.0f;
+      const float dop = (unclamped && comp) ? dalpha * p.e : 0.0f;
+      const float gx = ca * p.dx + cb * p.dy;
+      const float gy = cc * p.dy + cb * p.dx;
+      const float geo[6] = {dsigma * gx,
+                            dsigma * gy,
+                            dsigma * 0.5f * p.dx * p.dx,
+                            dsigma * p.dx * p.dy,
+                            dsigma * 0.5f * p.dy * p.dy,
+                            dop};
+      float* row = part + l * R;
+      if constexpr (CT > 0) {
+        constexpr int L = 6 + CT;
+        float v[L];
+#pragma unroll
+        for (int k = 0; k < L; ++k) {
+          v[k] = k < 6 ? geo[k < 6 ? k : 0] : w * g[k >= 6 ? k - 6 : 0];
+        }
+        const float sum = gsl::warp_transpose_sum<L>(v, lane);
+        if (gsl::transpose_writer<L>(lane)) {
+          row[gsl::transpose_index<L>(lane)] = sum;
+        }
+      } else {
+        // chunks of 32 values: the six geometry values and the first 26
+        // channels, then 32 channels at a time
+        for (int k0 = 0; k0 < R; k0 += 32) {
+          float v[32];
+#pragma unroll
+          for (int k = 0; k < 32; ++k) {
+            const int c = k0 + k - 6;
+            v[k] = c < 0 ? geo[k < 6 ? k : 0]
+                         : (c < C ? w * s_g[c * bs + tid] : 0.0f);
+          }
+          // 32 values: lane l holds value l
+          const float sum = gsl::warp_transpose_sum<32>(v, lane);
+          if (k0 + lane < R) row[k0 + lane] = sum;
+        }
+      }
+    }
+    if (lane == 0) s_mask[(wd & 1) * n_warps + warp] = warp_mask;
+    __pipeline_wait_prior(0);
+    __syncthreads();
   }
+  write_rows(first);
 }
 
 template <int CT>
@@ -261,16 +456,9 @@ cudaError_t launch(const float* means2d, const float* conics,
                    int n_tiles, int tiles_x, int tile_size, int height,
                    int width, const float* g_out, const float* g_alpha,
                    const float* t_final, const float* checkpoints,
-                   float* rows, cudaStream_t stream) {
+                   float* rows, cudaStream_t stream, int* attributes) {
   const int bs = tile_size * tile_size;
-  const int n_warps = bs / 32;
-  const int R = 6 + n_channels;
-  size_t words = static_cast<size_t>(stp::kFields + n_channels) * kW +
-                 static_cast<size_t>(n_warps) * kW * R +
-                 static_cast<size_t>(n_warps) * kW +
-                 2 * static_cast<size_t>(kW) * bs;
-  if (CT == 0) words += static_cast<size_t>(n_channels) * bs;
-  const size_t smem = words * sizeof(float);
+  const size_t smem = smem_words(n_channels, bs, CT == 0) * sizeof(float);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -278,11 +466,58 @@ cudaError_t launch(const float* means2d, const float* conics,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
+  if (attributes != nullptr) {
+    cudaFuncAttributes attr;
+    cudaError_t err =
+        cudaFuncGetAttributes(&attr, rasterize_bwd_stp_kernel<CT>);
+    if (err != cudaSuccess) return err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, rasterize_bwd_stp_kernel<CT>, bs, smem);
+    if (err != cudaSuccess) return err;
+    attributes[0] = attr.numRegs;
+    attributes[1] = static_cast<int>(attr.localSizeBytes);
+    attributes[2] = static_cast<int>(smem);
+    attributes[3] = blocks;
+    return cudaSuccess;
+  }
   rasterize_bwd_stp_kernel<CT><<<n_tiles, bs, smem, stream>>>(
       means2d, conics, opacities, channels, depths, depth_grads, n_channels,
       gids, bounds, tiles_x, tile_size, height, width, g_out, g_alpha,
       t_final, checkpoints, rows);
   return cudaGetLastError();
+}
+
+int dispatch(const float* means2d, const float* conics,
+             const float* opacities, const float* channels,
+             const float* depths, const float* depth_grads, int n_channels,
+             const int* gids, const int64_t* bounds, int n_tiles, int tiles_x,
+             int tile_size, int height, int width, const float* g_out,
+             const float* g_alpha, const float* t_final,
+             const float* checkpoints, float* rows, cudaStream_t s,
+             int* attributes) {
+#define GSL_LAUNCH(CT)                                                        \
+  return static_cast<int>(launch<CT>(                                         \
+      means2d, conics, opacities, channels, depths, depth_grads, n_channels,  \
+      gids, bounds, n_tiles, tiles_x, tile_size, height, width, g_out,        \
+      g_alpha, t_final, checkpoints, rows, s, attributes))
+  switch (n_channels <= kMaxTemplateC ? n_channels : 0) {
+    case 1: GSL_LAUNCH(1);
+    case 2: GSL_LAUNCH(2);
+    case 3: GSL_LAUNCH(3);
+    case 4: GSL_LAUNCH(4);
+    case 5: GSL_LAUNCH(5);
+    case 6: GSL_LAUNCH(6);
+    case 7: GSL_LAUNCH(7);
+    case 8: GSL_LAUNCH(8);
+    default: GSL_LAUNCH(0);
+  }
+#undef GSL_LAUNCH
+}
+
+bool bad_shape(int n_channels, int tile_size) {
+  const int bs = tile_size * tile_size;
+  return n_channels < 1 || tile_size < 1 || bs > kMaxThreads || bs % 32 != 0;
 }
 
 }  // namespace
@@ -304,29 +539,27 @@ int gsl_rasterize_bwd_stp(const float* means2d, const float* conics,
                           const float* g_out, const float* g_alpha,
                           const float* t_final, const float* checkpoints,
                           float* rows, void* stream) {
-  const int bs = tile_size * tile_size;
-  if (n_channels < 1 || tile_size < 1 || bs > 1024 || bs % 32 != 0) {
+  if (bad_shape(n_channels, tile_size)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_tiles == 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GSL_LAUNCH(CT)                                                        \
-  return static_cast<int>(launch<CT>(                                         \
-      means2d, conics, opacities, channels, depths, depth_grads, n_channels,  \
-      gids, bounds, n_tiles, tiles_x, tile_size, height, width, g_out,        \
-      g_alpha, t_final, checkpoints, rows, s))
-  switch (n_channels <= kMaxTemplateC ? n_channels : 0) {
-    case 1: GSL_LAUNCH(1);
-    case 2: GSL_LAUNCH(2);
-    case 3: GSL_LAUNCH(3);
-    case 4: GSL_LAUNCH(4);
-    case 5: GSL_LAUNCH(5);
-    case 6: GSL_LAUNCH(6);
-    case 7: GSL_LAUNCH(7);
-    case 8: GSL_LAUNCH(8);
-    default: GSL_LAUNCH(0);
+  return dispatch(means2d, conics, opacities, channels, depths, depth_grads,
+                  n_channels, gids, bounds, n_tiles, tiles_x, tile_size,
+                  height, width, g_out, g_alpha, t_final, checkpoints, rows,
+                  static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// out[0..3]: registers per thread, local (spill) bytes per thread, dynamic
+// shared bytes per block and resident blocks per SM of the kernel that
+// n_channels and tile_size select.
+int gsl_rasterize_bwd_stp_attributes(int n_channels, int tile_size,
+                                     int* out) {
+  if (bad_shape(n_channels, tile_size)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef GSL_LAUNCH
+  return dispatch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  n_channels, nullptr, nullptr, 0, 1, tile_size, 0, 0,
+                  nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, out);
 }
 
 }  // extern "C"

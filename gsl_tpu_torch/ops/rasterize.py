@@ -397,6 +397,17 @@ def _image_to_tiles(x, tiles_x: int, tiles_y: int, tile_size: int):
                                             tile_size * tile_size, k)
 
 
+def slot_warps(comp):
+    """comp [G, P, K] bool, pixel p of a tile composites slot k: the count
+    of (slot, warp) pairs, a warp being 32 consecutive pixels of a tile, in
+    which some pixel composites the slot. The backward kernels reduce a
+    slot's per-pixel values over a warp exactly there."""
+    g, p, k = comp.shape
+    pad = -p % 32
+    comp = torch.nn.functional.pad(comp, (0, 0, 0, pad))
+    return comp.reshape(g, (p + pad) // 32, 32, k).any(2).sum()
+
+
 def rasterize_bwd_plain(means2d, conics, opacities, channels, gids, bounds,
                         g_out, g_alpha, t_final, i_stop, tile_size: int,
                         stats: dict | None = None):

@@ -49,7 +49,7 @@ import torch
 from . import cuda_build
 from .rasterize import (MIN_ONE_MINUS_ALPHA, NEVER_STOPPED, _check_cuda,
                         _image_to_tiles, _ptr, _stream, _tiles,
-                        _tiles_to_image)
+                        _tiles_to_image, slot_warps)
 from .rasterize_reference import ALPHA_THRESHOLD, MAX_ALPHA
 
 STP_WINDOW = 16         # sorted positions a pixel re-sorts together
@@ -285,7 +285,9 @@ def rasterize_bwd_stp_plain(means2d, conics, opacities, channels, depths,
     sorted position the sums over its tile's pixels of d/d(mean x, mean y,
     conic a, b, c, opacity, channels); rows behind the valid slots stay
     zero. With `stats`, leaves the count of (pixel, slot) pairs with
-    alpha >= 1/255 in ``stats["composited_pairs"]``."""
+    alpha >= 1/255 in ``stats["composited_pairs"]`` and that of (slot,
+    warp)s with at least one such pixel (`slot_warps`) in
+    ``stats["composited_slot_warps"]``."""
     dev = means2d.device
     img_height, img_width, C = g_out.shape
     tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
@@ -300,6 +302,7 @@ def rasterize_bwd_stp_plain(means2d, conics, opacities, channels, depths,
                          tile_size)[..., 0]
     lane = torch.arange(STP_WINDOW, device=dev)
     n_comp = torch.zeros((), dtype=torch.int64, device=dev)
+    n_warps = torch.zeros((), dtype=torch.int64, device=dev)
     for t0 in range(0, n_tiles, PLAIN_TILE_GROUP):
         tl = torch.arange(t0, min(t0 + PLAIN_TILE_GROUP, n_tiles),
                           device=dev)
@@ -346,8 +349,10 @@ def rasterize_bwd_stp_plain(means2d, conics, opacities, channels, depths,
             part[..., 6:] = (w[..., None] * g_pix[:, :, None, :]).sum(1)
             rows[pos[in_rng]] = part[in_rng]
             n_comp += (comp & inside[:, :, None]).sum()
+            n_warps += slot_warps(comp)
     if stats is not None:
         stats["composited_pairs"] = int(n_comp)
+        stats["composited_slot_warps"] = int(n_warps)
     return rows
 
 
@@ -357,7 +362,24 @@ def _bwd_lib(extra: tuple = ()):
         [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6)
     lib.gsl_rasterize_bwd_stp.restype = ctypes.c_int
+    lib.gsl_rasterize_bwd_stp_attributes.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.gsl_rasterize_bwd_stp_attributes.restype = ctypes.c_int
     return lib
+
+
+def rasterize_bwd_stp_attributes(n_channels: int, tile_size: int = 16):
+    """What the card's runtime reports for the K3s kernel that `n_channels`
+    and `tile_size` select: registers per thread, local (spill) bytes per
+    thread (cudaFuncGetAttributes), dynamic shared bytes per block, and
+    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+    Needs a card."""
+    lib = _bwd_lib()
+    out = (ctypes.c_int * 4)()
+    code = lib.gsl_rasterize_bwd_stp_attributes(n_channels, tile_size, out)
+    cuda_build.check(lib, code, "rasterize_bwd_stp_attributes")
+    return {"registers": out[0], "local_bytes": out[1],
+            "shared_bytes": out[2], "blocks_per_sm": out[3]}
 
 
 def rasterize_bwd_stp(means2d, conics, opacities, channels, depths,

@@ -73,7 +73,8 @@ from .rasterize import (MIN_ONE_MINUS_ALPHA, NEVER_STOPPED, PLAIN_CHUNK,
                         PLAIN_TILE_GROUP, Isects, _check_cuda,
                         _image_to_tiles, _ptr, _stream, _tiles,
                         _tiles_to_image, invert_order, isect_encode, reduce_grads,
-                        slot_keys, slot_tiles, sort_slots, tile_bounds)
+                        slot_keys, slot_tiles, slot_warps, sort_slots,
+                        tile_bounds)
 from .rasterize_reference import ALPHA_THRESHOLD, MIN_TRANSMITTANCE
 from .surfel import (FAR_2D, FILTER_INV_SQUARE, MAX_ALPHA_2D, NEAR_2D,
                      SurfelProjections, SurfelRenderResult, _map_depth)
@@ -343,7 +344,9 @@ def rasterize_surfels_bwd_plain(geom, channels, gids, bounds, g_out, g_aux,
     [len(gids), 13 + C]: per sorted position the sums over its tile's
     pixels of d/d(Tu, Tv, Tw, zcoef, opacity, channels); rows at or behind
     a tile's largest stop stay zero. With `stats`, leaves the count of
-    composited (pixel, surfel) pairs in ``stats["composited_pairs"]``."""
+    composited (pixel, surfel) pairs in ``stats["composited_pairs"]`` and
+    that of (slot, warp)s with at least one such pixel (`slot_warps`) in
+    ``stats["composited_slot_warps"]``."""
     dev = geom.device
     img_height, img_width, C = g_out.shape
     tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
@@ -361,6 +364,7 @@ def rasterize_surfels_bwd_plain(geom, channels, gids, bounds, g_out, g_aux,
     stops = tiles_of(i_stop[None].to(torch.int64))[..., 0]
     lane = torch.arange(PLAIN_CHUNK, device=dev)
     n_comp = torch.zeros((), dtype=torch.int64, device=dev)
+    n_warps = torch.zeros((), dtype=torch.int64, device=dev)
     for t0 in range(0, n_tiles, PLAIN_TILE_GROUP):
         tl = torch.arange(t0, min(t0 + PLAIN_TILE_GROUP, n_tiles),
                           device=dev)
@@ -444,9 +448,11 @@ def rasterize_surfels_bwd_plain(geom, channels, gids, bounds, g_out, g_aux,
                 part[:, j, :N_GEOM_S] = torch.stack(r, -1).sum(1)
                 part[:, j, N_GEOM_S:] = (w[..., None] * g_pix).sum(1)
                 n_comp += comp.sum()
+                n_warps += slot_warps(comp[..., None])
             rows[pos[in_rng]] = part[in_rng]
     if stats is not None:
         stats["composited_pairs"] = int(n_comp)
+        stats["composited_slot_warps"] = int(n_warps)
     return rows
 
 
@@ -463,16 +469,18 @@ def _bwd_lib(extra: tuple = ()):
 
 
 def rasterize_surfels_bwd_attributes(n_channels: int, tile_size: int = 16):
-    """What the card's runtime reports (cudaFuncGetAttributes) for the K7
-    kernel that `n_channels` selects: registers per thread, local (spill)
-    bytes per thread and dynamic shared bytes per block. Needs a card."""
+    """What the card's runtime reports for the K7 kernel that `n_channels`
+    and `tile_size` select: registers per thread, local (spill) bytes per
+    thread (cudaFuncGetAttributes), dynamic shared bytes per block, and
+    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+    Needs a card."""
     lib = _bwd_lib()
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     code = lib.gsl_rasterize_surfels_bwd_attributes(n_channels, tile_size,
                                                     out)
     cuda_build.check(lib, code, "rasterize_surfels_bwd_attributes")
     return {"registers": out[0], "local_bytes": out[1],
-            "shared_bytes": out[2]}
+            "shared_bytes": out[2], "blocks_per_sm": out[3]}
 
 
 def rasterize_surfels_bwd(geom, channels, gids, bounds, g_out, g_aux, aux,

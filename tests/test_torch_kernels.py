@@ -266,7 +266,42 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         R.reduce_grads(rows, bwd[4], isects.offsets, order, bwd[5][-1:], n)
 
 
-def _surfel_inputs(cuda, n_channels, n=3000):
+def _cut_lists(gids, bounds, lengths):
+    """The sorted lists cut short, tile t to at most lengths[t % len]:
+    lists of 1 slot, lists that end one past a window (16) or batch (32),
+    empty tiles. Returns (gids, bounds) of the cut lists."""
+    counts = (bounds[1:] - bounds[:-1]).cpu()
+    want = torch.tensor(lengths)[torch.arange(counts.numel()) % len(lengths)]
+    keep = torch.minimum(counts, want)
+    starts = bounds[:-1].cpu()
+    idx = torch.cat([torch.arange(int(s), int(s) + int(k))
+                     for s, k in zip(starts, keep)])
+    new_bounds = torch.zeros(counts.numel() + 1, dtype=torch.int64)
+    new_bounds[1:] = torch.cumsum(keep, 0)
+    return (gids[idx.to(gids.device)].contiguous(),
+            new_bounds.to(bounds.device))
+
+
+CUT_LENGTHS = (1, 17, 33, 0, 47, 2, 49)
+# (channels, tile size, cut lists): C above 8 takes the kernels' path with
+# the cotangents in shared memory; 6 + C or 13 + C above 32 sums each row in
+# chunks of 32; tile size 8 is two warps a tile
+def _cases(*cases):
+    """pytest params with the ids "C", "C-tileT" and "C-cut"."""
+    return [pytest.param(c, ts, cut, id=f"{c}" + (
+        "" if ts == TS else f"-tile{ts}") + ("-cut" if cut else ""))
+        for c, ts, cut in cases]
+
+
+KERNEL_CASES = {"stp": _cases((3, TS, False), (8, TS, False),
+                              (11, TS, False), (27, TS, False),
+                              (3, 8, False), (3, TS, True)),
+                "surfel": _cases((3, TS, False), (6, TS, False),
+                                 (9, TS, False), (20, TS, False),
+                                 (6, 8, False), (6, TS, True))}
+
+
+def _surfel_inputs(cuda, n_channels, n=3000, ts=TS):
     arrays = scene(n)
     state = state_from_raw_arrays(
         dict(arrays, scales=arrays["scales"][:, :2]), device=cuda)
@@ -279,7 +314,7 @@ def _surfel_inputs(cuda, n_channels, n=3000):
     geom = SR.pack_surfels(proj.Tu, proj.Tv, proj.Tw, proj.zcoef,
                            state.get_opacities())
     isects = SR.surfel_isect_encode(proj.means2d, proj.depths, proj.radii,
-                                    H, W, TS)
+                                    H, W, ts)
     return proj, geom, ch, isects, gen
 
 
@@ -303,29 +338,37 @@ def column_shares(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_channels", [3, 6, 9])
-def test_surfel_kernels_match_plain(cuda, n_channels):
-    """C = 9 takes two K6 launches (8 + 1) and K7's path with the
-    cotangents in shared memory."""
+@pytest.mark.parametrize("n_channels,ts,cut", KERNEL_CASES["surfel"])
+def test_surfel_kernels_match_plain(cuda, n_channels, ts, cut):
+    """C = 9 and 20 take ceil(C / 8) K6 launches and K7's path with the
+    cotangents in shared memory; at C = 20 K7 sums 33 values a row, in two
+    chunks. `cut`: the tiles' lists cut to 1, 17, 33, 0, 47, 2 and 49
+    slots, so K7's batches of 32 end ragged and a tile has one slot."""
     n = 3000
-    proj, geom, ch, isects, gen = _surfel_inputs(cuda, n_channels, n)
-    args = (isects, proj.depths.contiguous(), W // TS, H // TS)
+    proj, geom, ch, isects, gen = _surfel_inputs(cuda, n_channels, n, ts)
+    tiles_x, tiles_y = -(-W // ts), -(-H // ts)
+    args = (isects, proj.depths.contiguous(), tiles_x, tiles_y)
     before = SR.surfel_expand.launches
     keys, gids = SR.surfel_expand(*args)
     assert SR.surfel_expand.launches == before + 1
     keys_p, gids_p = SR.surfel_expand_plain(*args)
     assert torch.equal(keys, keys_p) and torch.equal(gids, gids_p)
     sk, gs, order = R.sort_slots(keys, gids)
-    bounds = R.tile_bounds(sk, (W // TS) * (H // TS))
+    bounds = R.tile_bounds(sk, tiles_x * tiles_y)
+    if cut:
+        gs, bounds = _cut_lists(gs, bounds, CUT_LENGTHS)
+        counts = bounds[1:] - bounds[:-1]
+        assert bool((counts == 1).any()) and bool((counts % 32 == 1).any())
 
-    fwd = (geom, ch, gs, bounds, H, W, TS)
+    fwd = (geom, ch, gs, bounds, H, W, ts)
     before = SR.rasterize_surfels_fwd.launches
     out, aux, stop = SR.rasterize_surfels_fwd(*fwd)
     torch.cuda.synchronize()
     assert SR.rasterize_surfels_fwd.launches == before + -(-n_channels // 8)
     out_p, aux_p, stop_p = SR.rasterize_surfels_fwd_plain(*fwd)
     assert float((stop == stop_p).float().mean()) >= SHARE
-    assert bool((stop < R.NEVER_STOPPED).any())
+    # lists cut to at most 49 slots leave T above the stop everywhere
+    assert bool((stop < R.NEVER_STOPPED).any()) != cut
     assert bool(torch.isfinite(out).all() and torch.isfinite(aux).all())
     assert close_share(out, out_p) >= SHARE
     for plane in range(7):
@@ -336,7 +379,7 @@ def test_surfel_kernels_match_plain(cuda, n_channels):
 
     g_out = torch.randn((H, W, n_channels), generator=gen).to(cuda)
     g_aux = torch.randn((3, H, W), generator=gen).to(cuda)
-    bwd = (geom, ch, gs, bounds, g_out, g_aux, aux, stop, TS)
+    bwd = (geom, ch, gs, bounds, g_out, g_aux, aux, stop, ts)
     before = SR.rasterize_surfels_bwd.launches
     rows = SR.rasterize_surfels_bwd(*bwd)
     torch.cuda.synchronize()
@@ -352,6 +395,11 @@ def test_surfel_kernels_match_plain(cuda, n_channels):
     shares = column_shares(uncontracted, rows_p)
     assert min(shares) >= SHARE, shares
     assert torch.equal(rows, SR.rasterize_surfels_bwd(*bwd))   # no atomics
+    info = SR.rasterize_surfels_bwd_attributes(n_channels, ts)
+    assert 0 < info["registers"] <= 255 and info["shared_bytes"] > 0
+    assert info["blocks_per_sm"] >= 1
+    if cut:     # K4 needs every slot of the expand's output
+        return
 
     red = (rows, gs, isects.offsets, R.invert_order(order), bounds[-1:], n)
     before = R.reduce_grads.launches
@@ -363,8 +411,6 @@ def test_surfel_kernels_match_plain(cuda, n_channels):
     into = R.reduce_grads_plain(rows.abs(), gs, n, n_abs=0)
     assert bool(((summed - summed_p).abs() <= 1e-5 * into).all())
     assert torch.equal(summed, R.reduce_grads(*red, n_abs=0))
-    info = SR.rasterize_surfels_bwd_attributes(n_channels, TS)
-    assert 0 < info["registers"] <= 255 and info["shared_bytes"] > 0
 
 
 @pytest.mark.cuda
@@ -441,7 +487,7 @@ def test_surfel_wrappers_reject_what_the_kernels_do_not_take(cuda):
                        R.invert_order(order), bounds[-1:], 100, n_abs=2)
 
 
-def _stp_inputs(cuda, n_channels, n=3000):
+def _stp_inputs(cuda, n_channels, n=3000, ts=TS):
     state = state_from_raw_arrays(scene(n), device=cuda)
     cam = camera(cuda)
     proj = project_gaussians(state.get_means(), state.get_scales(),
@@ -450,18 +496,21 @@ def _stp_inputs(cuda, n_channels, n=3000):
     op = state.get_opacities().contiguous()
     gen = torch.Generator(device="cpu").manual_seed(0)
     ch = torch.rand((n, n_channels), generator=gen).to(cuda)
-    isects = R.isect_encode(proj, H, W, TS)
-    args = (isects, proj.means2d, proj.conics, op, proj.depths, W // TS,
-            H // TS, TS, True, True, proj.depth_grads.contiguous())
+    isects = R.isect_encode(proj, H, W, ts)
+    args = (isects, proj.means2d, proj.conics, op, proj.depths, -(-W // ts),
+            -(-H // ts), ts, True, True, proj.depth_grads.contiguous())
     return proj, op, ch, isects, args, gen
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_channels", [3, 8, 11])
-def test_stp_kernels_match_plain(cuda, n_channels):
-    """C = 11 takes two K2s launches (8 + 3) and K3s's path with the
-    cotangents in shared memory."""
-    proj, op, ch, isects, args, gen = _stp_inputs(cuda, n_channels)
+@pytest.mark.parametrize("n_channels,ts,cut", KERNEL_CASES["stp"])
+def test_stp_kernels_match_plain(cuda, n_channels, ts, cut):
+    """C = 11 and 27 take ceil(C / 8) K2s launches and K3s's path with the
+    cotangents in shared memory; at C = 27 K3s sums 33 values a row, in two
+    chunks. `cut`: the tiles' lists cut to 1, 17, 33, 0, 47, 2 and 49
+    slots, so they end one past a window and a tile has one slot."""
+    proj, op, ch, isects, args, gen = _stp_inputs(cuda, n_channels, ts=ts)
+    tiles_x, tiles_y = args[5], args[6]
     before = R.expand.launches
     keys, gids = R.expand(*args)
     assert R.expand.launches == before + 1
@@ -469,10 +518,14 @@ def test_stp_kernels_match_plain(cuda, n_channels):
     assert torch.equal(keys, keys_p) and torch.equal(gids, gids_p)
     assert not torch.equal(keys, R.expand(*args[:9])[0])
     sk, gs, order = R.sort_slots(keys, gids)
-    bounds = R.tile_bounds(sk, (W // TS) * (H // TS))
+    bounds = R.tile_bounds(sk, tiles_x * tiles_y)
     assert bool((bounds[:-1] % STP.STP_WINDOW != 0).any())
+    if cut:
+        gs, bounds = _cut_lists(gs, bounds, CUT_LENGTHS)
+        counts = bounds[1:] - bounds[:-1]
+        assert bool((counts == 1).any()) and bool((counts % 16 == 1).any())
     fwd = (proj.means2d, proj.conics, op, ch, proj.depths,
-           proj.depth_grads.contiguous(), gs, bounds, H, W, TS)
+           proj.depth_grads.contiguous(), gs, bounds, H, W, ts)
     before = STP.rasterize_fwd_stp.launches
     out, t_fin, stop, ckpt = STP.rasterize_fwd_stp(*fwd, checkpoints=True)
     torch.cuda.synchronize()
@@ -483,23 +536,32 @@ def test_stp_kernels_match_plain(cuda, n_channels):
     assert close_share(out, out_p) >= SHARE
     assert close_share(t_fin, t_p) >= SHARE
     assert STP.rasterize_fwd_stp(*fwd)[3] is None
-    loose = STP.rasterize_fwd_stp(*fwd, contract=False)
+    loose = STP.rasterize_fwd_stp(*fwd, checkpoints=True, contract=False)
     assert close_share(loose[0], out_p) >= SHARE
 
     g_out = torch.randn((H, W, n_channels), generator=gen).to(cuda)
     g_alpha = torch.randn((H, W), generator=gen).to(cuda)
     before = STP.rasterize_bwd_stp.launches
-    rows = STP.rasterize_bwd_stp(*fwd[:8], g_out, g_alpha, t_fin, ckpt, TS)
+    rows = STP.rasterize_bwd_stp(*fwd[:8], g_out, g_alpha, t_fin, ckpt, ts)
     torch.cuda.synchronize()
     assert STP.rasterize_bwd_stp.launches == before + 1
     rows_p = STP.rasterize_bwd_stp_plain(*fwd[:8], g_out, g_alpha, t_p,
-                                         ckpt_p, TS)
+                                         ckpt_p, ts)
     assert rows.shape == rows_p.shape == (gs.numel(), 6 + n_channels)
     assert bool(torch.isfinite(rows).all())
     assert float(rows_p.abs().max()) > 1.0
     assert close_share_grad(rows, rows_p) >= SHARE
-    assert torch.equal(rows, STP.rasterize_bwd_stp(
-        *fwd[:8], g_out, g_alpha, t_fin, ckpt, TS))
+    # the same source built without contraction rounds as the plain version
+    loose_rows = STP.rasterize_bwd_stp(*fwd[:8], g_out, g_alpha, loose[1],
+                                       loose[3], ts, contract=False)
+    assert close_share_grad(loose_rows, rows_p) >= SHARE
+    assert torch.equal(rows, STP.rasterize_bwd_stp(          # no atomics
+        *fwd[:8], g_out, g_alpha, t_fin, ckpt, ts))
+    info = STP.rasterize_bwd_stp_attributes(n_channels, ts)
+    assert 0 < info["registers"] <= 255 and info["shared_bytes"] > 0
+    assert info["blocks_per_sm"] >= 1
+    if cut:     # K4 needs every slot of the expand's output
+        return
     n = proj.means2d.shape[0]
     summed = R.reduce_grads(rows, gs, isects.offsets, R.invert_order(order),
                             bounds[-1:], n)
