@@ -9,7 +9,7 @@ package is not beside this script. Phases, each fatal on failure:
 
 1. device and build: the card's name and power limit; the nine kernels
    built from gsl_tpu_torch/csrc/ with nvcc, one process per source, in
-   parallel, and K7, K2s and K3s a second time without multiply-add
+   parallel, and K3, K6, K7, K2s and K3s a second time without multiply-add
    contraction for the checks of phase 3.
 2. scene: the bench scene of __graft_entry__._synthetic_state (numpy seed
    0, 1,000,000 Gaussians, SH degree 3) with shs_rest ~ 0.1 N(0, 1) so the
@@ -28,10 +28,11 @@ package is not beside this script. Phases, each fatal on failure:
    agree with rasterize_bwd_plain within |d| <= 1e-4 max|ref| + 1e-3 |ref|
    at all but 1e-3 of the row values (the same flips move single rows, and
    T / (1 - alpha) walked backwards rounds differently with and without
-   contraction), and give the same rows when run twice; K4 reduce, on the
-   kernel's rows, must agree with reduce_grads_plain (index_add_) within
-   |d| <= 1e-5 max|ref| + 1e-4 |ref| everywhere (only the order of the
-   float32 additions differs). A small scene through the whole renderer
+   contraction), at all but 1e-5 of every column's values when built
+   without contraction, and give the same rows when run twice; K4 reduce,
+   on the kernel's rows, must agree with reduce_grads_plain (index_add_)
+   within |d| <= 1e-5 max|ref| + 1e-4 |ref| everywhere (only the order of
+   the float32 additions differs). A small scene through the whole renderer
    on the card must match the CPU renderer (the plain versions) on all
    but 1e-3 of the values, and so must the gradients of a scalar loss for
    all six parameter tensors.
@@ -45,8 +46,9 @@ package is not beside this script. Phases, each fatal on failure:
    but 1e-3 (a pair counts when alpha >= 1/255, rho3d <= rho2d picks the
    branch, depth >= 0.2, and the median is the first T crossing of 0.5:
    compares on rounded values, and a flipped crossing moves a pixel by a
-   whole depth step); K7 surfel backward, with seeded normal cotangents on
-   the channels, alpha, depth and distortion, must agree with
+   whole depth step), and built without contraction on i_stop and every
+   output value at all but 1e-5; K7 surfel backward, with seeded normal
+   cotangents on the channels, alpha, depth and distortion, must agree with
    rasterize_surfels_bwd_plain like K3 and give the same rows twice; K4
    with no absolute columns sums K7's 13 + C columns like
    reduce_grads_plain. A small surfel scene through SurfelRenderer on the
@@ -68,12 +70,12 @@ package is not beside this script. Phases, each fatal on failure:
    TileRenderer(stp_resort=True), card against CPU: every output and all
    six gradients. A tile of 64 near-opaque Gaussians whose T_final
    underflows to 0: image and gradients finite and equal to the CPU's.
-   For K3s and K7 (the backward kernels of csrc/warp_reduce.cuh's
-   transposed sums) it also prints registers, local (spill) bytes, shared
-   bytes and resident blocks per SM as the card's runtime reports them,
-   and the count of (slot, warp)s, 32 pixels of a tile, in which some pixel
-   composites the slot: where the kernels sum a row over a warp (the plain
-   versions count them).
+   For K3, K3s and K7 (the backward kernels of csrc/warp_reduce.cuh's
+   transposed sums) and K6 it also prints registers, local (spill) bytes,
+   shared bytes and resident blocks per SM as the card's runtime reports
+   them, and for the three backward kernels the count of (slot, warp)s, 32
+   pixels of a tile, in which some pixel composites the slot: where the
+   kernels sum a row over a warp (the plain versions count them).
 4. main path: GaussianModelLoader.load(ply) -> ViewerRenderer -> orbit
    frames at 1088x1920 in rgb, then one frame with alpha, exp_depth,
    inverse_depth, normal and hard_inverse_depth (8 composited channels).
@@ -206,9 +208,12 @@ GRAD_ATOL, GRAD_RTOL, GRAD_SHARE = 1e-4, 1e-3, 0.999
 # apart than in K3
 SURFEL_GRAD_SHARE = 0.995
 # ... and K7 built without contraction rounds as the plain version does;
-# so do K2s and K3s, where a contracted d_p can swap two slots of a window
+# so do K3 and K6, whose skip, stop and keep decisions are compares on the
+# same values, and K2s and K3s, where a contracted d_p can swap two slots
+# of a window
 UNCONTRACTED_SHARE = 0.99999
-UNCONTRACTED = ("surfel_bwd", "rasterize_fwd_stp", "rasterize_bwd_stp")
+UNCONTRACTED = ("rasterize_bwd", "surfel_fwd", "surfel_bwd",
+                "rasterize_fwd_stp", "rasterize_bwd_stp")
 # K4: of the sum of the magnitudes that went into each sum
 SUM_RTOL = 1e-5
 K3_COLUMNS = ("dmx", "dmy", "da", "db", "dc", "dop")
@@ -315,6 +320,12 @@ def compare_raster(name, got, want):
     return err, share
 
 
+def value_share(got, want):
+    """The share of values within ATOL + RTOL |want|."""
+    bad = (got - want).abs() > ATOL + RTOL * want.abs()
+    return 1.0 - float(bad.float().mean())
+
+
 def off_share(name, got, want, limit):
     """Fails unless all but `limit` of the values are finite and within
     ATOL + RTOL |want|. Returns the largest absolute difference."""
@@ -340,6 +351,27 @@ def visited_pairs(i_stop, bounds, tiles_x):
     stop = i_stop.to(torch.int64)
     last = torch.where(stop < R.NEVER_STOPPED, stop + 1, end)
     return int((last - start).sum())
+
+
+def warp_steps(i_stop, bounds, tiles_x):
+    """A forward kernel's warp walks its tile's list until all 32 of its
+    pixels have stopped (K6). Returns the (warp, slot) steps, those in
+    which some lane of the warp has already stopped (or lies outside the
+    image), and the lane steps that idle in them."""
+    height, width = i_stop.shape
+    ys = torch.arange(height, device=i_stop.device)[:, None] // TILE
+    xs = torch.arange(width, device=i_stop.device)[None, :] // TILE
+    tile = ys * tiles_x + xs
+    start, end = bounds[tile], bounds[tile + 1]
+    stop = i_stop.to(torch.int64)
+    visited = torch.where(stop < R.NEVER_STOPPED, stop + 1, end) - start
+    lanes = R._image_to_tiles(visited[..., None], tiles_x,
+                              -(-height // TILE), TILE)[..., 0]
+    lanes = lanes.reshape(lanes.shape[0], -1, 32)
+    most, least = lanes.max(-1).values, lanes.min(-1).values
+    return {"warp_steps": int(most.sum()),
+            "steps_with_stopped_lanes": int((most - least).sum()),
+            "idle_lane_steps": int((most[..., None] - lanes).sum())}
 
 
 def log_attributes(name, C, attrs):
@@ -431,6 +463,9 @@ def check_backward(vname, C, bwd, isects, order, n, timed):
         fail(f"K3 {vname}: two runs gave different rows")
     bwd_err, share = check_rows(f"K3 {vname} C={C}", rows, rows_p,
                                 K3_COLUMNS, GRAD_SHARE)
+    _, ushare = check_rows(f"K3 {vname} C={C} built without contraction",
+                           R.rasterize_bwd(*bwd, contract=False), rows_p,
+                           K3_COLUMNS, UNCONTRACTED_SHARE)
     inv = R.invert_order(order)
     red = (rows, gids, isects.offsets, inv, bounds[-1:], n)
     summed = R.reduce_grads(*red)
@@ -444,14 +479,19 @@ def check_backward(vname, C, bwd, isects, order, n, timed):
     rec = {"bwd_err": bwd_err, "bwd_share": share,
            "bwd_scale": scale, "reduce_err": reduce_err,
            "reduce_scale": sscale,
-           "composited_pairs": stats["composited_pairs"]}
+           "composited_pairs": stats["composited_pairs"],
+           "composited_slot_warps": stats["composited_slot_warps"]}
     log(f"K3 {vname} C={C}: every column agrees on >= {share:.6f} of its "
-        f"values, max abs "
+        f"values (>= {ushare:.7f} when built without contraction), max abs "
         f"err {rec['bwd_err']:.3e} (max |ref| {scale:.3e}); identical in "
         f"two runs. K4: max abs err {rec['reduce_err']:.3e} (max |ref| "
-        f"{sscale:.3e}); composited pairs {stats['composited_pairs']}")
+        f"{sscale:.3e}); composited pairs {stats['composited_pairs']}; "
+        f"(slot, warp)s with a composited pixel "
+        f"{stats['composited_slot_warps']}")
     if not timed:
         return rec
+    rec["bwd_attributes"] = R.rasterize_bwd_attributes(C, TILE)
+    log_attributes("K3", C, rec["bwd_attributes"])
     gids64 = gids.long()
     full = torch.cat([rows[:, :6], rows[:, :2].abs(), rows[:, 6:]], 1)
     out = torch.empty((n, full.shape[1]), device=rows.device)
@@ -883,11 +923,30 @@ def check_surfel_kernels(vname, C, state, cam, seed, timed):
                                     limit)
     fwd_err = max(err, *(v for k, v in plane_err.items()
                          if k != "median depth"))
+    # the same source built without contraction rounds as the plain version
+    out_u, aux_u, stop_u = SR.rasterize_surfels_fwd(*fwd, contract=False)
+    ustop = float((stop_u == stop_p).float().mean())
+    if ustop < UNCONTRACTED_SHARE:
+        fail(f"K6 {tag} built without contraction: i_stop agrees on "
+             f"{ustop:.6f} of pixels < {UNCONTRACTED_SHARE}")
+    ulimit = 1.0 - UNCONTRACTED_SHARE
+    off_share(f"K6 {tag} channels, built without contraction", out_u, out_p,
+              ulimit)
+    for i, name in enumerate(names):
+        off_share(f"K6 {tag} {name}, built without contraction", aux_u[i],
+                  aux_p[i], ulimit)
+    ushare = min(value_share(out_u, out_p),
+                 *(value_share(aux_u[i], aux_p[i]) for i in range(7)))
     log(f"K6 {tag}: i_stop agrees on {share:.6f}; max abs err channels "
         f"{err:.3e}, " + ", ".join(f"{k} {v:.3e}"
                                    for k, v in plane_err.items())
         + f"; mean alpha {float(1 - aux[0].mean()):.4f}, mean distortion "
-        f"{float(aux[3].mean()):.3e}")
+        f"{float(aux[3].mean()):.3e}; built without contraction: i_stop "
+        f"agrees on {ustop:.7f}, every output within tolerance at >= "
+        f"{ushare:.7f} of its values")
+    if timed:
+        attrs = SR.rasterize_surfels_fwd_attributes(C, TILE)
+        log_attributes("K6", C, attrs)
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     g_out = torch.randn((H, W, C), generator=gen, device="cuda")
@@ -940,8 +999,7 @@ def check_surfel_kernels(vname, C, state, cam, seed, timed):
            "bwd_err": bwd_err, "reduce_err": reduce_err}
     if not timed:
         return rec
-    attrs = SR.rasterize_surfels_bwd_attributes(C, TILE)
-    log_attributes("K7", C, attrs)
+    log_attributes("K7", C, SR.rasterize_surfels_bwd_attributes(C, TILE))
     gids64 = gs.long()
     sums = torch.empty((n, rows.shape[1]), device=rows.device)
     pairs = visited_pairs(stop, bounds, tiles_x)
@@ -974,7 +1032,8 @@ def check_surfel_kernels(vname, C, state, cam, seed, timed):
         slots=isects.total, n_isects=isects.n_isects, pairs=pairs,
         pairs_bwd=pairs_bwd, composited_pairs=composited,
         composited_slot_warps=stats["composited_slot_warps"],
-        bwd_attributes=attrs)
+        bwd_attributes=SR.rasterize_surfels_bwd_attributes(C, TILE),
+        fwd_attributes=attrs)
     log(f"surfel {tag} timings " + json.dumps(
         {k: v for k, v in rec.items() if k.endswith(("_ms", "_bound"))
          or k in ("slots", "n_isects", "pairs", "pairs_bwd",
@@ -1703,9 +1762,10 @@ def main():
         stp_entry("rasterize_fwd_stp", 869, trec["fwd_err"], "fwd"),
         stp_entry("rasterize_bwd_stp", 1069, trec["bwd_err"], "bwd"),
     ]
-    for e, r in ((kernels[6], srec), (kernels[8], trec)):
+    for e, r in ((kernels[2], rec), (kernels[6], srec), (kernels[8], trec)):
         e.update(composited_slot_warps=r["composited_slot_warps"],
                  attributes=r["bwd_attributes"])
+    kernels[5].update(attributes=srec["fwd_attributes"])
     log(f"surfel backward at the bench pose: K6's median depth differs by "
         f"up to {srec['median_err']:.3e} (a flipped crossing); K7 errors "
         f"are of rows up to {srec['bwd_scale']:.3e}, K4's of sums up to "

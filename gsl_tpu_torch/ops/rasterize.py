@@ -418,7 +418,9 @@ def rasterize_bwd_plain(means2d, conics, opacities, channels, gids, bounds,
     the sums over its tile's pixels of d/d(mean x, mean y, conic a, b, c,
     opacity, channels); `gids` may run past the valid slots, whose rows
     stay zero. With `stats`, leaves the count of composited
-    (pixel, splat) pairs in ``stats["composited_pairs"]``."""
+    (pixel, splat) pairs in ``stats["composited_pairs"]`` and that of
+    (slot, warp)s with at least one such pixel (`slot_warps`) in
+    ``stats["composited_slot_warps"]``."""
     dev = means2d.device
     img_height, img_width, C = g_out.shape
     tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
@@ -437,6 +439,7 @@ def rasterize_bwd_plain(means2d, conics, opacities, channels, gids, bounds,
     p = torch.arange(P, device=dev)
     lane = torch.arange(PLAIN_CHUNK, device=dev)
     n_comp = torch.zeros((), dtype=torch.int64, device=dev)
+    n_warps = torch.zeros((), dtype=torch.int64, device=dev)
     for t0 in range(0, n_tiles, PLAIN_TILE_GROUP):
         tl = torch.arange(t0, min(t0 + PLAIN_TILE_GROUP, n_tiles),
                           device=dev)
@@ -494,25 +497,58 @@ def rasterize_bwd_plain(means2d, conics, opacities, channels, gids, bounds,
                 part[:, j, :6] = geom.sum(1)
                 part[:, j, 6:] = (w[..., None] * g_pix).sum(1)
                 n_comp += comp.sum()
+                n_warps += slot_warps(comp[..., None])
             rows[pos[in_rng]] = part[in_rng]
     if stats is not None:
         stats["composited_pairs"] = int(n_comp)
+        stats["composited_slot_warps"] = int(n_warps)
     return rows
 
 
-def _bwd_lib():
-    lib = cuda_build.load("rasterize_bwd")
+def _bwd_lib(extra: tuple = ()):
+    lib = cuda_build.load("rasterize_bwd", extra)
     lib.gsl_rasterize_bwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6)
     lib.gsl_rasterize_bwd.restype = ctypes.c_int
+    lib.gsl_rasterize_bwd_attributes.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.gsl_rasterize_bwd_attributes.restype = ctypes.c_int
     return lib
 
 
+def kernel_attributes(lib, entry: str, n_channels: int, tile_size: int):
+    """What the card's runtime reports for the kernel of C entry point
+    `entry` that `n_channels` and `tile_size` select: registers per thread,
+    local (spill) bytes per thread (cudaFuncGetAttributes), dynamic shared
+    bytes per block, and resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Needs a card."""
+    out = (ctypes.c_int * 4)()
+    code = getattr(lib, entry)(n_channels, tile_size, out)
+    cuda_build.check(lib, code, entry)
+    return {"registers": out[0], "local_bytes": out[1],
+            "shared_bytes": out[2], "blocks_per_sm": out[3]}
+
+
+def rasterize_bwd_attributes(n_channels: int, tile_size: int = 16):
+    """`kernel_attributes` of the K3 kernel."""
+    return kernel_attributes(_bwd_lib(), "gsl_rasterize_bwd_attributes",
+                             n_channels, tile_size)
+
+
 def rasterize_bwd(means2d, conics, opacities, channels, gids, bounds,
-                  g_out, g_alpha, t_final, i_stop, tile_size: int = 16):
+                  g_out, g_alpha, t_final, i_stop, tile_size: int = 16,
+                  contract: bool = True):
     """Kernel K3 on CUDA tensors, `rasterize_bwd_plain` on CPU tensors: one
-    launch for any channel count. Returns rows [len(gids), 6 + C]."""
+    launch for any channel count. Returns rows [len(gids), 6 + C].
+
+    `contract=False` launches a build of the same source without
+    multiply-add contraction. The kernel contracts sigma and the gradient
+    terms to multiply-adds and the plain version does not, so where alpha
+    sits within a rounding of the 1/255 skip the two take different
+    decisions; the uncontracted build rounds as the plain version does, and
+    the checks on the card hold the source's arithmetic to it through that
+    build."""
     if not means2d.is_cuda:
         return rasterize_bwd_plain(means2d, conics, opacities, channels,
                                    gids, bounds, g_out, g_alpha, t_final,
@@ -538,7 +574,7 @@ def rasterize_bwd(means2d, conics, opacities, channels, gids, bounds,
     # zeroed: the kernel writes only positions before a tile's largest stop
     rows = torch.zeros((gids.numel(), 6 + C), dtype=torch.float32,
                        device=dev)
-    lib = _bwd_lib()
+    lib = _bwd_lib(() if contract else cuda_build.NO_CONTRACTION)
     code = lib.gsl_rasterize_bwd(
         _ptr(means2d), _ptr(conics), _ptr(opacities), _ptr(channels), C,
         _ptr(gids), _ptr(bounds), tiles_x * tiles_y, tiles_x, tile_size,

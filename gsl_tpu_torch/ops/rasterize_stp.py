@@ -49,7 +49,7 @@ import torch
 from . import cuda_build
 from .rasterize import (MIN_ONE_MINUS_ALPHA, NEVER_STOPPED, _check_cuda,
                         _image_to_tiles, _ptr, _stream, _tiles,
-                        _tiles_to_image, slot_warps)
+                        _tiles_to_image, kernel_attributes, slot_warps)
 from .rasterize_reference import ALPHA_THRESHOLD, MAX_ALPHA
 
 STP_WINDOW = 16         # sorted positions a pixel re-sorts together
@@ -369,17 +369,9 @@ def _bwd_lib(extra: tuple = ()):
 
 
 def rasterize_bwd_stp_attributes(n_channels: int, tile_size: int = 16):
-    """What the card's runtime reports for the K3s kernel that `n_channels`
-    and `tile_size` select: registers per thread, local (spill) bytes per
-    thread (cudaFuncGetAttributes), dynamic shared bytes per block, and
-    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-    Needs a card."""
-    lib = _bwd_lib()
-    out = (ctypes.c_int * 4)()
-    code = lib.gsl_rasterize_bwd_stp_attributes(n_channels, tile_size, out)
-    cuda_build.check(lib, code, "rasterize_bwd_stp_attributes")
-    return {"registers": out[0], "local_bytes": out[1],
-            "shared_bytes": out[2], "blocks_per_sm": out[3]}
+    """`kernel_attributes` of the K3s kernel."""
+    return kernel_attributes(_bwd_lib(), "gsl_rasterize_bwd_stp_attributes",
+                             n_channels, tile_size)
 
 
 def rasterize_bwd_stp(means2d, conics, opacities, channels, depths,

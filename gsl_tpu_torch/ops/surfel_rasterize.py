@@ -72,9 +72,9 @@ from .projection import Projections
 from .rasterize import (MIN_ONE_MINUS_ALPHA, NEVER_STOPPED, PLAIN_CHUNK,
                         PLAIN_TILE_GROUP, Isects, _check_cuda,
                         _image_to_tiles, _ptr, _stream, _tiles,
-                        _tiles_to_image, invert_order, isect_encode, reduce_grads,
-                        slot_keys, slot_tiles, slot_warps, sort_slots,
-                        tile_bounds)
+                        _tiles_to_image, invert_order, isect_encode,
+                        kernel_attributes, reduce_grads, slot_keys,
+                        slot_tiles, slot_warps, sort_slots, tile_bounds)
 from .rasterize_reference import ALPHA_THRESHOLD, MIN_TRANSMITTANCE
 from .surfel import (FAR_2D, FILTER_INV_SQUARE, MAX_ALPHA_2D, NEAR_2D,
                      SurfelProjections, SurfelRenderResult, _map_depth)
@@ -264,24 +264,37 @@ def rasterize_surfels_fwd_plain(geom, channels, gids, bounds,
             _tiles_to_image(stop, *dims)[..., 0].to(torch.int32))
 
 
-def _fwd_lib():
-    lib = cuda_build.load("surfel_fwd")
+def _fwd_lib(extra: tuple = ()):
+    lib = cuda_build.load("surfel_fwd", extra)
     lib.gsl_rasterize_surfels_fwd.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
     lib.gsl_rasterize_surfels_fwd.restype = ctypes.c_int
     lib.gsl_rasterize_surfels_fwd_max_group.restype = ctypes.c_int
+    lib.gsl_rasterize_surfels_fwd_attributes.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.gsl_rasterize_surfels_fwd_attributes.restype = ctypes.c_int
     return lib
 
 
+def rasterize_surfels_fwd_attributes(n_channels: int, tile_size: int = 16):
+    """`kernel_attributes` of the K6 kernel that composites
+    min(n_channels, 8) channels a launch."""
+    return kernel_attributes(_fwd_lib(),
+                             "gsl_rasterize_surfels_fwd_attributes",
+                             n_channels, tile_size)
+
+
 def rasterize_surfels_fwd(geom, channels, gids, bounds, img_height: int,
-                          img_width: int, tile_size: int = 16):
+                          img_width: int, tile_size: int = 16,
+                          contract: bool = True):
     """Kernel K6 on CUDA tensors, `rasterize_surfels_fwd_plain` on CPU
     tensors. One launch per group of up to 8 channels (one launch for
     C <= 8, as on the renderer's C = 6 path), as K2 does; every launch
     repeats the solve and writes the same aux and i_stop, so a forward
     with C > 8 costs ceil(C / 8) times one launch. Returns
-    (out [H, W, C], aux [7, H, W], i_stop [H, W] int32)."""
+    (out [H, W, C], aux [7, H, W], i_stop [H, W] int32). `contract=False`:
+    see `rasterize_surfels_bwd`."""
     if not geom.is_cuda:
         return rasterize_surfels_fwd_plain(geom, channels, gids, bounds,
                                            img_height, img_width, tile_size)
@@ -297,6 +310,9 @@ def rasterize_surfels_fwd(geom, channels, gids, bounds, img_height: int,
     if gids.numel() >= NEVER_STOPPED:
         raise ValueError("rasterize_surfels_fwd: more than 2^30 sorted "
                          "slots collide with the i_stop sentinel")
+    if (tile_size * tile_size) % 32:
+        raise ValueError("rasterize_surfels_fwd: tile_size^2 must be a "
+                         "multiple of 32 (whole warps)")
     dev = _check_cuda("rasterize_surfels_fwd", geom, channels, gids, bounds)
     tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
     C = channels.shape[1]
@@ -306,7 +322,7 @@ def rasterize_surfels_fwd(geom, channels, gids, bounds, img_height: int,
                       device=dev)
     i_stop = torch.empty((img_height, img_width), dtype=torch.int32,
                          device=dev)
-    lib = _fwd_lib()
+    lib = _fwd_lib(() if contract else cuda_build.NO_CONTRACTION)
     group = lib.gsl_rasterize_surfels_fwd_max_group()
     for c0 in range(0, C, group):
         code = lib.gsl_rasterize_surfels_fwd(
@@ -469,18 +485,10 @@ def _bwd_lib(extra: tuple = ()):
 
 
 def rasterize_surfels_bwd_attributes(n_channels: int, tile_size: int = 16):
-    """What the card's runtime reports for the K7 kernel that `n_channels`
-    and `tile_size` select: registers per thread, local (spill) bytes per
-    thread (cudaFuncGetAttributes), dynamic shared bytes per block, and
-    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-    Needs a card."""
-    lib = _bwd_lib()
-    out = (ctypes.c_int * 4)()
-    code = lib.gsl_rasterize_surfels_bwd_attributes(n_channels, tile_size,
-                                                    out)
-    cuda_build.check(lib, code, "rasterize_surfels_bwd_attributes")
-    return {"registers": out[0], "local_bytes": out[1],
-            "shared_bytes": out[2], "blocks_per_sm": out[3]}
+    """`kernel_attributes` of the K7 kernel."""
+    return kernel_attributes(_bwd_lib(),
+                             "gsl_rasterize_surfels_bwd_attributes",
+                             n_channels, tile_size)
 
 
 def rasterize_surfels_bwd(geom, channels, gids, bounds, g_out, g_aux, aux,

@@ -1,17 +1,18 @@
-"""Training-step times of the StopThePop and 2DGS paths of the PyTorch port
-for two checkouts of the repository, alternated on one CUDA card: A, B, B,
-A.
+"""Training-step and frame times of the PyTorch port's paths for two
+checkouts of the repository, alternated on one CUDA card: A, B, B, A.
 
     python3 scripts/torch_step_ab.py DIR_A DIR_B
 
 Each run is a process started in that checkout that builds its kernels and
-runs its own chip_smoke.py's phase 7 training (StopThePop: 12 steps at
-capacity 1M, a densify to 2M, 3 steps) and phase 6 (2DGS: serving, then 12
-steps at 1M, a densify, 3 steps) on the bench scene. Host-clock step times
-differ between hosts by more than a kernel's share of a step, so two
-versions are compared only inside one run of this script. Prints, per
-run, the median ms per step of steps 6-12 (capacity 1M) of each path, then
-one JSON line with every run's step times.
+runs its own chip_smoke.py's phase 5 training (plain 3DGS: 20 steps at
+capacity 1M, a densify to 2M, 6 steps), phase 7 training (StopThePop: 12
+steps at capacity 1M, a densify to 2M, 3 steps) and phase 6 (2DGS: serving,
+five bench-pose frames with all seven outputs, then 12 steps at 1M, a
+densify, 3 steps) on the bench scene. Host-clock step times differ between
+hosts by more than a kernel's share of a step, so two versions are compared
+only inside one run of this script. Prints, per run, the median ms per step
+of steps 6 to the densify (capacity 1M) of each training path and the
+median ms of the 2DGS frames, then one JSON line with every run's times.
 """
 import json
 import os
@@ -29,13 +30,26 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 cuda_build.build()
 arrays = CS.scene_arrays(CS.N_GAUSSIANS)
+CS.phase_training(arrays, {"rasterize_bwd": 0.0, "invert_order": 0.0,
+                           "reduce_grads": 0.0})
+torch.cuda.empty_cache()
 CS.phase_training(arrays, {"rasterize_bwd_stp": 0.0, "invert_order": 0.0,
                            "reduce_grads": 0.0}, stp=True)
 torch.cuda.empty_cache()
 CS.phase_surfel_main_path(arrays)
 """
-LINES = {"stp": "StopThePop training: ms per step (host clock, synchronised) ",
-         "2dgs": "2DGS training: ms per step (host clock, synchronised) "}
+# path -> (the line's prefix, the times that are read: steps 6 to the
+# densify, or every frame)
+LINES = {
+    "3dgs": ("training: ms per step (host clock, synchronised) ",
+             slice(5, 20)),
+    "stp": ("StopThePop training: ms per step (host clock, synchronised) ",
+            slice(5, 12)),
+    "2dgs": ("2DGS training: ms per step (host clock, synchronised) ",
+             slice(5, 12)),
+    "2dgs_frame": ("2DGS bench-pose frame (all seven outputs), host clock "
+                   "ms ", slice(None)),
+}
 
 
 def run(checkout):
@@ -44,14 +58,14 @@ def run(checkout):
     if proc.returncode != 0:
         raise SystemExit(f"{checkout}: exit {proc.returncode}\n"
                          f"{proc.stderr[-3000:]}")
-    steps = {}
+    times = {}
     for line in proc.stdout.splitlines():
-        for path, prefix in LINES.items():
+        for path, (prefix, _) in LINES.items():
             if line.startswith(prefix):
-                steps[path] = json.loads(line[len(prefix):])
-    if sorted(steps) != sorted(LINES):
-        raise SystemExit(f"{checkout}: no step times in its output")
-    return steps
+                times[path] = json.loads(line[len(prefix):])
+    if sorted(times) != sorted(LINES):
+        raise SystemExit(f"{checkout}: no step or frame times in its output")
+    return times
 
 
 def main():
@@ -60,13 +74,15 @@ def main():
     a, b = (os.path.abspath(d) for d in sys.argv[1:])
     runs = []
     for label, checkout in (("A", a), ("B", b), ("B", b), ("A", a)):
-        steps = run(checkout)
-        medians = {p: statistics.median(s[5:12]) for p, s in steps.items()}
-        print(f"{label} {checkout}: median ms per step, steps 6-12: "
+        times = run(checkout)
+        medians = {p: statistics.median(t[LINES[p][1]])
+                   for p, t in times.items()}
+        print(f"{label} {checkout}: median ms, training steps 6 to the "
+              "densify and 2DGS frames: "
               + ", ".join(f"{p} {m:.2f}" for p, m in medians.items()),
               flush=True)
-        runs.append({"label": label, "checkout": checkout, "steps": steps,
-                     "median_steps_6_12": medians})
+        runs.append({"label": label, "checkout": checkout, "times": times,
+                     "medians": medians})
     print(json.dumps(runs))
 
 

@@ -16,8 +16,10 @@ same alphas, so the same flips move single gradient rows: its rows, and
 K4's per-Gaussian sums of them, are held to rtol 1e-3 / atol 1e-3 at
 >= 99.9% of the values (the gradients of the test loss reach the
 hundreds, and T / (1 - alpha) walked backwards rounds differently with
-and without contraction). K4 on identical rows differs from `index_add_`
-only in the order of its float32 additions.
+and without contraction); K3 built without contraction (`contract=False`)
+rounds as the plain version does and is held column by column. K4 on
+identical rows differs from `index_add_` only in the order of its float32
+additions.
 
 The surfel kernels follow the same pattern. K5 (surfel expand) is integer
 work and must equal surfel_expand_plain bit for bit. K6 (surfel forward)
@@ -25,7 +27,8 @@ decides more per pair than K2 (alpha >= 1/255, rho3d <= rho2d,
 depth >= 0.2, the 0.5 crossing of the median, the stop), all on rounded
 values, so its images are held at a share of values like K2's; the median
 depth gets its own share, since a crossing that flips moves a pixel by a
-whole depth step. K7's rows are held column by column: the columns have
+whole depth step; K6 built without contraction is held to the same
+shares. K7's rows are held column by column: the columns have
 different units, and near-degenerate solves put a few rows far above a
 column's typical magnitude, so each column gets 1e-4 of its own scale (the
 99th percentile of the reference's nonzero magnitudes) + rtol 1e-3 at
@@ -135,7 +138,9 @@ def test_kernels_match_plain(cuda, n_channels):
     assert close_share(t_fin, t_p) >= SHARE
 
 
-def _backward_inputs(cuda, n_channels, n=3000):
+def _backward_inputs(cuda, n_channels, n=3000, ts=TS, cut=False):
+    """K3's arguments after K1, the sort and K2; `cut`: the tiles' lists
+    cut to CUT_LENGTHS first."""
     state = state_from_raw_arrays(scene(n), device=cuda)
     cam = camera(cuda)
     proj = project_gaussians(state.get_means(), state.get_scales(),
@@ -144,17 +149,22 @@ def _backward_inputs(cuda, n_channels, n=3000):
     op = state.get_opacities().contiguous()
     gen = torch.Generator(device="cpu").manual_seed(0)
     ch = torch.rand((n, n_channels), generator=gen).to(cuda)
-    isects = R.isect_encode(proj, H, W, TS)
+    tiles_x, tiles_y = -(-W // ts), -(-H // ts)
+    isects = R.isect_encode(proj, H, W, ts)
     keys, gids = R.expand(isects, proj.means2d, proj.conics, op,
-                          proj.depths, W // TS, H // TS, TS, True)
+                          proj.depths, tiles_x, tiles_y, ts, True)
     sk, gs, order = R.sort_slots(keys, gids)
-    bounds = R.tile_bounds(sk, (W // TS) * (H // TS))
+    bounds = R.tile_bounds(sk, tiles_x * tiles_y)
+    if cut:
+        gs, bounds = _cut_lists(gs, bounds, CUT_LENGTHS)
+        counts = bounds[1:] - bounds[:-1]
+        assert bool((counts == 1).any()) and bool((counts % 32 == 1).any())
     out, t_fin, stop = R.rasterize_fwd(proj.means2d, proj.conics, op, ch,
-                                       gs, bounds, H, W, TS)
+                                       gs, bounds, H, W, ts)
     g_out = torch.randn((H, W, n_channels), generator=gen).to(cuda)
     g_alpha = torch.randn((H, W), generator=gen).to(cuda)
     bwd = (proj.means2d, proj.conics, op, ch, gs, bounds, g_out, g_alpha,
-           t_fin, stop, TS)
+           t_fin, stop, ts)
     return bwd, isects, order, n
 
 
@@ -163,11 +173,44 @@ def close_share_grad(got, want):
     return 1.0 - float(bad.float().mean())
 
 
+def _cases(*cases):
+    """pytest params with the ids "C", "C-tileT" and "C-cut"."""
+    return [pytest.param(c, ts, cut, id=f"{c}" + (
+        "" if ts == TS else f"-tile{ts}") + ("-cut" if cut else ""))
+        for c, ts, cut in cases]
+
+
+# (channels, tile size, cut lists): C above 8 takes the kernels' path with
+# the cotangents in shared memory; 6 + C or 13 + C above 32 sums each row in
+# chunks of 32; tile size 8 is two warps a tile; cut lists end one past a
+# window (16) or batch (32), and a tile has one slot
+KERNEL_CASES = {"k3": _cases((3, TS, False), (8, TS, False),
+                             (11, TS, False), (27, TS, False),
+                             (3, 8, False), (3, TS, True)),
+                "stp": _cases((3, TS, False), (8, TS, False),
+                              (11, TS, False), (27, TS, False),
+                              (3, 8, False), (3, TS, True)),
+                "surfel": _cases((3, TS, False), (6, TS, False),
+                                 (9, TS, False), (20, TS, False),
+                                 (6, 8, False), (6, TS, True))}
+
+
+def assert_attributes(info):
+    """What a kernel's *_attributes helper reports, as the card's runtime
+    gives it."""
+    assert 0 < info["registers"] <= 255 and info["shared_bytes"] > 0
+    assert info["local_bytes"] >= 0 and info["blocks_per_sm"] >= 1
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_channels", [3, 8, 11])
-def test_backward_kernels_match_plain(cuda, n_channels):
-    """C = 11 takes K3's path with the cotangents in shared memory."""
-    bwd, isects, order, n = _backward_inputs(cuda, n_channels)
+@pytest.mark.parametrize("n_channels,ts,cut", KERNEL_CASES["k3"])
+def test_backward_kernels_match_plain(cuda, n_channels, ts, cut):
+    """C = 11 and 27 take K3's path with the cotangents in shared memory;
+    at C = 27 K3 sums 33 values a row, in two chunks. `cut`: the tiles'
+    lists cut to 1, 17, 33, 0, 47, 2 and 49 slots, so K3's batches of 32
+    end ragged and a tile has one slot."""
+    bwd, isects, order, n = _backward_inputs(cuda, n_channels, ts=ts,
+                                             cut=cut)
     gs, bounds = bwd[4], bwd[5]
     before = R.rasterize_bwd.launches
     rows = R.rasterize_bwd(*bwd)
@@ -178,8 +221,15 @@ def test_backward_kernels_match_plain(cuda, n_channels):
     assert bool(torch.isfinite(rows).all())
     assert float(rows_p.abs().max()) > 1.0
     assert close_share_grad(rows, rows_p) >= SHARE
+    # the same source built without contraction rounds as the plain version
+    loose = R.rasterize_bwd(*bwd, contract=False)
+    shares = column_shares(loose, rows_p)
+    assert min(shares) >= SHARE, shares
     # twice the same: no atomics
     assert torch.equal(rows, R.rasterize_bwd(*bwd))
+    assert_attributes(R.rasterize_bwd_attributes(n_channels, ts))
+    if cut:     # K4 needs every slot of the expand's output
+        return
 
     before = R.reduce_grads.launches
     summed = R.reduce_grads(rows, gs, isects.offsets,
@@ -283,22 +333,6 @@ def _cut_lists(gids, bounds, lengths):
 
 
 CUT_LENGTHS = (1, 17, 33, 0, 47, 2, 49)
-# (channels, tile size, cut lists): C above 8 takes the kernels' path with
-# the cotangents in shared memory; 6 + C or 13 + C above 32 sums each row in
-# chunks of 32; tile size 8 is two warps a tile
-def _cases(*cases):
-    """pytest params with the ids "C", "C-tileT" and "C-cut"."""
-    return [pytest.param(c, ts, cut, id=f"{c}" + (
-        "" if ts == TS else f"-tile{ts}") + ("-cut" if cut else ""))
-        for c, ts, cut in cases]
-
-
-KERNEL_CASES = {"stp": _cases((3, TS, False), (8, TS, False),
-                              (11, TS, False), (27, TS, False),
-                              (3, 8, False), (3, TS, True)),
-                "surfel": _cases((3, TS, False), (6, TS, False),
-                                 (9, TS, False), (20, TS, False),
-                                 (6, 8, False), (6, TS, True))}
 
 
 def _surfel_inputs(cuda, n_channels, n=3000, ts=TS):
@@ -376,6 +410,14 @@ def test_surfel_kernels_match_plain(cuda, n_channels, ts, cut):
         assert close_share(aux[plane], aux_p[plane]) >= share, plane
     assert float(aux[SR.AUX_DIST].max()) > 0.0
     assert float(aux[SR.AUX_MEDIAN].max()) > 1.0
+    # the same source built without contraction rounds as the plain version
+    out_u, aux_u, stop_u = SR.rasterize_surfels_fwd(*fwd, contract=False)
+    assert float((stop_u == stop_p).float().mean()) >= SHARE
+    assert close_share(out_u, out_p) >= SHARE
+    for plane in range(7):
+        share = MEDIAN_SHARE if plane == SR.AUX_MEDIAN else SHARE
+        assert close_share(aux_u[plane], aux_p[plane]) >= share, plane
+    assert_attributes(SR.rasterize_surfels_fwd_attributes(n_channels, ts))
 
     g_out = torch.randn((H, W, n_channels), generator=gen).to(cuda)
     g_aux = torch.randn((3, H, W), generator=gen).to(cuda)
@@ -395,9 +437,7 @@ def test_surfel_kernels_match_plain(cuda, n_channels, ts, cut):
     shares = column_shares(uncontracted, rows_p)
     assert min(shares) >= SHARE, shares
     assert torch.equal(rows, SR.rasterize_surfels_bwd(*bwd))   # no atomics
-    info = SR.rasterize_surfels_bwd_attributes(n_channels, ts)
-    assert 0 < info["registers"] <= 255 and info["shared_bytes"] > 0
-    assert info["blocks_per_sm"] >= 1
+    assert_attributes(SR.rasterize_surfels_bwd_attributes(n_channels, ts))
     if cut:     # K4 needs every slot of the expand's output
         return
 
@@ -471,6 +511,8 @@ def test_surfel_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                  H, W, TS)
     with pytest.raises(ValueError):
         SR.rasterize_surfels_fwd(geom, ch.cpu(), gs, bounds, H, W, TS)
+    with pytest.raises(ValueError):    # 25 threads: no whole warp
+        SR.rasterize_surfels_fwd(geom, ch, gs, bounds, H, W, 5)
     out, aux, stop = SR.rasterize_surfels_fwd(geom, ch, gs, bounds, H, W, TS)
     g_out = torch.zeros_like(out)
     g_aux = torch.zeros((3, H, W), device=cuda)
@@ -557,9 +599,7 @@ def test_stp_kernels_match_plain(cuda, n_channels, ts, cut):
     assert close_share_grad(loose_rows, rows_p) >= SHARE
     assert torch.equal(rows, STP.rasterize_bwd_stp(          # no atomics
         *fwd[:8], g_out, g_alpha, t_fin, ckpt, ts))
-    info = STP.rasterize_bwd_stp_attributes(n_channels, ts)
-    assert 0 < info["registers"] <= 255 and info["shared_bytes"] > 0
-    assert info["blocks_per_sm"] >= 1
+    assert_attributes(STP.rasterize_bwd_stp_attributes(n_channels, ts))
     if cut:     # K4 needs every slot of the expand's output
         return
     n = proj.means2d.shape[0]
