@@ -125,9 +125,12 @@ Bounds in the kernels line: the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM f32 without tensor cores). K1 moves 52
 bytes per Gaussian and 12 per slot, and does ~40 operations per real slot
 (the tile cull). K2 reads each Gaussian's mean, conic, opacity and C
-channels and each sorted id once and writes C + 2 values per pixel; it does
-16 + 2C operations per (pixel, splat) pair that this run's pixels visited
-before they stopped. K3 moves the forward's bytes plus one row of 6 + C
+channels and each sorted id once and writes C + 2 values per pixel; of the
+(pixel, splat) pairs that this run's pixels visited up to their stop it
+does 12 operations on each (the offsets, sigma and the compare with the
+splat's cut), 5 more on each at or below the cut (the exponential, alpha
+and its test; the plain version counts them) and 3 + 2C more on each
+composited one (counted in csrc/rasterize_fwd.cu). K3 moves the forward's bytes plus one row of 6 + C
 values per valid slot; it does 18 operations per (pixel, splat) pair
 before the pixel's stop and 35 + 4C more per composited pair (counted in
 csrc/rasterize_bwd.cu). K4 reads each valid row, 4 bytes per slot and 8
@@ -142,9 +145,10 @@ operations per pair before the pixel's stop and 123 + 4C more per
 composited pair (both counted in the kernels' sources). K1 with
 stp_resort reads 8 more bytes per Gaussian. K2s and K3s have no stop, so
 every pixel visits its tile's whole list: pairs = pixels x the tile's valid
-slots. K2s does 23 operations per pair, 3 + 2C more per composited pair
-and 408 per (pixel, window) whose live entries are out of order, counted
-by the plain version; K3s 28 + 2C per pair, 35 + 4C per composited pair
+slots. K2s does 12 operations per pair, 5 more per pair at or below the
+cut, 9 + 2C more per composited pair and n_live^2 compares per (pixel,
+window) whose n_live live entries are out of order, counted by the plain
+version (csrc/rasterize_fwd_stp.cu); K3s 28 + 2C per pair, 35 + 4C per composited pair
 and 360 per such window, and moves the checkpoints (64 bytes per sorted
 slot) on top of K3's bytes. In the kernels line, `launches` is a kernel's
 count on the training path of its own model (K1-K4: phase 5; K5-K7: phase
@@ -208,12 +212,12 @@ GRAD_ATOL, GRAD_RTOL, GRAD_SHARE = 1e-4, 1e-3, 0.999
 # apart than in K3
 SURFEL_GRAD_SHARE = 0.995
 # ... and K7 built without contraction rounds as the plain version does;
-# so do K3 and K6, whose skip, stop and keep decisions are compares on the
-# same values, and K2s and K3s, where a contracted d_p can swap two slots
-# of a window
+# so do K2, K3 and K6, whose skip, stop and keep decisions are compares on
+# the same values, and K2s and K3s, where a contracted d_p can swap two
+# slots of a window
 UNCONTRACTED_SHARE = 0.99999
-UNCONTRACTED = ("rasterize_bwd", "surfel_fwd", "surfel_bwd",
-                "rasterize_fwd_stp", "rasterize_bwd_stp")
+UNCONTRACTED = ("rasterize_fwd", "rasterize_bwd", "surfel_fwd",
+                "surfel_bwd", "rasterize_fwd_stp", "rasterize_bwd_stp")
 # K4: of the sum of the magnitudes that went into each sum
 SUM_RTOL = 1e-5
 K3_COLUMNS = ("dmx", "dmy", "da", "db", "dc", "dop")
@@ -375,7 +379,7 @@ def warp_steps(i_stop, bounds, tiles_x):
 
 
 def log_attributes(name, C, attrs):
-    """A backward kernel's resources as the card's runtime reports them."""
+    """A kernel's resources as the card's runtime reports them."""
     log(f"{name} C={C} attributes: {attrs['registers']} registers, "
         f"{attrs['local_bytes']} local (spill) bytes per thread, "
         f"{attrs['shared_bytes']} dynamic shared bytes per block, "
@@ -549,11 +553,30 @@ def phase_kernels(state, renderer):
         gids = gs_k[:n_valid].contiguous()
         fwd = (m2d, con, opac, ch, gids, bounds, H, W, TILE)
         got = R.rasterize_fwd(*fwd)
-        want = R.rasterize_fwd_plain(*fwd)
+        again = R.rasterize_fwd(*fwd)
+        fstats = {}
+        want = R.rasterize_fwd_plain(*fwd, stats=fstats)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"K2 {vname}: two runs gave different outputs")
         err, share = compare_raster(f"K2 {vname} C={C}", got, want)
+        # the same source built without contraction rounds as the plain
+        # version
+        loose = R.rasterize_fwd(*fwd, contract=False)
+        ustop = float((loose[2] == want[2]).float().mean())
+        if ustop < UNCONTRACTED_SHARE:
+            fail(f"K2 {vname} C={C} built without contraction: i_stop "
+                 f"agrees on {ustop:.6f} of pixels < {UNCONTRACTED_SHARE}")
+        off_share(f"K2 {vname} C={C} image, built without contraction",
+                  loose[0], want[0], 1.0 - UNCONTRACTED_SHARE)
+        off_share(f"K2 {vname} C={C} alpha, built without contraction",
+                  1 - loose[1], 1 - want[1], 1.0 - UNCONTRACTED_SHARE)
+        ushare = min(value_share(loose[0], want[0]),
+                     value_share(loose[1], want[1]))
         log(f"K2 {vname} C={C}: i_stop agrees on {share:.6f}, max abs err "
-            f"{err:.3e}")
+            f"{err:.3e}; identical in two runs; built without contraction: "
+            f"i_stop agrees on {ustop:.7f}, image and T within tolerance at "
+            f">= {ushare:.7f} of their values")
         rec["fwd_err"] = max(rec.get("fwd_err", 0.0), err)
         if vi == 2:
             continue
@@ -592,10 +615,17 @@ def phase_kernels(state, renderer):
         t["pairs_bwd"] = pairs_bwd
         t["expand_bound"] = bound(52 * n + 12 * isects.total,
                                   40 * isects.n_isects)
-        t["fwd_bound"] = bound(fwd_bytes, pairs * (16 + 2 * C))
+        # 12 operations a visited pair, 5 more at or below the cut, 3 + 2C
+        # more a composited one (K3's plain version counts those)
+        near = fstats["near_pairs"]
+        t["fwd_bound"] = bound(
+            fwd_bytes,
+            12 * pairs + 5 * near + (3 + 2 * C) * rec["composited_pairs"])
         t.update(n_isects=isects.n_isects, slots=isects.total,
-                 n_valid=n_valid, pairs=pairs)
+                 n_valid=n_valid, pairs=pairs, near_pairs=near)
         log("bench-pose timings " + json.dumps(t))
+        t["fwd_attributes"] = R.rasterize_fwd_attributes(C, TILE)
+        log_attributes("K2", C, t["fwd_attributes"])
         rec.update(t)
     return rec
 
@@ -660,12 +690,21 @@ def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
               1 - want[1], 1.0 - UNCONTRACTED_SHARE)
     ushare = 1.0 - float(((loose[0] - want[0]).abs()
                           > ATOL + RTOL * want[0].abs()).float().mean())
+    if not all(torch.equal(a, b) for a, b in zip(
+            got[:3], STP.rasterize_fwd_stp(*fwd)[:3])):
+        fail(f"K2s {tag}: two runs gave different outputs")
     log(f"K2s {tag}: image within tolerance at {share:.7f} of values "
         f"({ushare:.7f} when built without contraction), max abs err "
-        f"{fwd_err:.3e}; i_stop never stopped; pixels with T_final == 0: "
-        f"{int((got[1] == 0).sum())}, T_final < 1e-4: "
-        f"{int((got[1] < 1e-4).sum())}; (pixel, window) pairs out of order "
-        f"{stats['unordered_windows']}")
+        f"{fwd_err:.3e}; identical in two runs; i_stop never stopped; "
+        f"pixels with T_final == 0: {int((got[1] == 0).sum())}, "
+        f"T_final < 1e-4: {int((got[1] < 1e-4).sum())}; (pixel, window) "
+        f"pairs out of order {stats['unordered_windows']} of "
+        f"{stats['pixel_windows']}, (window, warp)s with one "
+        f"{stats['unordered_warp_windows']}; live entries "
+        f"{stats['live_entries']}, {stats['unordered_live_entries']} of "
+        f"them in out-of-order windows (sum of squares "
+        f"{stats['unordered_live_squares']}); pairs at or below the cut "
+        f"{stats['near_pairs']}")
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     g_out = torch.randn((H, W, C), generator=gen, device="cuda")
@@ -704,6 +743,8 @@ def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
         return rec
     attrs = STP.rasterize_bwd_stp_attributes(C, TILE)
     log_attributes("K3s", C, attrs)
+    fwd_attrs = STP.rasterize_fwd_stp_attributes(C, TILE)
+    log_attributes("K2s", C, fwd_attrs)
     # with no stop every pixel visits its tile's whole list
     ys = torch.arange(H, device="cuda")[:, None] // TILE
     xs = torch.arange(W, device="cuda")[None, :] // TILE
@@ -723,8 +764,9 @@ def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
         reduce_ms=cuda_ms(lambda: R.reduce_grads(*red), 20),
         expand_bound=bound(60 * n + 12 * isects.total,
                            48 * isects.n_isects),
-        fwd_bound=bound(fwd_bytes, 23 * pairs + (3 + 2 * C) * composited
-                        + 408 * unordered),
+        fwd_bound=bound(fwd_bytes, 12 * pairs + 5 * stats["near_pairs"]
+                        + (9 + 2 * C) * composited
+                        + stats["unordered_live_squares"]),
         bwd_bound=bound(
             fwd_bytes + ckpt_bytes + 4 * H * W + 4 * (6 + C) * n_valid,
             (28 + 2 * C) * pairs + (35 + 4 * C) * composited
@@ -733,7 +775,10 @@ def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
         pairs=pairs, composited_pairs=composited,
         unordered_windows=unordered, checkpoint_bytes=ckpt_bytes,
         composited_slot_warps=stats["composited_slot_warps"],
-        bwd_attributes=attrs)
+        unordered_warp_windows=stats["unordered_warp_windows"],
+        live_entries=stats["live_entries"], near_pairs=stats["near_pairs"],
+        unordered_live_squares=stats["unordered_live_squares"],
+        bwd_attributes=attrs, fwd_attributes=fwd_attrs)
     log(f"stp {tag} timings " + json.dumps(
         {k: v for k, v in rec.items() if not k.endswith("_err")}))
     return rec
@@ -745,7 +790,8 @@ def phase_stp_kernels(state, renderer):
     named = views()
     rec = {}
     for seed, (vname, C, timed) in enumerate((("bench", 3, True),
-                                              ("orbit_yaw20", 8, False))):
+                                              ("orbit_yaw20", 8, False),
+                                              ("orbit_yaw-35", 3, False))):
         r = check_stp_kernels(vname, C, state, renderer,
                               camera(named[vname]), 20 + seed, timed)
         for k in ("fwd_err", "bwd_err"):
@@ -1765,7 +1811,10 @@ def main():
     for e, r in ((kernels[2], rec), (kernels[6], srec), (kernels[8], trec)):
         e.update(composited_slot_warps=r["composited_slot_warps"],
                  attributes=r["bwd_attributes"])
-    kernels[5].update(attributes=srec["fwd_attributes"])
+    for e, r in ((kernels[1], rec), (kernels[5], srec), (kernels[7], trec)):
+        e.update(attributes=r["fwd_attributes"])
+    for e, r in ((kernels[1], rec), (kernels[7], trec)):
+        e.update(near_pairs=r["near_pairs"])
     log(f"surfel backward at the bench pose: K6's median depth differs by "
         f"up to {srec['median_err']:.3e} (a flipped crossing); K7 errors "
         f"are of rows up to {srec['bwd_scale']:.3e}, K4's of sums up to "

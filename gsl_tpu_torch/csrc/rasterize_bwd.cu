@@ -80,6 +80,7 @@
 #include <type_traits>
 
 #include "warp_reduce.cuh"
+#include "tile_batches.cuh"
 
 namespace {
 
@@ -390,18 +391,8 @@ cudaError_t launch(const float* means2d, const float* conics,
     if (err != cudaSuccess) return err;
   }
   if (attributes != nullptr) {
-    cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, rasterize_bwd_kernel<CT>);
-    if (err != cudaSuccess) return err;
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, rasterize_bwd_kernel<CT>, bs, smem);
-    if (err != cudaSuccess) return err;
-    attributes[0] = attr.numRegs;
-    attributes[1] = static_cast<int>(attr.localSizeBytes);
-    attributes[2] = static_cast<int>(smem);
-    attributes[3] = blocks;
-    return cudaSuccess;
+    return gsl::kernel_attributes(rasterize_bwd_kernel<CT>, bs, smem,
+                                  attributes);
   }
   rasterize_bwd_kernel<CT><<<n_tiles, bs, smem, stream>>>(
       means2d, conics, opacities, channels, n_channels, gids, bounds, tiles_x,

@@ -47,16 +47,14 @@
 //   pair terms once, keeps T_exc (position order) in the thread's own
 //   column of shared memory and a 16-bit mask of the live entries (a > 0)
 //   in a register, and tests whether the live entries already ascend
-//   (stp_order.cuh's in_order, the common case). No 16-entry register
-//   arrays: the kernel fits 64 registers, four blocks of 256 per SM.
+//   (stp_order.cuh's still_in_order, the common case). No 16-entry
+//   register arrays: the kernel fits 64 registers, four blocks of 256 per SM.
 // - A lane whose live entries are out of order ranks only those (n_live^2
 //   compares of d_p laid out in its second column; 2.2 live entries per
-//   (pixel, window) on average in the bench scene),
-//   with stp_order.cuh's pairwise rule, so their relative order, and T_exc,
-//   are the forward's to the bit: an entry with a == 0 multiplies T by
-//   exactly 1 wherever it stands. It then redoes T_exc over the live
-//   entries in that order and lays S_after out by position in the second
-//   column.
+//   (pixel, window) on average in the bench scene) with stp_order.cuh's
+//   live_order, as K2s does, so their relative order, and T_exc, are the
+//   forward's to the bit. It then redoes T_exc over the live entries in
+//   that order and lays S_after out by position in the second column.
 // - Pass 2 visits, back to front, only the slots some pixel of the warp
 //   composites (the live masks, __any_sync), evaluates their pair terms again
 //   for the gradient, carries S itself where the window was in order, and
@@ -89,6 +87,7 @@
 
 #include "stp_order.cuh"
 #include "warp_reduce.cuh"
+#include "tile_batches.cuh"
 
 namespace {
 
@@ -318,8 +317,7 @@ __global__ void __launch_bounds__(kMaxThreads) rasterize_bwd_stp_kernel(
       load_record(sf + l * RS, r);
       const stp::Pair p = stp::pair_terms(r, 1, 0, px, py);
       const bool lv = p.a > 0.0f;
-      ordered = ordered && !(lv && p.d < last_d);
-      last_d = lv ? p.d : last_d;
+      if (lv) ordered = stp::still_in_order(ordered, p.d, last_d);
       live |= lv ? 1u << l : 0u;
       texc_column[l * bs] = T;
       T *= 1.0f - p.a;
@@ -334,23 +332,11 @@ __global__ void __launch_bounds__(kMaxThreads) rasterize_bwd_stp_kernel(
         texc_column[i * bs] = p.a;
         after_column[i * bs] = p.d;
       }
-      // the live entries in this pixel's order: stp_order.cuh's pairwise
-      // rule (ascending d_p, ties by position) among them alone; rank r's
-      // position in bits [4r, 4r + 4)
-      uint64_t order = 0;
-      int n_live = 0;
-      for (unsigned m = live; m != 0u; m &= m - 1u) {
-        const int i = __ffs(m) - 1;
-        const float di = after_column[i * bs];
-        int r = 0;
-        for (unsigned m2 = live & ~(1u << i); m2 != 0u; m2 &= m2 - 1u) {
-          const int j = __ffs(m2) - 1;
-          const float dj = after_column[j * bs];
-          r += j < i ? (dj <= di ? 1 : 0) : (di <= dj ? 0 : 1);
-        }
-        order |= static_cast<uint64_t>(i) << (4 * r);
-        ++n_live;
-      }
+      // the live entries in this pixel's order (stp_order.cuh's pairwise
+      // rule among them alone); rank r's position in bits [4r, 4r + 4)
+      int n_live;
+      const uint64_t order = stp::live_order(
+          live, [&](int i) { return after_column[i * bs]; }, n_live);
       // T_exc by the forward's rule in that order, q by position, then
       // S_after by position from the back of the order
       float Tr = T0;
@@ -467,19 +453,8 @@ cudaError_t launch(const float* means2d, const float* conics,
     if (err != cudaSuccess) return err;
   }
   if (attributes != nullptr) {
-    cudaFuncAttributes attr;
-    cudaError_t err =
-        cudaFuncGetAttributes(&attr, rasterize_bwd_stp_kernel<CT>);
-    if (err != cudaSuccess) return err;
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, rasterize_bwd_stp_kernel<CT>, bs, smem);
-    if (err != cudaSuccess) return err;
-    attributes[0] = attr.numRegs;
-    attributes[1] = static_cast<int>(attr.localSizeBytes);
-    attributes[2] = static_cast<int>(smem);
-    attributes[3] = blocks;
-    return cudaSuccess;
+    return gsl::kernel_attributes(rasterize_bwd_stp_kernel<CT>, bs, smem,
+                                  attributes);
   }
   rasterize_bwd_stp_kernel<CT><<<n_tiles, bs, smem, stream>>>(
       means2d, conics, opacities, channels, depths, depth_grads, n_channels,

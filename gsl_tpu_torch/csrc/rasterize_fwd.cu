@@ -12,117 +12,233 @@
 // What the TPU needed and this does not: the transmittance recurrence
 // closed into log1p/exp triangle matmuls on the MXU, 1024-slot stream
 // blocks with a packed schedule, and a payload sorted along with the keys.
-// Here one block of tile_size^2 threads owns one tile, one thread one
-// pixel, and walks the tile's range of the sorted Gaussian ids in batches
-// of one id per thread. Each batch is gathered by id into shared memory
-// (mean, conic, opacity, the channel group) and every thread composites it
-// in order, sequentially, as the oracle does. The block leaves as soon as
-// every pixel has stopped (__syncthreads_count).
+// Here one block owns one tile and walks the tile's range of the sorted
+// Gaussian ids in batches; every pixel composites the batch in order,
+// sequentially, as the oracle does.
 //
-// Bound on the H100: operations. Every (pixel, splat) pair a pixel visits
-// costs ~16 f32 operations and an exp, plus 2 per channel when it is
-// composited; at the bench scene that is ~10^9 operations against ~10^8
-// bytes of inputs and outputs. The shared-memory batch turns the random
-// gather into one load per splat per tile instead of one per pixel.
+// Bound on the H100: operations, counted as this design needs them. Every
+// (pixel, splat) pair a pixel visits costs 12 f32 operations (delta 2,
+// sigma 9, the compare with the splat's cut), a pair at or below the cut 5
+// more (negate and exp 2, alpha 2, the compare with 1/255), a composited
+// pair 3 + 2C more (1 - a, T, the weight, C multiply-adds); at the bench
+// scene that is ~7 10^9 operations against ~10^8 bytes of inputs and
+// outputs.
+//
+// The per-pair arithmetic is K3's composite test (rasterize_bwd.cu), the
+// same expressions in the same order: K3 decides which pairs were
+// composited by computing them again, and rebuilds T by dividing T_final.
+//
+// Before this design the kernel ran at 6.3x that bound (0.920 ms launched;
+// NVIDIA H100 80GB HBM3 at 700 W, 1M Gaussians, 1088x1920, C = 3). Removing
+// one part at a time from a copy (scripts/torch_kernel_parts.py) showed an
+// instruction-bound walk: its alpha test alone took 0.58 ms, six strided
+// 4-byte shared loads a pair 0.18, the gather, its barriers and the exits
+// nothing measurable. What the design does:
+//
+// - Each slot carries the sigma beyond which its alpha is below 1/255 for
+//   certain (alpha_skip.cuh, computed once per batch from its opacity). A
+//   pair past that cut is passed without the exponential; a branch that
+//   every lane of a warp takes costs the warp nothing more, and a splat a
+//   few pixels wide misses most of a tile's warps. Only the pairs at or
+//   below the cut take the exact test, so every decision is the one K3
+//   repeats.
+// - kPix pixels a thread (pixel p and p + blockDim.x of the tile): one
+//   record read and one turn of the loop serve kPix pairs, whose chains are
+//   independent. Each thread walks the batch until its pixels have
+//   stopped, as the oracle does; no warp vote.
+// - A slot's fields lie together in shared memory (mean, conic, opacity,
+//   skip sigma, the channel group: a record padded to 16 bytes); a pair
+//   reads the first eight values with two 16-byte loads.
+// - The ids and records of the next batch are copied into a second buffer
+//   with cp.async while this one is composited, the ids two batches ahead
+//   (tile_batches.cuh).
+// - One barrier per batch of kBatch slots, and it is the block's exit test
+//   (__syncthreads_count): it frees the batch's buffer, publishes the next
+//   one and lets the block leave once every pixel has stopped.
+// - At most kMaxRegs registers; the tensor cores play no part: there is no
+//   matrix product.
 //
 // The channel count C is not capped: one launch composites a group of up to
 // kMaxGroup channels (a template parameter, so the sums stay in registers)
 // and the caller launches once per group. Every launch recomputes the same
-// T and stop index.
+// T and stop index. Any tile size up to 32 works: the block has kPix pixels
+// a thread in whole warps, and threads past the tile's pixels idle.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "alpha_skip.cuh"
+#include "tile_batches.cuh"
+
 namespace {
 
-constexpr int kMaxGroup = 8;
+constexpr int kBatch = 64;
+constexpr int kPix = 2;
+constexpr int kMaxRegs = 64;
+constexpr int kMaxThreads = 1024 / kPix;  // tile_size <= 32
+// mean x, y, conic a, b, c, opacity, and the sigma beyond which the pair is
+// skipped for certain (alpha_skip.cuh); then the group's channels
+constexpr int kFields = 7;
+constexpr int kOp = 5;
+constexpr int kSkip = 6;
 constexpr int kNeverStopped = 1 << 30;
 
+// A slot's record in shared memory: its seven fields, its CG channels,
+// padded to whole 16-byte loads. A pair reads the first kLoad values (the
+// seven fields and the first channel) with two 16-byte loads.
+__host__ __device__ constexpr int record_floats(int cg) {
+  return gsl::record_floats(kFields + cg);
+}
+constexpr int kLoad = 8;
+
+// Threads of a block: kPix pixels each, whole warps.
+int block_threads(int tile_size) {
+  const int per = (tile_size * tile_size + kPix - 1) / kPix;
+  return (per + 31) & ~31;
+}
+
+size_t smem_words(int cg) {
+  return 2 * static_cast<size_t>(record_floats(cg)) * kBatch +  // records
+         2 * static_cast<size_t>(kBatch);                       // ids
+}
+
 template <int CG>
-__global__ void rasterize_fwd_kernel(
-    const float* __restrict__ means2d,    // [N, 2]
-    const float* __restrict__ conics,     // [N, 3]
-    const float* __restrict__ opacities,  // [N]
-    const float* __restrict__ channels,   // [N, C]
-    int n_channels, int c0,
-    const int* __restrict__ gids,         // [n_valid] sorted by (tile, depth)
-    const int64_t* __restrict__ bounds,   // [n_tiles + 1] tile t: [b[t], b[t+1])
-    int tiles_x, int tile_size, int height, int width,
-    float* __restrict__ out,              // [H, W, C]
-    float* __restrict__ t_final,          // [H, W]
-    int* __restrict__ i_stop) {           // [H, W]
-  extern __shared__ float smem[];
-  const int bs = blockDim.x;  // tile_size^2
-  float* s_mx = smem;
-  float* s_my = s_mx + bs;
-  float* s_ca = s_my + bs;
-  float* s_cb = s_ca + bs;
-  float* s_cc = s_cb + bs;
-  float* s_op = s_cc + bs;
-  float* s_col = s_op + bs;  // [CG, bs]
+__global__ void __launch_bounds__(kMaxThreads,
+                                  65536 / (kMaxThreads * kMaxRegs))
+    rasterize_fwd_kernel(
+        const float* __restrict__ means2d,    // [N, 2]
+        const float* __restrict__ conics,     // [N, 3]
+        const float* __restrict__ opacities,  // [N]
+        const float* __restrict__ channels,   // [N, C]
+        int n_channels, int c0,
+        const int* __restrict__ gids,         // [n_valid] sorted by (tile, depth)
+        const int64_t* __restrict__ bounds,   // [n_tiles + 1] tile t: [b[t], b[t+1])
+        int tiles_x, int tile_size, int height, int width,
+        float* __restrict__ out,              // [H, W, C]
+        float* __restrict__ t_final,          // [H, W]
+        int* __restrict__ i_stop) {           // [H, W]
+  extern __shared__ __align__(16) float smem[];
+  constexpr int RS = record_floats(CG);
+  constexpr int F = kBatch * RS;  // one buffer of gathered records
+  float* s_fields = smem;                                  // [2][F]
+  int* s_ids = reinterpret_cast<int*>(s_fields + 2 * F);   // [2][kBatch]
+  const int nt = blockDim.x;
+  const int bs = tile_size * tile_size;
 
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
-  const int x = (tile % tiles_x) * tile_size + tid % tile_size;
-  const int y = (tile / tiles_x) * tile_size + tid / tile_size;
-  const bool inside = x < width && y < height;
-  const float px = static_cast<float>(x) + 0.5f;
-  const float py = static_cast<float>(y) + 0.5f;
   const float threshold = static_cast<float>(1.0 / 255.0);
   const float max_alpha = static_cast<float>(0.999);
   const float min_t = static_cast<float>(1e-4);
 
+  // pixel k of this thread is the tile's pixel tid + k * nt; it is done
+  // once its stop is set (a pixel outside the image is done from the
+  // start, with stop -1, and writes nothing)
+  float px[kPix], py[kPix], T[kPix], acc[kPix][CG];
+  int stop[kPix];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const int p = tid + k * nt;
+    const int x = (tile % tiles_x) * tile_size + p % tile_size;
+    const int y = (tile / tiles_x) * tile_size + p / tile_size;
+    px[k] = static_cast<float>(x) + 0.5f;
+    py[k] = static_cast<float>(y) + 0.5f;
+    stop[k] = p < bs && x < width && y < height ? kNeverStopped : -1;
+    T[k] = 1.0f;
+#pragma unroll
+    for (int c = 0; c < CG; ++c) acc[k][c] = 0.0f;
+  }
+  auto all_done = [&]() {
+    bool d = true;
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) d = d && stop[k] != kNeverStopped;
+    return d;
+  };
+
   const int64_t start = bounds[tile];
   const int64_t end = bounds[tile + 1];
-  float T = 1.0f;
-  float acc[CG];
-#pragma unroll
-  for (int c = 0; c < CG; ++c) acc[c] = 0.0f;
-  bool done = !inside;
-  int stop = kNeverStopped;
+  const int n_batches = static_cast<int>((end - start + kBatch - 1) / kBatch);
+  // batch b: the sorted positions [start + b kBatch, + kBatch) up to end
+  auto batch = [&](int b) {
+    const int64_t base = start + static_cast<int64_t>(b) * kBatch;
+    const int64_t left = end - base;
+    return gsl::Batch{base, 0, static_cast<int>(left < kBatch ? left : kBatch)};
+  };
+  auto issue_ids = [&](int b) {
+    gsl::issue_ids(s_ids + (b & 1) * kBatch, gids, batch(b));
+  };
+  // the mean, the conic and the group's channels by the ids in
+  // s_ids[b & 1]; the opacity by the slot's own thread, which derives the
+  // cut from it
+  auto issue_records = [&](int b) {
+    float* buf = s_fields + (b & 1) * F;
+    const int* ids = s_ids + (b & 1) * kBatch;
+    gsl::issue_values<kBatch>(
+        buf, RS, ids, batch(b), 5 + CG,
+        [](int i) { return i < 5 ? i : kFields + i - 5; },
+        [&](int i, int64_t g) {
+          return i < 2   ? means2d + 2 * g + i
+                 : i < 5 ? conics + 3 * g + (i - 2)
+                         : channels + g * n_channels + c0 + (i - 5);
+        });
+    gsl::issue_own<kBatch>(buf, RS, ids, batch(b), kOp,
+                           [&](int64_t g) { return opacities + g; });
+  };
+  auto derive = [&](int b) {
+    gsl::skip_sigmas<kBatch>(s_fields + (b & 1) * F, RS, batch(b), kOp,
+                             kSkip);
+  };
 
-  for (int64_t base = start; base < end; base += bs) {
-    // also the barrier that frees shared memory from the previous batch
-    if (__syncthreads_count(done) == bs) break;
-    const int64_t idx = base + tid;
-    if (idx < end) {
-      const int g = gids[idx];
-      s_mx[tid] = means2d[2 * g + 0];
-      s_my[tid] = means2d[2 * g + 1];
-      s_ca[tid] = conics[3 * g + 0];
-      s_cb[tid] = conics[3 * g + 1];
-      s_cc[tid] = conics[3 * g + 2];
-      s_op[tid] = opacities[g];
-      const float* col = channels + static_cast<int64_t>(g) * n_channels + c0;
+  // the block leaves after the batch at which every pixel has stopped
+  gsl::walk_batches(n_batches, issue_ids, issue_records, derive, [&](int b) {
+    const gsl::Batch s = batch(b);
+    // each thread walks the batch until its pixels have stopped; a branch
+    // that every lane of a warp takes the same way costs the warp nothing
+    // more than the branch, so a slot no pixel of the warp can keep is
+    // passed at its sigma
+    const float* rec = s_fields + (b & 1) * F;
+    for (int j = 0; j < s.hi && !all_done(); ++j, rec += RS) {
+      float r[kLoad];
+      gsl::load_record(rec, r);
 #pragma unroll
-      for (int c = 0; c < CG; ++c) s_col[c * bs + tid] = col[c];
-    }
-    __syncthreads();
-    const int count = static_cast<int>(end - base < bs ? end - base : bs);
-    for (int j = 0; j < count && !done; ++j) {
-      const float dx = s_mx[j] - px;
-      const float dy = s_my[j] - py;
-      const float sigma = 0.5f * (s_ca[j] * dx * dx + s_cc[j] * dy * dy) +
-                          s_cb[j] * dx * dy;
-      const float alpha = fminf(max_alpha, s_op[j] * expf(-sigma));
-      if (sigma < 0.0f || alpha < threshold) continue;
-      const float next_t = T * (1.0f - alpha);
-      if (next_t <= min_t) {
-        done = true;
-        stop = static_cast<int>(base + j);
-        break;
+      for (int k = 0; k < kPix; ++k) {
+        if (stop[k] != kNeverStopped) continue;
+        const float ca = r[2], cb = r[3], cc = r[4];
+        const float dx = r[0] - px[k];
+        const float dy = r[1] - py[k];
+        const float sigma = 0.5f * (ca * dx * dx + cc * dy * dy) + cb * dx * dy;
+        if (sigma > r[kSkip]) continue;  // alpha < 1/255 for certain
+        // the exact test, K3's arithmetic
+        const float alpha = fminf(max_alpha, r[kOp] * expf(-sigma));
+        if (sigma < 0.0f || alpha < threshold) continue;
+        const float next_t = T[k] * (1.0f - alpha);
+        if (next_t <= min_t) {
+          stop[k] = static_cast<int>(s.base + j);
+          continue;
+        }
+        const float w = alpha * T[k];
+#pragma unroll
+        for (int c = 0; c < CG; ++c) {
+          constexpr int k0 = kFields;
+          acc[k][c] += w * (k0 + c < kLoad ? r[k0 + c < kLoad ? k0 + c : 0]
+                                           : rec[k0 + c]);
+        }
+        T[k] = next_t;
       }
-      const float w = alpha * T;
-#pragma unroll
-      for (int c = 0; c < CG; ++c) acc[c] += w * s_col[c * bs + j];
-      T = next_t;
     }
-  }
-  if (!inside) return;
-  const int64_t pix = static_cast<int64_t>(y) * width + x;
+    return all_done();
+  });
 #pragma unroll
-  for (int c = 0; c < CG; ++c) out[pix * n_channels + c0 + c] = acc[c];
-  t_final[pix] = T;
-  i_stop[pix] = stop;
+  for (int k = 0; k < kPix; ++k) {
+    const int p = tid + k * nt;
+    const int x = (tile % tiles_x) * tile_size + p % tile_size;
+    const int y = (tile / tiles_x) * tile_size + p / tile_size;
+    if (p >= bs || x >= width || y >= height) continue;
+    const int64_t pix = static_cast<int64_t>(y) * width + x;
+#pragma unroll
+    for (int c = 0; c < CG; ++c) out[pix * n_channels + c0 + c] = acc[k][c];
+    t_final[pix] = T[k];
+    i_stop[pix] = stop[k];
+  }
 }
 
 template <int CG>
@@ -131,13 +247,36 @@ cudaError_t launch(const float* means2d, const float* conics,
                    int n_channels, int c0, const int* gids,
                    const int64_t* bounds, int n_tiles, int tiles_x,
                    int tile_size, int height, int width, float* out,
-                   float* t_final, int* i_stop, cudaStream_t stream) {
-  const int bs = tile_size * tile_size;
-  const size_t smem = static_cast<size_t>(6 + CG) * bs * sizeof(float);
-  rasterize_fwd_kernel<CG><<<n_tiles, bs, smem, stream>>>(
+                   float* t_final, int* i_stop, cudaStream_t stream,
+                   int* attributes) {
+  const int nt = block_threads(tile_size);
+  const size_t smem = smem_words(CG) * sizeof(float);
+  if (attributes != nullptr) {
+    return gsl::kernel_attributes(rasterize_fwd_kernel<CG>, nt, smem,
+                                  attributes);
+  }
+  rasterize_fwd_kernel<CG><<<n_tiles, nt, smem, stream>>>(
       means2d, conics, opacities, channels, n_channels, c0, gids, bounds,
       tiles_x, tile_size, height, width, out, t_final, i_stop);
   return cudaGetLastError();
+}
+
+int dispatch(const float* means2d, const float* conics,
+             const float* opacities, const float* channels, int n_channels,
+             int c0, int cg, const int* gids, const int64_t* bounds,
+             int n_tiles, int tiles_x, int tile_size, int height, int width,
+             float* out, float* t_final, int* i_stop, cudaStream_t s,
+             int* attributes) {
+  return static_cast<int>(gsl::for_group(cg, [&](auto group) {
+    return launch<decltype(group)::value>(
+        means2d, conics, opacities, channels, n_channels, c0, gids, bounds,
+        n_tiles, tiles_x, tile_size, height, width, out, t_final, i_stop, s,
+        attributes);
+  }));
+}
+
+bool bad_tile(int tile_size) {
+  return tile_size < 1 || tile_size * tile_size > 1024;
 }
 
 }  // namespace
@@ -148,7 +287,7 @@ const char* gsl_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int gsl_rasterize_fwd_max_group() { return kMaxGroup; }
+int gsl_rasterize_fwd_max_group() { return gsl::kMaxGroup; }
 
 // Composites channels [c0, c0 + cg) of `channels`; T and i_stop are
 // written by every call and agree between calls.
@@ -158,29 +297,28 @@ int gsl_rasterize_fwd(const float* means2d, const float* conics,
                       const int64_t* bounds, int n_tiles, int tiles_x,
                       int tile_size, int height, int width, float* out,
                       float* t_final, int* i_stop, void* stream) {
-  if (cg < 1 || cg > kMaxGroup || c0 < 0 || c0 + cg > n_channels ||
-      tile_size < 1 || tile_size * tile_size > 1024) {
+  if (cg < 1 || cg > gsl::kMaxGroup || c0 < 0 || c0 + cg > n_channels ||
+      bad_tile(tile_size)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_tiles == 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GSL_LAUNCH(CG)                                                       \
-  case CG:                                                                   \
-    return static_cast<int>(launch<CG>(                                      \
-        means2d, conics, opacities, channels, n_channels, c0, gids, bounds,  \
-        n_tiles, tiles_x, tile_size, height, width, out, t_final, i_stop, s))
-  switch (cg) {
-    GSL_LAUNCH(1);
-    GSL_LAUNCH(2);
-    GSL_LAUNCH(3);
-    GSL_LAUNCH(4);
-    GSL_LAUNCH(5);
-    GSL_LAUNCH(6);
-    GSL_LAUNCH(7);
-    GSL_LAUNCH(8);
+  return dispatch(means2d, conics, opacities, channels, n_channels, c0, cg,
+                  gids, bounds, n_tiles, tiles_x, tile_size, height, width,
+                  out, t_final, i_stop, static_cast<cudaStream_t>(stream),
+                  nullptr);
+}
+
+// out[0..3]: registers per thread, local (spill) bytes per thread, dynamic
+// shared bytes per block and resident blocks per SM of the kernel that
+// composites min(n_channels, kMaxGroup) channels at tile_size.
+int gsl_rasterize_fwd_attributes(int n_channels, int tile_size, int* out) {
+  if (n_channels < 1 || bad_tile(tile_size)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef GSL_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int cg = n_channels < gsl::kMaxGroup ? n_channels : gsl::kMaxGroup;
+  return dispatch(nullptr, nullptr, nullptr, nullptr, n_channels, 0, cg,
+                  nullptr, nullptr, 0, 1, tile_size, 0, 0, nullptr, nullptr,
+                  nullptr, nullptr, out);
 }
 
 }  // extern "C"

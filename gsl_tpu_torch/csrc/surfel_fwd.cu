@@ -74,11 +74,12 @@
 #include <cuda_runtime.h>
 
 #include "surfel_terms.cuh"
+#include "tile_batches.cuh"
 
 namespace {
 
 constexpr int kBatch = 64;
-constexpr int kMaxGroup = 8;
+constexpr int kMaxGroup = gsl::kMaxGroup;  // the groups for_group lists
 constexpr int kMaxThreads = 1024;  // tile_size <= 32
 constexpr int kNeverStopped = 1 << 30;
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -304,19 +305,8 @@ cudaError_t launch(const float* geom, const float* channels, int n_channels,
   const int bs = tile_size * tile_size;
   const size_t smem = smem_words(CG) * sizeof(float);
   if (attributes != nullptr) {
-    cudaFuncAttributes attr;
-    cudaError_t err =
-        cudaFuncGetAttributes(&attr, rasterize_surfels_fwd_kernel<CG>);
-    if (err != cudaSuccess) return err;
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, rasterize_surfels_fwd_kernel<CG>, bs, smem);
-    if (err != cudaSuccess) return err;
-    attributes[0] = attr.numRegs;
-    attributes[1] = static_cast<int>(attr.localSizeBytes);
-    attributes[2] = static_cast<int>(smem);
-    attributes[3] = blocks;
-    return cudaSuccess;
+    return gsl::kernel_attributes(rasterize_surfels_fwd_kernel<CG>, bs, smem,
+                                  attributes);
   }
   rasterize_surfels_fwd_kernel<CG><<<n_tiles, bs, smem, stream>>>(
       geom, channels, n_channels, c0, gids, bounds, tiles_x, tile_size,
@@ -329,23 +319,11 @@ int dispatch(const float* geom, const float* channels, int n_channels,
              int n_tiles, int tiles_x, int tile_size, int height, int width,
              float* out, float* aux, int* i_stop, cudaStream_t s,
              int* attributes) {
-#define GSL_LAUNCH(CG)                                                      \
-  case CG:                                                                  \
-    return static_cast<int>(launch<CG>(                                     \
-        geom, channels, n_channels, c0, gids, bounds, n_tiles, tiles_x,     \
-        tile_size, height, width, out, aux, i_stop, s, attributes))
-  switch (cg) {
-    GSL_LAUNCH(1);
-    GSL_LAUNCH(2);
-    GSL_LAUNCH(3);
-    GSL_LAUNCH(4);
-    GSL_LAUNCH(5);
-    GSL_LAUNCH(6);
-    GSL_LAUNCH(7);
-    GSL_LAUNCH(8);
-  }
-#undef GSL_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(gsl::for_group(cg, [&](auto group) {
+    return launch<decltype(group)::value>(
+        geom, channels, n_channels, c0, gids, bounds, n_tiles, tiles_x,
+        tile_size, height, width, out, aux, i_stop, s, attributes);
+  }));
 }
 
 // whole warps: the loop's exit is a vote over the warp

@@ -266,13 +266,24 @@ def _tiles_to_image(x, tiles_x: int, tiles_y: int, tile_size: int,
     return x[:img_height, :img_width]
 
 
+def skip_cut(opacities):
+    """The sigma beyond which a pair of each splat is skipped for certain,
+    as the forward kernels compute it (csrc/alpha_skip.cuh): ln(255 op) +
+    1e-3."""
+    return torch.log(255.0 * opacities) + 1e-3
+
+
 def rasterize_fwd_plain(means2d, conics, opacities, channels, gids, bounds,
-                        img_height: int, img_width: int, tile_size: int):
+                        img_height: int, img_width: int, tile_size: int,
+                        stats: dict | None = None):
     """Plain PyTorch version of kernel K2 with the oracle's sequential
     per-splat arithmetic. Walks the tiles PLAIN_TILE_GROUP at a time
     (bounded memory at 1080p) and each group's sorted ranges PLAIN_CHUNK
     slots at a time. Returns (out [H, W, C], T [H, W], i_stop [H, W]
-    int32)."""
+    int32). With `stats`, leaves the count of (pixel, splat) pairs that
+    pixels of the image visit (up to and including the stop) with sigma at
+    or below the splat's `skip_cut` in ``stats["near_pairs"]``: the pairs
+    that take the exact test in the kernel."""
     dev = means2d.device
     tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
     n_tiles = tiles_x * tiles_y
@@ -285,6 +296,7 @@ def rasterize_fwd_plain(means2d, conics, opacities, channels, gids, bounds,
     p = torch.arange(P, device=dev)
     lane = torch.arange(PLAIN_CHUNK, device=dev)
     starts, counts = bounds[:-1], bounds[1:] - bounds[:-1]
+    near = torch.zeros((), dtype=torch.int64, device=dev)
     for t0 in range(0, n_tiles, PLAIN_TILE_GROUP):
         tl = torch.arange(t0, min(t0 + PLAIN_TILE_GROUP, n_tiles),
                           device=dev)
@@ -308,6 +320,9 @@ def rasterize_fwd_plain(means2d, conics, opacities, channels, gids, bounds,
             mx, my = means2d[g, 0], means2d[g, 1]
             ca, cb, cc = conics[g, 0], conics[g, 1], conics[g, 2]
             op, col = opacities[g], channels[g]               # [G,K], [G,K,C]
+            if stats is not None:
+                inside = (px < img_width) & (py < img_height)
+                cut = skip_cut(op)
             for j in range(PLAIN_CHUNK):
                 dx = mx[:, j:j + 1] - px
                 dy = my[:, j:j + 1] - py
@@ -316,6 +331,9 @@ def rasterize_fwd_plain(means2d, conics, opacities, channels, gids, bounds,
                          + cb[:, j:j + 1] * dx * dy)
                 alpha = torch.clamp(op[:, j:j + 1] * torch.exp(-sigma),
                                     max=MAX_ALPHA)
+                if stats is not None:
+                    near += (in_rng[:, j:j + 1] & ~done & inside
+                             & ~(sigma > cut[:, j:j + 1])).sum()
                 live = (in_rng[:, j:j + 1] & ~done & (sigma >= 0.0)
                         & (alpha >= ALPHA_THRESHOLD))
                 next_t = T * (1.0 - alpha)
@@ -327,6 +345,8 @@ def rasterize_fwd_plain(means2d, conics, opacities, channels, gids, bounds,
                 acc = acc + w[..., None] * col[:, j, None, :]
                 T = torch.where(comp, next_t, T)
         out[tl], t_fin[tl], stop[tl] = acc, T, brk_at
+    if stats is not None:
+        stats["near_pairs"] = int(near)
 
     dims = (tiles_x, tiles_y, tile_size, img_height, img_width)
     return (_tiles_to_image(out, *dims),
@@ -334,21 +354,39 @@ def rasterize_fwd_plain(means2d, conics, opacities, channels, gids, bounds,
             _tiles_to_image(stop, *dims)[..., 0].to(torch.int32))
 
 
-def _fwd_lib():
-    lib = cuda_build.load("rasterize_fwd")
+def _fwd_lib(extra: tuple = ()):
+    lib = cuda_build.load("rasterize_fwd", extra)
     lib.gsl_rasterize_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
     lib.gsl_rasterize_fwd.restype = ctypes.c_int
     lib.gsl_rasterize_fwd_max_group.restype = ctypes.c_int
+    lib.gsl_rasterize_fwd_attributes.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.gsl_rasterize_fwd_attributes.restype = ctypes.c_int
     return lib
 
 
+def rasterize_fwd_attributes(n_channels: int, tile_size: int = 16):
+    """`kernel_attributes` of the K2 kernel that composites
+    min(n_channels, 8) channels."""
+    return kernel_attributes(_fwd_lib(), "gsl_rasterize_fwd_attributes",
+                             n_channels, tile_size)
+
+
 def rasterize_fwd(means2d, conics, opacities, channels, gids, bounds,
-                  img_height: int, img_width: int, tile_size: int = 16):
+                  img_height: int, img_width: int, tile_size: int = 16,
+                  contract: bool = True):
     """Kernel K2 on CUDA tensors, `rasterize_fwd_plain` on CPU tensors.
     One launch per group of up to 8 channels (one launch for C <= 8).
-    Returns (out [H, W, C], T [H, W], i_stop [H, W] int32)."""
+    Returns (out [H, W, C], T [H, W], i_stop [H, W] int32).
+
+    `contract=False` launches a build of the same source without
+    multiply-add contraction: the kernel contracts sigma and the plain
+    version rounds every product, so where alpha sits within a rounding of
+    the 1/255 skip or T of the 1e-4 stop the two decide differently; the
+    uncontracted build rounds as the plain version does, and the checks on
+    the card hold the source's arithmetic to it."""
     if not means2d.is_cuda:
         return rasterize_fwd_plain(means2d, conics, opacities, channels,
                                    gids, bounds, img_height, img_width,
@@ -371,7 +409,7 @@ def rasterize_fwd(means2d, conics, opacities, channels, gids, bounds,
                         device=dev)
     i_stop = torch.empty((img_height, img_width), dtype=torch.int32,
                          device=dev)
-    lib = _fwd_lib()
+    lib = _fwd_lib(() if contract else cuda_build.NO_CONTRACTION)
     group = lib.gsl_rasterize_fwd_max_group()
     for c0 in range(0, C, group):
         code = lib.gsl_rasterize_fwd(

@@ -49,7 +49,8 @@ import torch
 from . import cuda_build
 from .rasterize import (MIN_ONE_MINUS_ALPHA, NEVER_STOPPED, _check_cuda,
                         _image_to_tiles, _ptr, _stream, _tiles,
-                        _tiles_to_image, kernel_attributes, slot_warps)
+                        _tiles_to_image, kernel_attributes, skip_cut,
+                        slot_warps)
 from .rasterize_reference import ALPHA_THRESHOLD, MAX_ALPHA
 
 STP_WINDOW = 16         # sorted positions a pixel re-sorts together
@@ -99,6 +100,7 @@ class _Window:
         dx, dy = self.dx, self.dy
         sigma = (0.5 * (self.ca * dx * dx + self.cc * dy * dy)
                  + self.cb * dx * dy)
+        self.sigma, self.in_rng, self.op = sigma, in_rng, opacities[g]
         self.e = torch.exp(-sigma)
         self.raw = opacities[g][:, None, :] * self.e
         alpha = torch.clamp(self.raw, max=MAX_ALPHA)
@@ -110,6 +112,12 @@ class _Window:
         self.d_p = d_p
         # ascending d_p, ties by position: the pixel's order of the window
         self.order = torch.argsort(d_p, dim=-1, stable=True)
+
+    def near(self):
+        """[G, P, 16] bool: the pairs the kernel takes to the exact test,
+        sigma at or below the slot's `skip_cut`."""
+        return self.in_rng[:, None, :] & ~(
+            self.sigma > skip_cut(self.op)[:, None, :])
 
     def out_of_order(self):
         """[G, P] bool: the window's entries with a > 0 do not already
@@ -148,8 +156,17 @@ def rasterize_fwd_stp_plain(means2d, conics, opacities, channels, depths,
     (pixel, slot) pair and window. Returns (out [H, W, C], T [H, W],
     i_stop [H, W] int32, all NEVER_STOPPED, checkpoints
     [n_rows, tile_size^2] or None). With `stats`, leaves the count of
-    (pixel, window) pairs whose live entries were out of order in
-    ``stats["unordered_windows"]``."""
+    (pixel, window) pairs whose live entries (a > 0) were out of order in
+    ``stats["unordered_windows"]``, that of (window, warp)s with such a
+    pixel, a warp being 32 consecutive pixels of a tile (`slot_warps`), in
+    ``stats["unordered_warp_windows"]``, the (pixel, window) pairs in
+    ``stats["pixel_windows"]``, their live entries in
+    ``stats["live_entries"]``, those of the out-of-order ones in
+    ``stats["unordered_live_entries"]``, the sum over the out-of-order ones
+    of their live entries squared in ``stats["unordered_live_squares"]``,
+    and the (pixel, slot) pairs with sigma at or below the slot's
+    `skip_cut` in ``stats["near_pairs"]``; pixels outside the image count
+    only in the warps."""
     dev = means2d.device
     tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
     n_tiles = tiles_x * tiles_y
@@ -162,7 +179,7 @@ def rasterize_fwd_stp_plain(means2d, conics, opacities, channels, depths,
         ckpt = torch.ones((checkpoint_rows(gids.numel(), n_tiles), P),
                           dtype=torch.float32, device=dev)
     lane = torch.arange(STP_WINDOW, device=dev)
-    n_unordered = torch.zeros((), dtype=torch.int64, device=dev)
+    counts = torch.zeros(7, dtype=torch.int64, device=dev)
     for t0 in range(0, n_tiles, PLAIN_TILE_GROUP):
         tl = torch.arange(t0, min(t0 + PLAIN_TILE_GROUP, n_tiles),
                           device=dev)
@@ -185,10 +202,21 @@ def rasterize_fwd_stp_plain(means2d, conics, opacities, channels, depths,
             for j in range(STP_WINDOW):
                 acc = acc + w[..., j, None] * col[:, j, None, :]
             if stats is not None:
-                n_unordered += (win.out_of_order() & inside).sum()
+                unordered = win.out_of_order()
+                live = ((win.a > 0.0) & inside[..., None]).sum(-1)
+                counts += torch.stack([
+                    (unordered & inside).sum(),
+                    slot_warps(unordered[..., None]),
+                    (inside & (n_win > k)[:, None]).sum(), live.sum(),
+                    (live * (unordered & inside)).sum(),
+                    (live * live * (unordered & inside)).sum(),
+                    (win.near() & inside[..., None]).sum()])
         out[tl], t_fin[tl] = acc, T
     if stats is not None:
-        stats["unordered_windows"] = int(n_unordered)
+        stats.update(zip(("unordered_windows", "unordered_warp_windows",
+                          "pixel_windows", "live_entries",
+                          "unordered_live_entries", "unordered_live_squares",
+                          "near_pairs"), counts.tolist()))
 
     dims = (tiles_x, tiles_y, tile_size, img_height, img_width)
     i_stop = torch.full((img_height, img_width), NEVER_STOPPED,
@@ -204,7 +232,17 @@ def _fwd_lib(extra: tuple = ()):
         + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
     lib.gsl_rasterize_fwd_stp.restype = ctypes.c_int
     lib.gsl_rasterize_fwd_stp_max_group.restype = ctypes.c_int
+    lib.gsl_rasterize_fwd_stp_attributes.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.gsl_rasterize_fwd_stp_attributes.restype = ctypes.c_int
     return lib
+
+
+def rasterize_fwd_stp_attributes(n_channels: int, tile_size: int = 16):
+    """`kernel_attributes` of the K2s kernel that composites
+    min(n_channels, 8) channels."""
+    return kernel_attributes(_fwd_lib(), "gsl_rasterize_fwd_stp_attributes",
+                             n_channels, tile_size)
 
 
 def _check_stp_inputs(what, f32, gids, bounds, tile_size):

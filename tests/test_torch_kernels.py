@@ -11,7 +11,9 @@ within rtol 1e-3 / atol 2e-4: the kernel contracts multiply-adds and the
 plain version does not, so they round differently; where a splat sits
 within rounding of the 1/255 skip or the 1e-4 stop, one composites it
 and the other does not, moving that pixel by up to the splat's weight
-(hence a share of values, not all of them). K3 (backward) recomputes the
+(hence a share of values, not all of them). K2 built without contraction
+(`contract=False`) rounds as the plain version does and is held to the
+same shares here, at >= 99.999% at full width by `chip_smoke.py`. K3 (backward) recomputes the
 same alphas, so the same flips move single gradient rows: its rows, and
 K4's per-Gaussian sums of them, are held to rtol 1e-3 / atol 1e-3 at
 >= 99.9% of the values (the gradients of the test loss reach the
@@ -104,10 +106,44 @@ def close_share(got, want):
     return 1.0 - float(bad.float().mean())
 
 
+def _cases(*cases):
+    """pytest params with the ids "C", "C-tileT" and "C-cut"."""
+    return [pytest.param(c, ts, cut, id=f"{c}" + (
+        "" if ts == TS else f"-tile{ts}") + ("-cut" if cut else ""))
+        for c, ts, cut in cases]
+
+
+# (channels, tile size, cut lists): C above 8 takes the kernels' path with
+# the cotangents in shared memory; 6 + C or 13 + C above 32 sums each row in
+# chunks of 32; tile size 8 is two warps a tile; cut lists end one past a
+# window (16) or batch (32), and a tile has one slot
+KERNEL_CASES = {"k2": _cases((3, TS, False), (8, TS, False),
+                             (11, TS, False), (3, 8, False), (3, TS, True)),
+                "k3": _cases((3, TS, False), (8, TS, False),
+                             (11, TS, False), (27, TS, False),
+                             (3, 8, False), (3, TS, True)),
+                "stp": _cases((3, TS, False), (8, TS, False),
+                              (11, TS, False), (27, TS, False),
+                              (3, 8, False), (3, TS, True)),
+                "surfel": _cases((3, TS, False), (6, TS, False),
+                                 (9, TS, False), (20, TS, False),
+                                 (6, 8, False), (6, TS, True))}
+
+
+def assert_attributes(info):
+    """What a kernel's *_attributes helper reports, as the card's runtime
+    gives it."""
+    assert 0 < info["registers"] <= 255 and info["shared_bytes"] > 0
+    assert info["local_bytes"] >= 0 and info["blocks_per_sm"] >= 1
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_channels", [3, 8, 11])
-def test_kernels_match_plain(cuda, n_channels):
-    """C = 11 takes two launches of channel groups (8 + 3)."""
+@pytest.mark.parametrize("n_channels,ts,cut", KERNEL_CASES["k2"])
+def test_kernels_match_plain(cuda, n_channels, ts, cut):
+    """C = 11 takes two launches of channel groups (8 + 3); tile size 8 is
+    one warp of two pixels a thread. `cut`: the tiles' lists cut to 1, 17,
+    65, 0, 47, 2 and 129 slots, so K2's batches of 64 end one slot past a
+    batch and a tile has one slot."""
     state = state_from_raw_arrays(scene(3000), device=cuda)
     cam = camera(cuda)
     proj = project_gaussians(state.get_means(), state.get_scales(),
@@ -116,26 +152,42 @@ def test_kernels_match_plain(cuda, n_channels):
     op = state.get_opacities().contiguous()
     ch = torch.rand((3000, n_channels), generator=torch.Generator(
         device="cpu").manual_seed(0)).to(cuda)
-    isects = R.isect_encode(proj, H, W, TS)
-    args = (isects, proj.means2d, proj.conics, op, proj.depths, W // TS,
-            H // TS, TS, True)
+    tiles_x, tiles_y = -(-W // ts), -(-H // ts)
+    isects = R.isect_encode(proj, H, W, ts)
+    args = (isects, proj.means2d, proj.conics, op, proj.depths, tiles_x,
+            tiles_y, ts, True)
     before = R.expand.launches
     keys, gids = R.expand(*args)
     assert R.expand.launches == before + 1
     keys_p, gids_p = R.expand_plain(*args)
     assert torch.equal(keys, keys_p) and torch.equal(gids, gids_p)
     sk, gs, _ = R.sort_slots(keys, gids)
-    bounds = R.tile_bounds(sk, (W // TS) * (H // TS))
-    fwd = (proj.means2d, proj.conics, op, ch, gs, bounds, H, W, TS)
+    bounds = R.tile_bounds(sk, tiles_x * tiles_y)
+    if cut:
+        gs, bounds = _cut_lists(gs, bounds, FWD_CUT_LENGTHS)
+        counts = bounds[1:] - bounds[:-1]
+        assert bool((counts == 1).any()) and bool((counts == 65).any())
+        assert bool((counts == 129).any())
+    fwd = (proj.means2d, proj.conics, op, ch, gs, bounds, H, W, ts)
     before = R.rasterize_fwd.launches
     out, t_fin, stop = R.rasterize_fwd(*fwd)
     torch.cuda.synchronize()
     assert R.rasterize_fwd.launches == before + -(-n_channels // 8)
     out_p, t_p, stop_p = R.rasterize_fwd_plain(*fwd)
     assert float((stop == stop_p).float().mean()) >= SHARE
-    assert bool((stop < R.NEVER_STOPPED).any())
+    if not cut:
+        assert bool((stop < R.NEVER_STOPPED).any())
     assert close_share(out, out_p) >= SHARE
     assert close_share(t_fin, t_p) >= SHARE
+    # the same source built without contraction rounds as the plain version
+    out_u, t_u, stop_u = R.rasterize_fwd(*fwd, contract=False)
+    assert float((stop_u == stop_p).float().mean()) >= SHARE
+    assert close_share(out_u, out_p) >= SHARE
+    assert close_share(t_u, t_p) >= SHARE
+    # twice the same: no atomics
+    again = R.rasterize_fwd(*fwd)
+    assert all(torch.equal(a, b) for a, b in zip((out, t_fin, stop), again))
+    assert_attributes(R.rasterize_fwd_attributes(n_channels, ts))
 
 
 def _backward_inputs(cuda, n_channels, n=3000, ts=TS, cut=False):
@@ -171,35 +223,6 @@ def _backward_inputs(cuda, n_channels, n=3000, ts=TS, cut=False):
 def close_share_grad(got, want):
     bad = (got - want).abs() > 1e-3 + RTOL * want.abs()
     return 1.0 - float(bad.float().mean())
-
-
-def _cases(*cases):
-    """pytest params with the ids "C", "C-tileT" and "C-cut"."""
-    return [pytest.param(c, ts, cut, id=f"{c}" + (
-        "" if ts == TS else f"-tile{ts}") + ("-cut" if cut else ""))
-        for c, ts, cut in cases]
-
-
-# (channels, tile size, cut lists): C above 8 takes the kernels' path with
-# the cotangents in shared memory; 6 + C or 13 + C above 32 sums each row in
-# chunks of 32; tile size 8 is two warps a tile; cut lists end one past a
-# window (16) or batch (32), and a tile has one slot
-KERNEL_CASES = {"k3": _cases((3, TS, False), (8, TS, False),
-                             (11, TS, False), (27, TS, False),
-                             (3, 8, False), (3, TS, True)),
-                "stp": _cases((3, TS, False), (8, TS, False),
-                              (11, TS, False), (27, TS, False),
-                              (3, 8, False), (3, TS, True)),
-                "surfel": _cases((3, TS, False), (6, TS, False),
-                                 (9, TS, False), (20, TS, False),
-                                 (6, 8, False), (6, TS, True))}
-
-
-def assert_attributes(info):
-    """What a kernel's *_attributes helper reports, as the card's runtime
-    gives it."""
-    assert 0 < info["registers"] <= 255 and info["shared_bytes"] > 0
-    assert info["local_bytes"] >= 0 and info["blocks_per_sm"] >= 1
 
 
 @pytest.mark.cuda
@@ -333,6 +356,8 @@ def _cut_lists(gids, bounds, lengths):
 
 
 CUT_LENGTHS = (1, 17, 33, 0, 47, 2, 49)
+# the forward kernels' batches of 64: 65 and 129 end one past a batch
+FWD_CUT_LENGTHS = (1, 17, 65, 0, 47, 2, 129)
 
 
 def _surfel_inputs(cuda, n_channels, n=3000, ts=TS):
@@ -549,8 +574,9 @@ def _stp_inputs(cuda, n_channels, n=3000, ts=TS):
 def test_stp_kernels_match_plain(cuda, n_channels, ts, cut):
     """C = 11 and 27 take ceil(C / 8) K2s launches and K3s's path with the
     cotangents in shared memory; at C = 27 K3s sums 33 values a row, in two
-    chunks. `cut`: the tiles' lists cut to 1, 17, 33, 0, 47, 2 and 49
-    slots, so they end one past a window and a tile has one slot."""
+    chunks. `cut`: the tiles' lists cut to 1, 17, 65, 0, 47, 2 and 129
+    slots, so they end one past a window or one past K2s's batch of 64, and
+    a tile has one slot."""
     proj, op, ch, isects, args, gen = _stp_inputs(cuda, n_channels, ts=ts)
     tiles_x, tiles_y = args[5], args[6]
     before = R.expand.launches
@@ -563,9 +589,10 @@ def test_stp_kernels_match_plain(cuda, n_channels, ts, cut):
     bounds = R.tile_bounds(sk, tiles_x * tiles_y)
     assert bool((bounds[:-1] % STP.STP_WINDOW != 0).any())
     if cut:
-        gs, bounds = _cut_lists(gs, bounds, CUT_LENGTHS)
+        gs, bounds = _cut_lists(gs, bounds, FWD_CUT_LENGTHS)
         counts = bounds[1:] - bounds[:-1]
         assert bool((counts == 1).any()) and bool((counts % 16 == 1).any())
+        assert bool((counts == 65).any())
     fwd = (proj.means2d, proj.conics, op, ch, proj.depths,
            proj.depth_grads.contiguous(), gs, bounds, H, W, ts)
     before = STP.rasterize_fwd_stp.launches

@@ -1,7 +1,8 @@
-"""The count of (slot, warp)s in which some pixel composites the slot: the
-units in which the backward kernels K3s and K7 sum a gradient row over a
-warp (`ops.rasterize.slot_warps`, reported by the plain versions' `stats`).
-CPU only."""
+"""What the plain versions count in their `stats` for the kernels'
+bounds, on the CPU: the (slot, warp)s in which some pixel composites the
+slot, the units in which the backward kernels K3s and K7 sum a gradient row
+over a warp (`ops.rasterize.slot_warps`); the pairs at or below the forward
+kernels' cut; the live entries of StopThePop's out-of-order windows."""
 import numpy as np
 import torch
 
@@ -80,3 +81,48 @@ def test_surfel_plain_backward_counts_slot_warps_between_pairs_and_slots():
     pairs, warps = stats["composited_pairs"], stats["composited_slot_warps"]
     assert 0 < warps <= pairs <= 32 * warps
     assert warps <= int(bounds[-1]) * (ts * ts // 32)
+
+
+def test_plain_forwards_count_the_pairs_at_or_below_the_cut():
+    """The forward kernels take a pair to the exact test only at or below
+    the splat's cut ln(255 op) + 1e-3. A Gaussian of opacity 0.9 and conic
+    (2, 0, 2) centred on an 8x8 tile has sigma = dx^2 + dy^2 at pixel
+    centres, and 16 pixels within the cut of ~5.437; a far one and one of
+    opacity 0 have none. The second and third slot stand behind the first
+    in the pixels' own order, so no StopThePop window is out of order."""
+    means2d = torch.tensor([[4.0, 4.0], [100.0, 100.0], [4.0, 4.0]])
+    conics = torch.tensor([[2.0, 0.0, 2.0]] * 3)
+    opac = torch.tensor([0.9, 0.9, 0.0])
+    ch = torch.rand((3, 3), generator=torch.Generator().manual_seed(0))
+    gids = torch.tensor([0, 1, 2], dtype=torch.int32)
+    bounds = torch.tensor([0, 3], dtype=torch.int64)
+    stats = {}
+    R.rasterize_fwd_plain(means2d, conics, opac, ch, gids, bounds, 8, 8, 8,
+                          stats=stats)
+    assert stats["near_pairs"] == 16
+    depths, kz = torch.tensor([1.0, 2.0, 3.0]), torch.zeros((3, 2))
+    STP.rasterize_fwd_stp_plain(means2d, conics, opac, ch, depths, kz, gids,
+                                bounds, 8, 8, 8, stats=stats)
+    assert stats["near_pairs"] == 16
+    assert stats["unordered_windows"] == stats["unordered_live_squares"] == 0
+
+
+def test_stp_plain_forward_counts_the_squares_of_out_of_order_windows():
+    """Two Gaussians over one 8x8 tile whose depth planes cross at x = 4:
+    right of it the second comes first, so each of those 32 pixels' window
+    holds two live entries out of order, 2^2 = 4 for the rank count."""
+    means2d = torch.tensor([[4.0, 4.0], [4.0, 4.0]])
+    conics = torch.tensor([[0.1, 0.0, 0.1]] * 2)
+    opac = torch.tensor([0.5, 0.5])
+    ch = torch.rand((2, 3), generator=torch.Generator().manual_seed(1))
+    depths = torch.tensor([1.0, 1.0])
+    kz = torch.tensor([[1.0, 0.0], [0.0, 0.0]])   # d_p = px - 3, and 1
+    gids = torch.tensor([0, 1], dtype=torch.int32)
+    bounds = torch.tensor([0, 2], dtype=torch.int64)
+    stats = {}
+    STP.rasterize_fwd_stp_plain(means2d, conics, opac, ch, depths, kz, gids,
+                                bounds, 8, 8, 8, stats=stats)
+    assert stats["unordered_windows"] == 32
+    assert stats["unordered_live_entries"] == 2 * 32
+    assert stats["unordered_live_squares"] == 4 * 32
+    assert stats["near_pairs"] == 2 * 64
