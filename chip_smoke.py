@@ -16,7 +16,8 @@ package is not beside this script. Phases, each fatal on failure:
    higher SH bands run, saved as a PLY with the port's save_gaussian_ply.
 3. kernels against their plain PyTorch versions at full width (1088x1920,
    fx = fy = 1600), at the bench pose (identity) and two orbit views:
-   K1 expand must equal expand_plain bit for bit (keys, ids, counts);
+   K1 expand must equal expand_plain bit for bit (keys, ids, counts) and
+   give the same keys and ids when run twice;
    K2 forward must agree with rasterize_fwd_plain on i_stop at >= 99.9% of
    pixels, and on image and alpha within |d| <= 2e-4 + 1e-3 |ref| at all
    but 1e-4 of the values. The kernel contracts multiply-adds and the
@@ -30,9 +31,11 @@ package is not beside this script. Phases, each fatal on failure:
    T / (1 - alpha) walked backwards rounds differently with and without
    contraction), at all but 1e-5 of every column's values when built
    without contraction, and give the same rows when run twice; K4 reduce,
-   on the kernel's rows, must agree with reduce_grads_plain (index_add_)
-   within |d| <= 1e-5 max|ref| + 1e-4 |ref| everywhere (only the order of
-   the float32 additions differs). A small scene through the whole renderer
+   on the kernel's rows, must give the same sums twice, equal bit for bit
+   the float32 sums of each Gaussian's rows taken in slot order (the order
+   K4 adds in), and agree with reduce_grads_plain (index_add_) within
+   SUM_RTOL of the summed magnitudes everywhere (only the order of the
+   float32 additions differs). A small scene through the whole renderer
    on the card must match the CPU renderer (the plain versions) on all
    but 1e-3 of the values, and so must the gradients of a scalar loss for
    all six parameter tensors.
@@ -50,13 +53,13 @@ package is not beside this script. Phases, each fatal on failure:
    output value at all but 1e-5; K7 surfel backward, with seeded normal
    cotangents on the channels, alpha, depth and distortion, must agree with
    rasterize_surfels_bwd_plain like K3 and give the same rows twice; K4
-   with no absolute columns sums K7's 13 + C columns like
-   reduce_grads_plain. A small surfel scene through SurfelRenderer on the
-   card must match the CPU on all seven outputs, and the gradients of a
-   loss with the distortion and normal-consistency terms on all six
-   parameter tensors.
+   with no absolute columns sums K7's 13 + C columns as it sums K3's. A
+   small surfel scene through SurfelRenderer on the card must match the
+   CPU on all seven outputs, and the gradients of a loss with the
+   distortion and normal-consistency terms on all six parameter tensors.
    The StopThePop kernels, at the bench pose (C = 3) and the first orbit
-   view (C = 8): K1 with stp_resort must equal expand_plain bit for bit;
+   view (C = 8), and K1 also at the second orbit view: K1 with stp_resort
+   must equal expand_plain bit for bit and give the same output twice;
    K2s must leave i_stop at NEVER_STOPPED everywhere and agree with
    rasterize_fwd_stp_plain on image and alpha within K2's tolerance at all
    but 1e-4 of the values (two slots of a window whose depths at a pixel
@@ -66,16 +69,17 @@ package is not beside this script. Phases, each fatal on failure:
    the forward's checkpoints with seeded cotangents, must agree with
    rasterize_bwd_stp_plain column by column like K3 (>= 0.99999 of every
    column when built without contraction) and give the same rows twice; K4
-   sums K3s's rows like reduce_grads_plain. A small scene through
+   sums K3s's rows as it sums K3's. A small scene through
    TileRenderer(stp_resort=True), card against CPU: every output and all
    six gradients. A tile of 64 near-opaque Gaussians whose T_final
    underflows to 0: image and gradients finite and equal to the CPU's.
-   For K3, K3s and K7 (the backward kernels of csrc/warp_reduce.cuh's
-   transposed sums) and K6 it also prints registers, local (spill) bytes,
-   shared bytes and resident blocks per SM as the card's runtime reports
-   them, and for the three backward kernels the count of (slot, warp)s, 32
-   pixels of a tile, in which some pixel composites the slot: where the
-   kernels sum a row over a warp (the plain versions count them).
+   For K1, K4 (in both row layouts), K3, K3s and K7 (the backward
+   kernels of csrc/warp_reduce.cuh's transposed sums) and K6 it also
+   prints registers, local (spill) bytes, shared bytes and resident blocks
+   per SM as the card's runtime reports them, and for the three backward
+   kernels the count of (slot, warp)s, 32 pixels of a tile, in which some
+   pixel composites the slot: where the kernels sum a row over a warp (the
+   plain versions count them).
 4. main path: GaussianModelLoader.load(ply) -> ViewerRenderer -> orbit
    frames at 1088x1920 in rgb, then one frame with alpha, exp_depth,
    inverse_depth, normal and hard_inverse_depth (8 composited channels).
@@ -148,13 +152,22 @@ every pixel visits its tile's whole list: pairs = pixels x the tile's valid
 slots. K2s does 12 operations per pair, 5 more per pair at or below the
 cut, 9 + 2C more per composited pair and n_live^2 compares per (pixel,
 window) whose n_live live entries are out of order, counted by the plain
-version (csrc/rasterize_fwd_stp.cu); K3s 28 + 2C per pair, 35 + 4C per composited pair
-and 360 per such window, and moves the checkpoints (64 bytes per sorted
-slot) on top of K3's bytes. In the kernels line, `launches` is a kernel's
-count on the training path of its own model (K1-K4: phase 5; K5-K7: phase
+version (csrc/rasterize_fwd_stp.cu). K3s repeats K2s's walk and is
+charged what K2s is (12 + 5 at or below the cut + 9 + 2C a composited
+pair), 35 + 4C more per composited pair, n_live^2 compares per such
+window and 5 + 2C per live entry of it (csrc/rasterize_bwd_stp.cu), and
+moves the checkpoints (64 bytes per sorted slot) on top of K3's bytes. A
+kernel's `ms`, and a library call's, is the mean of 20 replays of one
+wrapper call captured in a CUDA graph, between CUDA events: the host's
+per-call cost would pace K1's and K5's 0.04 ms kernels; the plain
+versions read the device from the host and are timed by calls between
+CUDA events. In the kernels line, `launches` is a kernel's count
+on the training path of its own model (K1-K4: phase 5; K5-K7: phase
 6; K2s, K3s: phase 7) and `serving_launches` on the serving path; K4 also
 carries its surfel-layout numbers under `surfel_*` keys, and K1 its
-StopThePop numbers (phase 7's counts) under `stp_*` keys.
+StopThePop numbers (phase 7's counts) under `stp_*` keys. K1, K2, K2s, K3,
+K3s, K6, K7 and K4 (K4 with R = 9 and, under `surfel_attributes`, R = 19)
+carry their `attributes` as the card's runtime reports them.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -294,6 +307,21 @@ def cuda_ms(fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters):
+    """Mean ms per call of `fn` captured once in a CUDA graph and replayed
+    `iters` times between CUDA events: the kernels' time without the host's
+    per-call cost, which paces a wrapper whose kernel takes tens of
+    microseconds (K1, K5). Every kernel's and library call's `ms` in the
+    kernels line is timed so; the plain versions, which read the device
+    from the host, with `cuda_ms`."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
+
+
 def bound(n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
@@ -379,8 +407,10 @@ def warp_steps(i_stop, bounds, tiles_x):
 
 
 def log_attributes(name, C, attrs):
-    """A kernel's resources as the card's runtime reports them."""
-    log(f"{name} C={C} attributes: {attrs['registers']} registers, "
+    """A kernel's resources as the card's runtime reports them; C None for
+    a kernel without channels."""
+    tag = name if C is None else f"{name} C={C}"
+    log(f"{tag} attributes: {attrs['registers']} registers, "
         f"{attrs['local_bytes']} local (spill) bytes per thread, "
         f"{attrs['shared_bytes']} dynamic shared bytes per block, "
         f"{attrs['blocks_per_sm']} resident blocks per SM")
@@ -454,6 +484,24 @@ def check_sums(name, summed, summed_p, rows, gids, n, n_abs):
     return float(sd.max())
 
 
+def check_reduce(name, red, rows, gids, n, n_abs):
+    """K4 on one layout of rows: identical in two runs, equal to the sums in
+    slot order bit for bit, and within SUM_RTOL of reduce_grads_plain's.
+    Returns (sums, plain sums, largest absolute difference from the
+    plain)."""
+    summed = R.reduce_grads(*red, n_abs=n_abs)
+    summed_p = R.reduce_grads_plain(rows, gids, n, n_abs=n_abs)
+    torch.cuda.synchronize()
+    if not torch.equal(summed, R.reduce_grads(*red, n_abs=n_abs)):
+        fail(f"{name}: two runs gave different sums")
+    exact = R.reduce_grads_slot_order(rows, *red[2:6], n_abs=n_abs)
+    if not torch.equal(summed, exact):
+        fail(f"{name}: {int((summed != exact).sum())} sums differ from "
+             "the float32 sums in slot order")
+    return summed, summed_p, check_sums(name, summed, summed_p, rows, gids,
+                                        n, n_abs)
+
+
 def check_backward(vname, C, bwd, isects, order, n, timed):
     """K3 and K4 against their plain versions; with `timed`, their times
     and bounds too. Returns a dict of what was measured."""
@@ -472,13 +520,8 @@ def check_backward(vname, C, bwd, isects, order, n, timed):
                            K3_COLUMNS, UNCONTRACTED_SHARE)
     inv = R.invert_order(order)
     red = (rows, gids, isects.offsets, inv, bounds[-1:], n)
-    summed = R.reduce_grads(*red)
-    summed_p = R.reduce_grads_plain(rows, gids, n)
-    torch.cuda.synchronize()
-    if not torch.equal(summed, R.reduce_grads(*red)):
-        fail(f"K4 {vname}: two runs gave different sums")
-    reduce_err = check_sums(f"K4 {vname} C={C}", summed, summed_p, rows,
-                            gids, n, 2)
+    summed, summed_p, reduce_err = check_reduce(f"K4 {vname} C={C}", red,
+                                                rows, gids, n, 2)
     scale, sscale = float(rows_p.abs().max()), float(summed_p.abs().max())
     rec = {"bwd_err": bwd_err, "bwd_share": share,
            "bwd_scale": scale, "reduce_err": reduce_err,
@@ -488,26 +531,29 @@ def check_backward(vname, C, bwd, isects, order, n, timed):
     log(f"K3 {vname} C={C}: every column agrees on >= {share:.6f} of its "
         f"values (>= {ushare:.7f} when built without contraction), max abs "
         f"err {rec['bwd_err']:.3e} (max |ref| {scale:.3e}); identical in "
-        f"two runs. K4: max abs err {rec['reduce_err']:.3e} (max |ref| "
-        f"{sscale:.3e}); composited pairs {stats['composited_pairs']}; "
+        f"two runs. K4: identical in two runs, equal to the sums in slot "
+        f"order, max abs err from index_add_ {rec['reduce_err']:.3e} (max "
+        f"|ref| {sscale:.3e}); composited pairs {stats['composited_pairs']}; "
         f"(slot, warp)s with a composited pixel "
         f"{stats['composited_slot_warps']}")
     if not timed:
         return rec
     rec["bwd_attributes"] = R.rasterize_bwd_attributes(C, TILE)
     log_attributes("K3", C, rec["bwd_attributes"])
+    rec["reduce_attributes"] = R.reduce_grads_attributes(6 + C, 2)
+    log_attributes(f"K4 R={6 + C} n_abs=2", None, rec["reduce_attributes"])
     gids64 = gids.long()
     full = torch.cat([rows[:, :6], rows[:, :2].abs(), rows[:, 6:]], 1)
     out = torch.empty((n, full.shape[1]), device=rows.device)
     rec.update(
-        bwd_ms=cuda_ms(lambda: R.rasterize_bwd(*bwd), 20),
+        bwd_ms=graph_ms(lambda: R.rasterize_bwd(*bwd), 20),
         bwd_plain_ms=cuda_ms(lambda: R.rasterize_bwd_plain(*bwd), 1,
                              warmup=0),
-        invert_ms=cuda_ms(lambda: R.invert_order(order), 20),
-        reduce_ms=cuda_ms(lambda: R.reduce_grads(*red), 20),
+        invert_ms=graph_ms(lambda: R.invert_order(order), 20),
+        reduce_ms=graph_ms(lambda: R.reduce_grads(*red), 20),
         reduce_plain_ms=cuda_ms(
             lambda: R.reduce_grads_plain(rows, gids, n), 5),
-        reduce_library_ms=cuda_ms(
+        reduce_library_ms=graph_ms(
             lambda: out.zero_().index_add_(0, gids64, full), 20))
     return rec
 
@@ -537,6 +583,9 @@ def phase_kernels(state, renderer):
             diff = int((keys_k != keys_p).sum())
             fail(f"K1 {vname}: kernel differs from expand_plain at {diff} "
                  "slots")
+        if not all(torch.equal(a, b) for a, b in zip(
+                (keys_k, gids_k), R.expand(*args))):
+            fail(f"K1 {vname}: two runs gave different keys or ids")
         sk_k, gs_k, order = R.sort_slots(keys_k, gids_k)
         sk_p, gs_p, _ = R.sort_slots(keys_p, gids_p)
         if not (torch.equal(sk_k, sk_p) and torch.equal(gs_k, gs_p)):
@@ -547,8 +596,9 @@ def phase_kernels(state, renderer):
         if n_valid != n_valid_p:
             fail(f"K1 {vname}: valid counts {n_valid} != {n_valid_p}")
         culled = isects.n_isects - n_valid
-        log(f"K1 {vname}: bit-identical; slots {isects.total} real "
-            f"{isects.n_isects} valid {n_valid} culled {culled}")
+        log(f"K1 {vname}: bit-identical, identical in two runs; slots "
+            f"{isects.total} real {isects.n_isects} valid {n_valid} culled "
+            f"{culled}")
         bounds = R.tile_bounds(sk_k, n_tiles)
         gids = gs_k[:n_valid].contiguous()
         fwd = (m2d, con, opac, ch, gids, bounds, H, W, TILE)
@@ -593,11 +643,11 @@ def phase_kernels(state, renderer):
         rec.update(brec)
         # timings and bounds at the bench pose, C = 3 (the rgb main path)
         t = {
-            "expand_ms": cuda_ms(lambda: R.expand(*args), 20),
+            "expand_ms": graph_ms(lambda: R.expand(*args), 20),
             "expand_plain_ms": cuda_ms(lambda: R.expand_plain(*args), 3),
-            "sort_ms": cuda_ms(lambda: R.sort_slots(keys_k, gids_k), 20),
-            "ranges_ms": cuda_ms(lambda: R.tile_bounds(sk_k, n_tiles), 20),
-            "fwd_ms": cuda_ms(lambda: R.rasterize_fwd(*fwd), 20),
+            "sort_ms": graph_ms(lambda: R.sort_slots(keys_k, gids_k), 20),
+            "ranges_ms": graph_ms(lambda: R.tile_bounds(sk_k, n_tiles), 20),
+            "fwd_ms": graph_ms(lambda: R.rasterize_fwd(*fwd), 20),
             "fwd_plain_ms": cuda_ms(lambda: R.rasterize_fwd_plain(*fwd), 1,
                                     warmup=0),
         }
@@ -626,6 +676,8 @@ def phase_kernels(state, renderer):
         log("bench-pose timings " + json.dumps(t))
         t["fwd_attributes"] = R.rasterize_fwd_attributes(C, TILE)
         log_attributes("K2", C, t["fwd_attributes"])
+        t["expand_attributes"] = R.expand_attributes()
+        log_attributes("K1", None, t["expand_attributes"])
         rec.update(t)
     return rec
 
@@ -653,6 +705,9 @@ def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
     if not (torch.equal(keys_k, keys_p) and torch.equal(gids_k, gids_p)):
         fail(f"K1 stp {tag}: kernel differs from expand_plain at "
              f"{int((keys_k != keys_p).sum())} slots")
+    if not all(torch.equal(a, b) for a, b in zip((keys_k, gids_k),
+                                                 R.expand(*args))):
+        fail(f"K1 stp {tag}: two runs gave different keys or ids")
     plain_keys, _ = R.expand(*args[:9])
     moved = int((plain_keys != keys_k).sum())
     sk, gs, order = R.sort_slots(keys_k, gids_k)
@@ -663,7 +718,8 @@ def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
     n_windows = int(torch.where(
         counts > 0, (bounds[1:] - 1) // STP.STP_WINDOW
         - bounds[:-1] // STP.STP_WINDOW + 1, 0).sum())
-    log(f"K1 stp {tag}: bit-identical; slots {isects.total} real "
+    log(f"K1 stp {tag}: bit-identical, identical in two runs; slots "
+        f"{isects.total} real "
         f"{isects.n_isects} valid {n_valid}; {moved} keys differ from the "
         f"centre-depth keys; longest tile list {int(counts.max())}, mean "
         f"{float(counts.float().mean()):.1f}; {off16} of {n_tiles} tile "
@@ -726,16 +782,14 @@ def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
     _, gushare = check_rows(f"K3s {tag} built without contraction", rows_u,
                             rows_p, K3_COLUMNS, UNCONTRACTED_SHARE)
     red = (rows, gs, isects.offsets, R.invert_order(order), bounds[-1:], n)
-    summed = R.reduce_grads(*red)
-    summed_p = R.reduce_grads_plain(rows, gs, n)
-    torch.cuda.synchronize()
-    reduce_err = check_sums(f"K4 on K3s's rows {tag}", summed, summed_p,
-                            rows, gs, n, 2)
+    _, _, reduce_err = check_reduce(f"K4 on K3s's rows {tag}", red, rows, gs,
+                                    n, 2)
     composited = stats["composited_pairs"]
     log(f"K3s {tag}: every column agrees on >= {gshare:.6f} of its values "
         f"(>= {gushare:.7f} when built without contraction), max abs err "
         f"{bwd_err:.3e} (max |ref| {float(rows_p.abs().max()):.3e}); "
-        f"identical in two runs. K4: max abs err {reduce_err:.3e}; "
+        f"identical in two runs. K4: identical in two runs, equal to the "
+        f"sums in slot order, max abs err from index_add_ {reduce_err:.3e}; "
         f"composited pairs {composited}; (slot, warp)s with a composited "
         f"pixel {stats['composited_slot_warps']}")
     rec = {"fwd_err": fwd_err, "bwd_err": bwd_err}
@@ -755,13 +809,13 @@ def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
                  + H * W * (4 * C + 8))
     rec.update(
         fwd_plain_ms=fwd_plain_ms, bwd_plain_ms=bwd_plain_ms,
-        expand_ms=cuda_ms(lambda: R.expand(*args), 20),
+        expand_ms=graph_ms(lambda: R.expand(*args), 20),
         expand_plain_ms=cuda_ms(lambda: R.expand_plain(*args), 3),
-        fwd_ms=cuda_ms(lambda: STP.rasterize_fwd_stp(*fwd), 20),
-        fwd_checkpoints_ms=cuda_ms(
+        fwd_ms=graph_ms(lambda: STP.rasterize_fwd_stp(*fwd), 20),
+        fwd_checkpoints_ms=graph_ms(
             lambda: STP.rasterize_fwd_stp(*fwd, checkpoints=True), 20),
-        bwd_ms=cuda_ms(lambda: STP.rasterize_bwd_stp(*bwd), 20),
-        reduce_ms=cuda_ms(lambda: R.reduce_grads(*red), 20),
+        bwd_ms=graph_ms(lambda: STP.rasterize_bwd_stp(*bwd), 20),
+        reduce_ms=graph_ms(lambda: R.reduce_grads(*red), 20),
         expand_bound=bound(60 * n + 12 * isects.total,
                            48 * isects.n_isects),
         fwd_bound=bound(fwd_bytes, 12 * pairs + 5 * stats["near_pairs"]
@@ -769,8 +823,9 @@ def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
                         + stats["unordered_live_squares"]),
         bwd_bound=bound(
             fwd_bytes + ckpt_bytes + 4 * H * W + 4 * (6 + C) * n_valid,
-            (28 + 2 * C) * pairs + (35 + 4 * C) * composited
-            + 360 * unordered),
+            12 * pairs + 5 * stats["near_pairs"] + (9 + 2 * C) * composited
+            + (35 + 4 * C) * composited + stats["unordered_live_squares"]
+            + (5 + 2 * C) * stats["unordered_live_entries"]),
         slots=isects.total, n_isects=isects.n_isects, n_valid=n_valid,
         pairs=pairs, composited_pairs=composited,
         unordered_windows=unordered, checkpoint_bytes=ckpt_bytes,
@@ -1026,19 +1081,16 @@ def check_surfel_kernels(vname, C, state, cam, seed, timed):
                  f"other than {missed} of a backward without the depth "
                  "and distortion terms")
     red = (rows, gs, isects.offsets, R.invert_order(order), bounds[-1:], n)
-    summed = R.reduce_grads(*red, n_abs=0)
-    summed_p = R.reduce_grads_plain(rows, gs, n, n_abs=0)
-    torch.cuda.synchronize()
-    if not torch.equal(summed, R.reduce_grads(*red, n_abs=0)):
-        fail(f"K4 surfel {tag}: two runs gave different sums")
-    reduce_err = check_sums(f"K4 surfel {tag}", summed, summed_p, rows, gs,
-                            n, 0)
+    summed, summed_p, reduce_err = check_reduce(f"K4 surfel {tag}", red,
+                                                rows, gs, n, 0)
     scale, sscale = float(rows_p.abs().max()), float(summed_p.abs().max())
     composited = stats["composited_pairs"]
     log(f"K7 {tag}: every column agrees on >= {gshare:.6f} of its values "
         f"(>= {ushare:.7f} when built without contraction), "
         f"max abs err {bwd_err:.3e} (max |ref| {scale:.3e}); identical in "
-        f"two runs. K4 with 13 + C columns: max abs err {reduce_err:.3e} "
+        f"two runs. K4 with 13 + C columns: identical in two runs, equal "
+        f"to the sums in slot order, max abs err from index_add_ "
+        f"{reduce_err:.3e} "
         f"(max |ref| {sscale:.3e}); composited pairs {composited}; (slot, "
         f"warp)s with a composited pixel {stats['composited_slot_warps']}")
     rec = {"fwd_err": fwd_err, "median_err": plane_err["median depth"],
@@ -1054,19 +1106,19 @@ def check_surfel_kernels(vname, C, state, cam, seed, timed):
     R_ = 13 + C
     rec.update(
         bwd_scale=scale, reduce_scale=sscale,
-        expand_ms=cuda_ms(lambda: SR.surfel_expand(*args), 20),
+        expand_ms=graph_ms(lambda: SR.surfel_expand(*args), 20),
         expand_plain_ms=cuda_ms(lambda: SR.surfel_expand_plain(*args), 3),
-        sort_ms=cuda_ms(lambda: R.sort_slots(keys_k, gids_k), 20),
-        fwd_ms=cuda_ms(lambda: SR.rasterize_surfels_fwd(*fwd), 20),
+        sort_ms=graph_ms(lambda: R.sort_slots(keys_k, gids_k), 20),
+        fwd_ms=graph_ms(lambda: SR.rasterize_surfels_fwd(*fwd), 20),
         fwd_plain_ms=cuda_ms(
             lambda: SR.rasterize_surfels_fwd_plain(*fwd), 1, warmup=0),
-        bwd_ms=cuda_ms(lambda: SR.rasterize_surfels_bwd(*bwd), 20),
+        bwd_ms=graph_ms(lambda: SR.rasterize_surfels_bwd(*bwd), 20),
         bwd_plain_ms=cuda_ms(
             lambda: SR.rasterize_surfels_bwd_plain(*bwd), 1, warmup=0),
-        reduce_ms=cuda_ms(lambda: R.reduce_grads(*red, n_abs=0), 20),
+        reduce_ms=graph_ms(lambda: R.reduce_grads(*red, n_abs=0), 20),
         reduce_plain_ms=cuda_ms(
             lambda: R.reduce_grads_plain(rows, gs, n, n_abs=0), 5),
-        reduce_library_ms=cuda_ms(
+        reduce_library_ms=graph_ms(
             lambda: sums.zero_().index_add_(0, gids64, rows), 20),
         expand_bound=bound(28 * n + 12 * isects.total, 6 * isects.n_isects),
         fwd_bound=bound(in_bytes + H * W * (4 * C + 32),
@@ -1079,7 +1131,9 @@ def check_surfel_kernels(vname, C, state, cam, seed, timed):
         pairs_bwd=pairs_bwd, composited_pairs=composited,
         composited_slot_warps=stats["composited_slot_warps"],
         bwd_attributes=SR.rasterize_surfels_bwd_attributes(C, TILE),
-        fwd_attributes=attrs)
+        fwd_attributes=attrs,
+        reduce_attributes=R.reduce_grads_attributes(13 + C, 0))
+    log_attributes(f"K4 R={13 + C} n_abs=0", None, rec["reduce_attributes"])
     log(f"surfel {tag} timings " + json.dumps(
         {k: v for k, v in rec.items() if k.endswith(("_ms", "_bound"))
          or k in ("slots", "n_isects", "pairs", "pairs_bwd",
@@ -1796,7 +1850,10 @@ def main():
         stp_bound_ms=trec["expand_bound"][0],
         stp_bound_by=trec["expand_bound"][1], stp_library_ms=None)
     reduce_entry.update(stp_launches=stp_launches["reduce_grads"],
-                        stp_ms=trec["reduce_ms"])
+                        stp_ms=trec["reduce_ms"],
+                        attributes=rec["reduce_attributes"],
+                        surfel_attributes=srec["reduce_attributes"])
+    expand_entry.update(attributes=rec["expand_attributes"])
     kernels = [
         expand_entry,
         entry("rasterize_fwd", 869, rec["fwd_err"], "fwd"),

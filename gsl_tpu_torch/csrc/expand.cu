@@ -16,18 +16,23 @@
 //
 // What the TPU needed and this does not: slot -> Gaussian lookup by windowed
 // one-hot matmuls, f32 slot offsets (exact only below 2^24), and a payload
-// carried through the sort. Here one thread owns one Gaussian and writes its
-// slots from its int64 exclusive-prefix offset; the rasterizer gathers the
-// payload by Gaussian id after the sort.
+// carried through the sort; the rasterizer gathers the payload by Gaussian
+// id after the sort. What it keeps: the walk slot by slot. A block owns a
+// run of kThreads consecutive Gaussians and so one contiguous slot range
+// (slot_runs.cuh). It stages the run's records in shared memory, one
+// Gaussian a thread, then its threads stride over the slot range: each
+// finds its slot's Gaussian by binary search over the staged offsets,
+// computes the tile from the slot's place in the rectangle, culls and keys
+// it, and the warp writes 32 neighbouring keys and ids. One thread per
+// Gaussian looping over that Gaussian's slots (the design before) kept each
+// warp as long as its longest Gaussian and scattered its stores.
 //
 // Bound on the H100: bytes. Each Gaussian reads 52 bytes (offset 8, rect 16,
 // depth 4, mean 8, conic 12, opacity 4; 8 more of depth_grads with
 // stp_resort) and each slot writes 12 (key 8, id 4); the cull is ~40 flops
 // and one exp per slot (the plane key 8 more), far below the card's
 // 67 TFLOP/s f32 rate at the ~2.6 slots per Gaussian of the bench scene.
-// Writes of one thread's slots are contiguous, so neighbouring threads
-// write neighbouring runs; the design keeps the kernel to one pass over
-// the Gaussians with no atomics.
+// No atomics: every slot is written by one thread, the same in every run.
 //
 // Built with -fmad=false: the plain PyTorch version (expand_plain) is held
 // to this kernel bit for bit, and PyTorch rounds every multiply and add on
@@ -36,9 +41,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "slot_runs.cuh"
+#include "tile_batches.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;  // threads of a block, Gaussians of its run
+// the staged record of a Gaussian, one array of kThreads each
+enum Field { kMinX, kMinY, kW, kH, kDepth, kMx, kMy, kCa, kCb, kCc, kOp,
+             kKzx, kKzy, kFields };
+// shared words: the run's offsets (kThreads + 1, padded) and the records
+constexpr int kSmemWords = kThreads + 4 + kFields * kThreads;
 
 __device__ __forceinline__ float sigma_at(float ca, float cb, float cc,
                                           float dx, float dy) {
@@ -61,38 +74,64 @@ __global__ void __launch_bounds__(kThreads) expand_kernel(
     int stp_resort,
     int64_t* __restrict__ keys,           // [total]
     int* __restrict__ gids) {             // [total]
-  const int g = blockIdx.x * kThreads + threadIdx.x;
-  if (g >= n) return;
-  const int64_t off = offsets[g];
-  const int min_x = rect[4 * g + 0];
-  const int min_y = rect[4 * g + 1];
-  const int w = rect[4 * g + 2];
-  const int h = rect[4 * g + 3];
-  const int hits = w * h;
-  if (hits == 0) {  // culled by projection: one invalid dummy slot
-    keys[off] = INT64_MAX;
-    gids[off] = g;
-    return;
+  extern __shared__ __align__(16) float smem[];
+  int* s_off = reinterpret_cast<int*>(smem);
+  // [kFields][kThreads]: the rectangle's four ints, then the floats
+  int* s_int = s_off + kThreads + 4;
+  float* s_rec = smem + kThreads + 4;
+  const int t = threadIdx.x;
+  const int g0 = static_cast<int>(blockIdx.x) * kThreads;
+  if (g0 + t < n) {
+    const int g = g0 + t;
+    const int4 r = reinterpret_cast<const int4*>(rect)[g];
+    s_int[kMinX * kThreads + t] = r.x;
+    s_int[kMinY * kThreads + t] = r.y;
+    s_int[kW * kThreads + t] = r.z;
+    s_int[kH * kThreads + t] = r.w;
+    s_rec[kDepth * kThreads + t] = depths[g];
+    s_rec[kMx * kThreads + t] = means2d[2 * g + 0];
+    s_rec[kMy * kThreads + t] = means2d[2 * g + 1];
+    s_rec[kCa * kThreads + t] = conics[3 * g + 0];
+    s_rec[kCb * kThreads + t] = conics[3 * g + 1];
+    s_rec[kCc * kThreads + t] = conics[3 * g + 2];
+    s_rec[kOp * kThreads + t] = opacities[g];
+    if (stp_resort) {
+      s_rec[kKzx * kThreads + t] = depth_grads[2 * g + 0];
+      s_rec[kKzy * kThreads + t] = depth_grads[2 * g + 1];
+    }
   }
-  const float depth = depths[g];
-  const float kzx = stp_resort ? depth_grads[2 * g + 0] : 0.0f;
-  const float kzy = stp_resort ? depth_grads[2 * g + 1] : 0.0f;
-  const float mx = means2d[2 * g + 0];
-  const float my = means2d[2 * g + 1];
-  const float ca = conics[3 * g + 0];
-  const float cb = conics[3 * g + 1];
-  const float cc = conics[3 * g + 2];
-  const float op = opacities[g];
+  // the slot past the last Gaussian's: it has max(w * h, 1) slots
+  int64_t end = 0;
+  if (g0 + kThreads >= n) {
+    end = offsets[n - 1] + max(rect[4 * (n - 1) + 2] * rect[4 * (n - 1) + 3],
+                               1);
+  }
+  const gsl::SlotRun run = gsl::stage_run(offsets, n, kThreads, end, s_off);
   const float ts = static_cast<float>(tile_size);
   const float eps = static_cast<float>(1e-12);
   const float threshold = static_cast<float>(1.0 / 255.0);
-  const float ca_safe = fmaxf(ca, eps);
-  const float cc_safe = fmaxf(cc, eps);
-  for (int local = 0; local < hits; ++local) {
-    const int ty = min(min_y + local / w, tiles_y - 1);
-    const int tx = min_x + local % w;
+  for (int s = t; s < run.slots; s += kThreads) {
+    const int i = gsl::slot_owner(s_off, run.count, s);
+    const int local = s - s_off[i];
+    const int w = s_int[kW * kThreads + i];
+    const int hits = w * s_int[kH * kThreads + i];
+    const int64_t at = run.s0 + s;
+    gids[at] = run.g0 + i;
+    if (hits == 0) {  // culled by projection: one invalid dummy slot
+      keys[at] = INT64_MAX;
+      continue;
+    }
+    const int ty = min(s_int[kMinY * kThreads + i] + local / w, tiles_y - 1);
+    const int tx = s_int[kMinX * kThreads + i] + local % w;
+    const float mx = s_rec[kMx * kThreads + i];
+    const float my = s_rec[kMy * kThreads + i];
     bool valid = true;
     if (culling) {
+      const float ca = s_rec[kCa * kThreads + i];
+      const float cb = s_rec[kCb * kThreads + i];
+      const float cc = s_rec[kCc * kThreads + i];
+      const float ca_safe = fmaxf(ca, eps);
+      const float cc_safe = fmaxf(cc, eps);
       // exact peak alpha over the tile box: sigma's minimum is 0 if the
       // mean is inside, else the least of its minima along the four edges
       const float xlo = static_cast<float>(tx) * ts - mx;
@@ -111,19 +150,19 @@ __global__ void __launch_bounds__(kThreads) expand_kernel(
       const bool inside = xlo <= 0.0f && xhi >= 0.0f && ylo <= 0.0f &&
                           yhi >= 0.0f;
       smin = inside ? 0.0f : fmaxf(smin, 0.0f);
-      valid = !(op * expf(-smin) < threshold);
+      valid = !(s_rec[kOp * kThreads + i] * expf(-smin) < threshold);
     }
-    float key_depth = depth;
+    float key_depth = s_rec[kDepth * kThreads + i];
     if (stp_resort) {
       const float tcx = (static_cast<float>(tx) + 0.5f) * ts;
       const float tcy = (static_cast<float>(ty) + 0.5f) * ts;
-      key_depth = depth + kzx * (tcx - mx) + kzy * (tcy - my);
+      key_depth = key_depth + s_rec[kKzx * kThreads + i] * (tcx - mx) +
+                  s_rec[kKzy * kThreads + i] * (tcy - my);
     }
     const int64_t dbits =
         static_cast<int64_t>(__float_as_uint(fmaxf(key_depth, 0.0f)));
     const int64_t tile = static_cast<int64_t>(ty) * tiles_x + tx;
-    keys[off + local] = valid ? ((tile << 32) | dbits) : INT64_MAX;
-    gids[off + local] = g;
+    keys[at] = valid ? ((tile << 32) | dbits) : INT64_MAX;
   }
 }
 
@@ -140,17 +179,29 @@ int gsl_expand(const int64_t* offsets, const int* rect, const float* depths,
                const float* opacities, const float* depth_grads, int n,
                int tile_size, int tiles_x, int tiles_y, int culling,
                int stp_resort, int64_t* keys, int* gids, void* stream) {
-  if (stp_resort && depth_grads == nullptr) {
+  if ((stp_resort && depth_grads == nullptr) ||
+      // rect is read a Gaussian's int4 (16 bytes, 16-byte aligned) at a
+      // time
+      reinterpret_cast<uintptr_t>(rect) % 16 != 0 ||
+      // a run's slots fit an int: each Gaussian has at most every tile
+      static_cast<int64_t>(tiles_x) * tiles_y * kThreads > INT32_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
-    expand_kernel<<<blocks, kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    expand_kernel<<<blocks, kThreads, kSmemWords * sizeof(float), s>>>(
         offsets, rect, depths, means2d, conics, opacities, depth_grads, n,
         tile_size, tiles_x, tiles_y, culling, stp_resort, keys, gids);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// out[0..3]: registers per thread, local (spill) bytes per thread, dynamic
+// shared bytes per block and resident blocks per SM.
+int gsl_expand_attributes(int* out) {
+  return static_cast<int>(gsl::kernel_attributes(
+      expand_kernel, kThreads, kSmemWords * sizeof(float), out));
 }
 
 }  // extern "C"

@@ -30,13 +30,21 @@
 // triangle matmuls, 2 x 15 shifted masked adds per sum, merge flags for
 // stream blocks revisited at tile borders, a payload carried through the sort.
 //
-// Bound on the H100: operations. Every (pixel, slot) pair costs 28 + 2C: the
-// forward's 23, T_exc 2, cg 2C, q 2 and the suffix 1. A pair with a > 0
-// costs K3's 35 + 4C more. A (pixel, window) whose live entries are out of
-// order costs 360 more (the forward's rank count). The bytes are the
-// forward's, the checkpoints (64 per sorted slot), the cotangents and one row
-// per valid slot. Before this design the kernel ran at 24x that bound, and
-// removing one part at a time showed where (NVIDIA H100, 1M Gaussians,
+// Bound on the H100: operations, counted as the function needs them. Pass
+// 1 repeats K2s's walk (its T_exc must equal K2s's bit for bit), so it is
+// charged what K2s's bound charges: 12 a (pixel, slot) pair, 5 more a pair
+// at or below alpha_skip.cuh's cut (past it alpha < 1/255 for certain) and
+// 9 + 2C a composited pair. This design runs ~26 on every pair (the
+// offsets and sigma 11, the exponential, alpha and its two tests 6, d_p 4,
+// the live and in-order tests 3, T *= 1 - a 2): it has no skip cut. A pair
+// with a > 0 costs K3's 35 + 4C more (pass 2). A (pixel, window) whose
+// live entries are out of order costs
+// n_live^2 compares (live_order) and 5 + 2C a live entry to redo T_exc, q
+// and S in the pixel's order. The bytes are the forward's, the checkpoints
+// (64 per sorted slot), the cotangents and one row per valid slot. Before
+// this design the kernel ran at 24x the bound counted then (28 + 2C a
+// pair, 360 an out-of-order window), and removing one part at a time
+// showed where (NVIDIA H100, 1M Gaussians,
 // 1088x1920, C = 3): the 6 + C five-step shuffle sums of each (slot, warp)
 // in which a pixel composites cost 4.2 of 8.3 ms, the 120-compare rank
 // count run by a whole warp for one out-of-order lane 3.7; the gather sat

@@ -192,7 +192,14 @@ def _expand_lib():
     lib.gsl_expand.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
     lib.gsl_expand.restype = ctypes.c_int
+    lib.gsl_expand_attributes.argtypes = [ctypes.c_void_p]
+    lib.gsl_expand_attributes.restype = ctypes.c_int
     return lib
+
+
+def expand_attributes():
+    """`kernel_attributes` of the K1 kernel (either key kind)."""
+    return kernel_attributes(_expand_lib(), "gsl_expand_attributes")
 
 
 def expand(isects: Isects, means2d, conics, opacities, depths,
@@ -202,7 +209,9 @@ def expand(isects: Isects, means2d, conics, opacities, depths,
     """Kernel K1 on CUDA tensors, `expand_plain` on CPU tensors.
     Returns (keys [total] int64, gids [total] int32) in slot order.
     `stp_resort`: StopThePop keys, the depth plane (slope `depth_grads`
-    [N, 2]) at each slot's tile centre."""
+    [N, 2]) at each slot's tile centre. On the card `isects.rect` must
+    start 16-byte aligned, as a tensor of its own does: K1 reads a
+    Gaussian's rectangle in one 16-byte load."""
     if stp_resort and depth_grads is None:
         raise ValueError("expand: stp_resort needs depth_grads")
     if not means2d.is_cuda:
@@ -555,14 +564,15 @@ def _bwd_lib(extra: tuple = ()):
     return lib
 
 
-def kernel_attributes(lib, entry: str, n_channels: int, tile_size: int):
+def kernel_attributes(lib, entry: str, *args: int):
     """What the card's runtime reports for the kernel of C entry point
-    `entry` that `n_channels` and `tile_size` select: registers per thread,
-    local (spill) bytes per thread (cudaFuncGetAttributes), dynamic shared
-    bytes per block, and resident blocks per SM
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Needs a card."""
+    `entry` that `args` select (for the raster kernels the channel count
+    and the tile size): registers per thread, local (spill) bytes per thread
+    (cudaFuncGetAttributes), dynamic shared bytes per block, and resident
+    blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Needs a
+    card."""
     out = (ctypes.c_int * 4)()
-    code = getattr(lib, entry)(n_channels, tile_size, out)
+    code = getattr(lib, entry)(*args, out)
     cuda_build.check(lib, code, entry)
     return {"registers": out[0], "local_bytes": out[1],
             "shared_bytes": out[2], "blocks_per_sm": out[3]}
@@ -637,13 +647,39 @@ def reduce_grads_plain(rows, gids, n: int, n_abs: int = 2):
     channels; with n_abs = 0 the sums keep the rows' columns. Rows of
     invalid slots (sorted behind the valid ones) are zero, as the backward
     kernels leave them, and add nothing."""
-    full = rows
-    if n_abs:
-        full = torch.cat([rows[:, :N_GEOM], rows[:, :n_abs].abs(),
-                          rows[:, N_GEOM:]], 1)
+    full = _with_absolute_columns(rows, n_abs)
     out = torch.zeros((n, full.shape[1]), dtype=rows.dtype,
                       device=rows.device)
     return out.index_add_(0, gids.long(), full)
+
+
+def _with_absolute_columns(rows, n_abs: int):
+    """rows with the absolute values of their first `n_abs` columns placed
+    behind column N_GEOM: K4's output columns."""
+    if not n_abs:
+        return rows
+    return torch.cat([rows[:, :N_GEOM], rows[:, :n_abs].abs(),
+                      rows[:, N_GEOM:]], 1)
+
+
+def reduce_grads_slot_order(rows, offsets, inv_order, n_valid, n: int,
+                            n_abs: int = 2):
+    """K4's sums in the order K4 adds them, for holding it bit for bit:
+    per Gaussian, from 0, the rows of its valid slots one after another in
+    slot order, each addition rounded to float32 (`reduce_grads_plain`
+    adds in another order). A slot without a row (sorted position >=
+    n_valid) adds nothing. Arguments as `reduce_grads`'s."""
+    full = _with_absolute_columns(rows, n_abs)
+    total = inv_order.numel()
+    counts = torch.diff(offsets, append=offsets.new_tensor([total]))
+    out = torch.zeros((n, full.shape[1]), dtype=torch.float32,
+                      device=rows.device)
+    for k in range(int(counts.max()) if n else 0):
+        g = torch.nonzero(counts > k)[:, 0]
+        pos = inv_order[offsets[g] + k].long()
+        keep = pos < n_valid
+        out[g[keep]] = out[g[keep]] + full[pos[keep]]
+    return out
 
 
 def _reduce_lib():
@@ -653,7 +689,16 @@ def _reduce_lib():
         ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p]
     lib.gsl_reduce_grads.restype = ctypes.c_int
+    lib.gsl_reduce_grads_attributes.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_void_p]
+    lib.gsl_reduce_grads_attributes.restype = ctypes.c_int
     return lib
+
+
+def reduce_grads_attributes(n_cols: int, n_abs: int = 2):
+    """`kernel_attributes` of the K4 kernel for rows of `n_cols` columns."""
+    return kernel_attributes(_reduce_lib(), "gsl_reduce_grads_attributes",
+                             n_cols, n_abs)
 
 
 def reduce_grads(rows, gids, offsets, inv_order, n_valid, n: int,

@@ -1,10 +1,11 @@
-"""Cost of each part of six hand-written kernels of the PyTorch port, on one
-CUDA card: the forward kernels K2 (csrc/rasterize_fwd.cu), K2s
+"""Cost of each part of eight hand-written kernels of the PyTorch port, on
+one CUDA card: the slot kernels K1 (csrc/expand.cu) and K4
+(csrc/reduce_grads.cu), the forward kernels K2 (csrc/rasterize_fwd.cu), K2s
 (csrc/rasterize_fwd_stp.cu) and K6 (csrc/surfel_fwd.cu), and the backward
 kernels K3 (csrc/rasterize_bwd.cu), K3s (csrc/rasterize_bwd_stp.cu) and K7
 (csrc/surfel_bwd.cu).
 
-    python3 scripts/torch_kernel_parts.py [--kernels K2,K2s,K3,K6,K3s,K7]
+    python3 scripts/torch_kernel_parts.py [--kernels K1,K4,K4surfel,...]
                                           [--previous DIR]
 
 Each part is removed in turn by a preprocessor switch that this script
@@ -12,18 +13,33 @@ writes into a copy of the kernel's source under gsl_tpu_torch/build/parts/
 (the package's sources stay as they are), and every copy is timed with CUDA
 events at chip_smoke.py's bench scene (1M Gaussians or surfels, 1088x1920,
 bench pose; K2, K2s, K3 and K3s at C = 3, K6 and K7 at C = 6) beside the
-copy with nothing removed, which is timed first and last. A copy with a
-part removed computes wrong results: only its time is read. Where a part
-decides something (a test, a vote, an order), its result stays in what the
-kernel writes, so the compiler cannot delete the work before it. The parts
-of the kernels as they are:
+copy with nothing removed, which is timed first and last. K1 is timed with
+depth keys (K1) and StopThePop keys (K1stp), K4 on the rows of K3 (K4, R =
+9 with two absolute columns), K3s (K4stp) and K7 (K4surfel, R = 19). A copy
+with a part removed computes wrong results: only its time is read. Where a
+part decides something (a test, a vote, an order), its result stays in
+what the kernel writes, so the compiler cannot delete the work before it.
+The parts of the kernels as they are:
 
+- K1: the peak-alpha cull (every slot kept); the key stores (the keys
+  computed, one in 2^32 stored); the dummy slots' keys; the binary search
+  (the slot's Gaussian guessed from its share of the run); and choices
+  undone: runs of 64 or 256 Gaussians in place of 128, a build for 16
+  blocks per SM (32 registers);
+- K4: the row gather (the sorted position staged in place of the row); the
+  inv_order load (positions hashed from the slot, all valid); the absolute
+  columns; the sums over a Gaussian's slots (one staged value taken); and
+  choices undone: runs of 32, 64, 128 or 256 Gaussians in place of the
+  host's choice, stages of 2048, 3072, 6144 or 8192 floats in place of
+  4096, the rows loaded into registers, eight a thread, in place of
+  cp.async;
 - K2: the channel sums; everything after the alpha test (the kept pairs
   counted into T); the skip cut (every pair to the exact test); the
-  block's early exit (every batch walked); and choices undone: one or four pixels a thread in
-  place of two, a register cap of 40 (and of 32 with one pixel a thread,
-  also with the alpha test alone or without the skip cut), batches of 32
-  or 128 slots in place of 64, the records read with 4-byte loads;
+  block's early exit (every batch walked); and choices undone: one or
+  four pixels a thread in place of two, a register cap of 40 (and of 32
+  with one pixel a thread, also with the alpha test alone or without the
+  skip cut), batches of 32 or 128 slots in place of 64, the records read
+  with 4-byte loads;
 - K2s (with checkpoints, as training calls it): the checkpoint stores; the
   out-of-order path (every window taken as in order, the test kept); the
   skip cut; and choices undone: alpha evaluated again in the out-of-order
@@ -46,32 +62,33 @@ of the kernels as they are:
   two choices undone: the six IEEE divisions by cz and Tw.z in place of
   the two reciprocals, and a build for 3 blocks per SM.
 
-With --previous DIR, also K2 and K2s as they were before their redesign,
-from DIR/gsl_tpu_torch/csrc (`git archive 48a8ffb gsl_tpu_torch/csrc | tar
--x -C DIR`): K2 without its channel sums, with everything after the alpha
-test removed as above, with the six fields read from one record by two
-16-byte loads in place of six strided 4-byte loads, with the batch
-gathered once (and the barrier after the gather passed only then), without
-the block's exit count, and with batches of 64 slots in place of 256; K2s
-without its checkpoint stores, without the out-of-order path, without the
-120-compare rank count (ranks taken as the identity), with the nine fields
-read from one record by three 16-byte loads, and with the batch gathered
-once (and its two barriers passed only then). Each "whole" copy's outputs
-are compared with the package's kernel's: K2's out, T and i_stop, K2s's
-out, T, i_stop and the checkpoint rows the backward reads. (The version of
-this script in commit 48a8ffb timed K3 and K6 of commit 1eebc16 the same
-way, the one in commit 173d447 K3s and K7 of commit daa6548.)
+With --previous DIR, also K1 and K4 as they were before their redesign,
+from DIR/gsl_tpu_torch/csrc (`git archive a7fa1ac gsl_tpu_torch/csrc | tar
+-x -C DIR`, e.g. into .scratch/prev of the checkout, which git ignores):
+one thread a Gaussian looping over its slots (K1) and one thread a
+(Gaussian, column) looping over its slots (K4). K1 without its cull, its
+key stores or its dummy slots' keys; K4 without its row gather
+(the position added in place of the row), its inv_order gather (positions
+hashed from the slot), its test of the position against the valid count
+(invalid slots read row 0) or its absolute columns. Each "whole" copy's
+outputs are compared with the package's kernel's: K1's keys and ids, K4's
+sums. (The version of this script in commit a7fa1ac timed K2 and K2s of
+commit 48a8ffb the same way, the one in commit 48a8ffb K3 and K6 of commit
+1eebc16, the one in commit 173d447 K3s and K7 of commit daa6548.)
 
 Prints ptxas's registers and spills, the registers, spills, shared bytes
 and resident blocks per SM that the card's runtime reports, every time;
-for K2 the tiles' list lengths, the waves of resident blocks and the
-(warp, slot) steps of warps of 32 pixels and of 32 threads of two pixels
-each; for K2s the (pixel, window)s and their live entries, those out of
-order and the (window, warp)s with one; for K3, K3s and K7 the (slot,
-warp)s with a composited pixel that the plain versions count; for K6 the
-(warp, slot) steps, those in which some lanes of the warp have already
-stopped, and the lane steps that idle; writes
-chiprun_out/kernel_parts.json.
+for K1 and K4 the slots per Gaussian, the warp iterations of the design
+before (one thread a Gaussian or a (Gaussian, column)) and their useful
+share, the runs' slots and passes, and for K4 the bytes of the valid rows
+and of the 32-byte sectors they span; for K2 the tiles' list lengths, the
+waves of resident blocks and the (warp, slot) steps of warps of 32 pixels
+and of 32 threads of two pixels each; for K2s the (pixel, window)s and
+their live entries, those out of order and the (window, warp)s with one;
+for K3, K3s and K7 the (slot, warp)s with a composited pixel that the
+plain versions count; for K6 the (warp, slot) steps, those in which some
+lanes of the warp have already stopped, and the lane steps that idle;
+writes chiprun_out/kernel_parts.json.
 """
 import argparse
 import concurrent.futures
@@ -98,15 +115,22 @@ from gsl_tpu_torch.renderers import tile_renderer  # noqa: E402
 from gsl_tpu_torch.utils.convert import state_from_raw_arrays  # noqa: E402
 
 OUT = os.path.join(REPO, "gsl_tpu_torch", "build", "parts")
-K2, K2S, K3, K6, K3S, K7 = ("rasterize_fwd", "rasterize_fwd_stp",
-                             "rasterize_bwd", "surfel_fwd",
-                             "rasterize_bwd_stp", "surfel_bwd")
-SHORT = {"K2": K2, "K2s": K2S, "K3": K3, "K6": K6, "K3s": K3S, "K7": K7}
+K1, K2, K2S, K3, K4, K6, K3S, K7 = (
+    "expand", "rasterize_fwd", "rasterize_fwd_stp", "rasterize_bwd",
+    "reduce_grads", "surfel_fwd", "rasterize_bwd_stp", "surfel_bwd")
+# what is timed -> its source: K1 with either key kind, K4 on the rows of
+# K3, K3s and K7
+SHORT = {"K1": K1, "K1stp": K1, "K2": K2, "K2s": K2S, "K3": K3, "K4": K4,
+         "K4stp": K4, "K4surfel": K4, "K6": K6, "K3s": K3S, "K7": K7}
 KERNEL_FN = {K2: "rasterize_fwd_kernel", K2S: "rasterize_fwd_stp_kernel",
              K3: "rasterize_bwd_kernel", K6: "rasterize_surfels_fwd_kernel",
              K3S: "rasterize_bwd_stp_kernel",
              K7: "rasterize_surfels_bwd_kernel"}
-CHANNELS = {K2: 3, K2S: 3, K3: 3, K6: 6, K3S: 3, K7: 6}
+# the arguments of the attributes entry: (C, tile size); K4's (R, n_abs)
+ATTR_ARGS = {"K1": (0, 0), "K1stp": (0, 0), "K2": (3, 16), "K2s": (3, 16),
+             "K3": (3, 16), "K4": (9, 2), "K4stp": (9, 2),
+             "K4surfel": (19, 0), "K6": (6, 16), "K3s": (3, 16),
+             "K7": (6, 16)}
 
 # one more block per SM where the kernel is built for 4 of 256 threads;
 # IEEE divisions where the kernel takes approximate ones
@@ -228,7 +252,112 @@ K2S_CURRENT = [
      "        const float a = stp::pair_terms(rr, 1, 0, px, py).a;\n"
      "#else\n        const float a = column[l * bs].y;\n#endif\n")]
 
+# K1: every slot kept, the cull never run
+K1_NO_CULL = ("    if (culling) {\n",
+              "#ifdef GSL_NO_CULL\n    if (false) {\n#else\n"
+              "    if (culling) {\n#endif\n")
+
+
+def min_blocks(fn):
+    """__launch_bounds__(kThreads) of kernel `fn`, with GSL_BLOCKS resident
+    blocks per SM asked of the compiler where it is set."""
+    return (f"__global__ void __launch_bounds__(kThreads) {fn}(",
+            "\n#ifdef GSL_BLOCKS\n#define GSL_LB __launch_bounds__(kThreads, "
+            "GSL_BLOCKS)\n#else\n#define GSL_LB __launch_bounds__(kThreads)"
+            f"\n#endif\n__global__ void GSL_LB {fn}(")
+
+
+def hashed_pos(slot):
+    """A sorted position computed from the slot, in place of inv_order's:
+    spread over the valid rows as the real ones are, all valid."""
+    return (f"static_cast<int>((static_cast<uint64_t>({slot}) * "
+            "2654435761ull) % static_cast<uint64_t>(n_valid))")
+
+
+def no_abs(indent):
+    """K4's absolute columns summed as plain ones."""
+    line = f"{indent}const bool absolute = v >= kGeom && v < kGeom + n_abs;\n"
+    return (line, f"#ifdef GSL_NO_ABS\n{indent}const bool absolute = false;"
+            f"\n#else\n{line}#endif\n")
+
+
+K1_CURRENT = [
+    K1_NO_CULL, constant("kThreads", 128, "GSL_THREADS"),
+    min_blocks("expand_kernel"),
+    ("    keys[at] = valid ? ((tile << 32) | dbits) : INT64_MAX;\n",
+     "#ifdef GSL_NO_KEYS\n    if (valid && dbits == 1) keys[at] = tile;\n"
+     "#else\n    keys[at] = valid ? ((tile << 32) | dbits) : INT64_MAX;\n"
+     "#endif\n"),
+    ("    if (hits == 0) {  // culled by projection: one invalid dummy slot\n",
+     "#ifdef GSL_NO_DUMMY\n    if (hits == 0) continue;\n#endif\n"
+     "    if (hits == 0) {  // culled by projection: one invalid dummy slot\n"),
+    # the slot's Gaussian taken from its share of the run's slots
+    ("    const int i = gsl::slot_owner(s_off, run.count, s);\n",
+     "#ifdef GSL_NO_SEARCH\n    const int i = static_cast<int>(\n"
+     "        static_cast<int64_t>(s) * run.count / run.slots);\n#else\n"
+     "    const int i = gsl::slot_owner(s_off, run.count, s);\n#endif\n")]
+K4_CURRENT = [
+    # runs of GSL_RUN Gaussians in place of run_length's choice
+    ("  return run;\n}\n",
+     "#ifdef GSL_RUN\n  return GSL_RUN + 0 * run;\n#else\n  return run;\n"
+     "#endif\n}\n"),
+    constant("kStageFloats", 4096, "GSL_STAGE"),
+    min_blocks("reduce_grads_kernel"),
+    ("      const int pos = inv_order[run.s0 + b + j];\n",
+     "#ifdef GSL_NO_INV\n      const int pos = " + hashed_pos("run.s0 + b + j")
+     + ";\n#else\n      const int pos = inv_order[run.s0 + b + j];\n"
+     "#endif\n"),
+    ("        __pipeline_memcpy_async(\n"
+     "            s_row + idx, rows + static_cast<int64_t>(pos) * n_cols + c,\n"
+     "            sizeof(float));\n",
+     "#ifdef GSL_NO_GATHER\n        s_row[idx] = static_cast<float>(pos);\n"
+     "#else\n        __pipeline_memcpy_async(\n"
+     "            s_row + idx, rows + static_cast<int64_t>(pos) * n_cols + c,\n"
+     "            sizeof(float));\n#endif\n"),
+    # the rows loaded into registers, eight a thread in flight, and stored
+    # to shared memory, in place of cp.async
+    ("    for (int idx = t; idx < cnt * n_cols; idx += kThreads) {\n",
+     "#ifdef GSL_REGISTER_GATHER\n"
+     "    for (int base = t; base < cnt * n_cols; base += 8 * kThreads) {\n"
+     "      float x[8];\n      int at[8];\n#pragma unroll\n"
+     "      for (int u = 0; u < 8; ++u) {\n        at[u] = -1;\n"
+     "        if (base + u * kThreads < cnt * n_cols && s_pos[j] >= 0) {\n"
+     "          x[u] = rows[static_cast<int64_t>(s_pos[j]) * n_cols + c];\n"
+     "          at[u] = base + u * kThreads;\n        }\n"
+     "        j += row_step;\n        c += col_step;\n"
+     "        if (c >= n_cols) {\n          c -= n_cols;\n          ++j;\n"
+     "        }\n      }\n#pragma unroll\n"
+     "      for (int u = 0; u < 8; ++u) {\n"
+     "        if (at[u] >= 0) s_row[at[u]] = x[u];\n      }\n    }\n"
+     "    for (int idx = cnt * n_cols; idx < cnt * n_cols; idx += kThreads) {"
+     "\n#else\n"
+     "    for (int idx = t; idx < cnt * n_cols; idx += kThreads) {\n#endif\n"),
+    no_abs("      "),
+    # one staged value a (Gaussian, column), not the sum over its slots
+    ("        for (int k = max(lo, 0); k < min(hi, cnt); ++k) {\n",
+     "#ifdef GSL_NO_SUMS\n        if (max(lo, 0) < min(hi, cnt)) sum += "
+     "s_row[max(lo, 0) * n_cols + src];\n"
+     "        for (int k = cnt; k < cnt; ++k) {\n#else\n"
+     "        for (int k = max(lo, 0); k < min(hi, cnt); ++k) {\n#endif\n")]
+
 CURRENT = {
+    K1: (K1_CURRENT,
+         {"whole": [], "no_cull": ["GSL_NO_CULL"],
+          "no_key_stores": ["GSL_NO_KEYS"], "no_dummy_slots": ["GSL_NO_DUMMY"],
+          "no_binary_search": ["GSL_NO_SEARCH"],
+          "runs_of_64": ["GSL_THREADS=64"],
+          "runs_of_256": ["GSL_THREADS=256"],
+          "sixteen_blocks_per_sm": ["GSL_BLOCKS=16"]}),
+    K4: (K4_CURRENT,
+         {"whole": [], "no_row_gather": ["GSL_NO_GATHER"],
+          "no_inv_order_load": ["GSL_NO_INV"],
+          "no_absolute_columns": ["GSL_NO_ABS"],
+          "no_slot_sums": ["GSL_NO_SUMS"],
+          "runs_of_32": ["GSL_RUN=32"], "runs_of_64": ["GSL_RUN=64"],
+          "runs_of_128": ["GSL_RUN=128"], "runs_of_256": ["GSL_RUN=256"],
+          "stage_2048": ["GSL_STAGE=2048"], "stage_3072": ["GSL_STAGE=3072"],
+          "stage_6144": ["GSL_STAGE=6144"], "stage_8192": ["GSL_STAGE=8192"],
+          "register_gather": ["GSL_REGISTER_GATHER"]}),
     K2: (K2_CURRENT,
          {"whole": [], "no_channel_sums": ["GSL_NO_CHANNELS"],
           "alpha_test_only": ["GSL_TEST_ONLY"], "no_skip": ["GSL_NO_SKIP"],
@@ -322,172 +451,69 @@ CURRENT = {
           "three_blocks_per_sm": ["GSL_BLOCKS=3"]}),
 }
 
-# K2 and K2s before their redesign (commit 48a8ffb)
-OLD_HEAD = ("#include <cuda_runtime.h>\n", """#include <cuda_runtime.h>
-#ifndef GSL_BATCH
-#define GSL_BATCH bs
-#endif
-#ifdef GSL_ONE_RECORD
-#define GSL_WORDS 12
-#else
-#define GSL_WORDS 6
-#endif
-#ifdef GSL_NO_CKPT
-#define GSL_STORE_CKPT false
-#else
-#define GSL_STORE_CKPT true
-#endif
-""")
-OLD_ATTRS = """
-extern "C" int gsl_parts_attributes(int C, int ts, int* out) {
-  const int bs = ts * ts;
-  const size_t words = %(words)s;
+# K1 and K4 before their redesign (commit a7fa1ac): one thread a Gaussian
+# looping over its slots; one thread a (Gaussian, column) looping over its
+# slots, each step a dependent pair of random loads
+PREVIOUS = {
+    K1: ([K1_NO_CULL,
+          ("    keys[off + local] = valid ? ((tile << 32) | dbits) : "
+           "INT64_MAX;\n",
+           "#ifdef GSL_NO_KEYS\n    if (valid && dbits == 1) keys[off + local] "
+           "= tile;\n#else\n    keys[off + local] = valid ? ((tile << 32) | "
+           "dbits) : INT64_MAX;\n#endif\n"),
+          ("  if (hits == 0) {  // culled by projection: one invalid dummy "
+           "slot\n",
+           "#ifdef GSL_NO_DUMMY\n  if (hits == 0) return;\n#endif\n"
+           "  if (hits == 0) {  // culled by projection: one invalid dummy "
+           "slot\n")],
+         {"whole": [], "no_cull": ["GSL_NO_CULL"],
+          "no_key_stores": ["GSL_NO_KEYS"],
+          "no_dummy_slots": ["GSL_NO_DUMMY"]}),
+    K4: ([("    const int pos = inv_order[s];\n"
+           "    if (pos >= n_valid) continue;  // culled or dummy slot\n",
+           "#if defined(GSL_NO_INV)\n    const int pos = " + hashed_pos("s")
+           + ";\n#elif defined(GSL_NO_VALID_TEST)\n"
+           "    const int raw = inv_order[s];\n"
+           "    const int pos = raw < n_valid ? raw : 0;\n#else\n"
+           "    const int pos = inv_order[s];\n"
+           "    if (pos >= n_valid) continue;  // culled or dummy slot\n"
+           "#endif\n"),
+          ("    const float x = rows[static_cast<int64_t>(pos) * n_cols + "
+           "src];\n",
+           "#ifdef GSL_NO_GATHER\n    const float x = static_cast<float>(pos);"
+           "\n#else\n    const float x = rows[static_cast<int64_t>(pos) * "
+           "n_cols + src];\n#endif\n"),
+          no_abs("  ")],
+         {"whole": [], "no_row_gather": ["GSL_NO_GATHER"],
+          "no_inv_order_gather": ["GSL_NO_INV"],
+          "no_valid_test": ["GSL_NO_VALID_TEST"],
+          "no_absolute_columns": ["GSL_NO_ABS"]}),
+}
+# the resources of the kernels as they were, which had no entry for them
+OLD_ATTRS = {K1: ("expand_kernel", "256", "0"),
+             K4: ("reduce_grads_kernel", "256", "0")}
+OLD_ATTRS_ENTRY = """
+extern "C" int gsl_parts_attributes(int, int, int* out) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, %(fn)s<%(ct)d>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, %s);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, %(fn)s<%(ct)d>, bs, words * 4);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, %s, %s, %s);
   out[0] = attr.numRegs; out[1] = (int)attr.localSizeBytes;
-  out[2] = (int)(words * 4); out[3] = blocks;
+  out[2] = %s; out[3] = blocks;
   return (int)err;
 }
 """
-OLD_K2 = [
-    OLD_HEAD,
-    ("      for (int c = 0; c < CG; ++c) acc[c] += w * s_col[c * bs + j];\n",
-     "#ifndef GSL_NO_CHANNELS\n"
-     "      for (int c = 0; c < CG; ++c) acc[c] += w * s_col[c * bs + j];\n"
-     "#endif\n"),
-    ("      if (sigma < 0.0f || alpha < threshold) continue;\n",
-     "      if (sigma < 0.0f || alpha < threshold) continue;\n"
-     "#ifdef GSL_TEST_ONLY\n      stop += 1;\n      continue;\n#endif\n"),
-    # the six fields as one record of 8 floats, read by two 16-byte loads
-    ("  float* s_col = s_op + bs;  // [CG, bs]\n",
-     "#ifdef GSL_ONE_RECORD\n  float* s_rec = smem;\n"
-     "  float* s_col = smem + 8 * bs;\n#else\n"
-     "  float* s_col = s_op + bs;  // [CG, bs]\n#endif\n"),
-    ("      s_mx[tid] = means2d[2 * g + 0];\n"
-     "      s_my[tid] = means2d[2 * g + 1];\n"
-     "      s_ca[tid] = conics[3 * g + 0];\n"
-     "      s_cb[tid] = conics[3 * g + 1];\n"
-     "      s_cc[tid] = conics[3 * g + 2];\n"
-     "      s_op[tid] = opacities[g];\n",
-     "#ifdef GSL_ONE_RECORD\n"
-     "      s_rec[8 * tid + 0] = means2d[2 * g + 0];\n"
-     "      s_rec[8 * tid + 1] = means2d[2 * g + 1];\n"
-     "      s_rec[8 * tid + 2] = conics[3 * g + 0];\n"
-     "      s_rec[8 * tid + 3] = conics[3 * g + 1];\n"
-     "      s_rec[8 * tid + 4] = conics[3 * g + 2];\n"
-     "      s_rec[8 * tid + 5] = opacities[g];\n#else\n"
-     "      s_mx[tid] = means2d[2 * g + 0];\n"
-     "      s_my[tid] = means2d[2 * g + 1];\n"
-     "      s_ca[tid] = conics[3 * g + 0];\n"
-     "      s_cb[tid] = conics[3 * g + 1];\n"
-     "      s_cc[tid] = conics[3 * g + 2];\n"
-     "      s_op[tid] = opacities[g];\n#endif\n"),
-    ("      const float dx = s_mx[j] - px;\n"
-     "      const float dy = s_my[j] - py;\n"
-     "      const float sigma = 0.5f * (s_ca[j] * dx * dx + s_cc[j] * dy * dy) +\n"
-     "                          s_cb[j] * dx * dy;\n"
-     "      const float alpha = fminf(max_alpha, s_op[j] * expf(-sigma));\n",
-     "#ifdef GSL_ONE_RECORD\n"
-     "      const float4 ra = reinterpret_cast<const float4*>(s_rec)[2 * j];\n"
-     "      const float4 rb = reinterpret_cast<const float4*>(s_rec)[2 * j + 1];\n"
-     "      const float dx = ra.x - px;\n"
-     "      const float dy = ra.y - py;\n"
-     "      const float sigma = 0.5f * (ra.z * dx * dx + rb.x * dy * dy) +\n"
-     "                          ra.w * dx * dy;\n"
-     "      const float alpha = fminf(max_alpha, rb.y * expf(-sigma));\n"
-     "#else\n"
-     "      const float dx = s_mx[j] - px;\n"
-     "      const float dy = s_my[j] - py;\n"
-     "      const float sigma = 0.5f * (s_ca[j] * dx * dx + s_cc[j] * dy * dy) +\n"
-     "                          s_cb[j] * dx * dy;\n"
-     "      const float alpha = fminf(max_alpha, s_op[j] * expf(-sigma));\n"
-     "#endif\n"),
-    ("static_cast<size_t>(6 + CG) * bs", "static_cast<size_t>(GSL_WORDS + CG) * bs"),
-    # the first batch gathered and no other, the barrier after the gather
-    # passed only then; batches of GSL_BATCH slots
-    ("    const int64_t idx = base + tid;\n    if (idx < end) {\n",
-     "    const int64_t idx = base + tid;\n#ifdef GSL_GATHER_ONCE\n"
-     "    const bool gather = base == start;\n#else\n"
-     "    const bool gather = true;\n#endif\n"
-     "    if (gather && tid < GSL_BATCH && idx < end) {\n"),
-    ("    __syncthreads();\n    const int count = static_cast<int>("
-     "end - base < bs ? end - base : bs);\n",
-     "    if (gather) __syncthreads();\n    const int count = static_cast<int>("
-     "end - base < GSL_BATCH ? end - base : GSL_BATCH);\n"),
-    ("base < end; base += bs) {", "base < end; base += GSL_BATCH) {"),
-    ("    if (__syncthreads_count(done) == bs) break;\n",
-     "#ifdef GSL_NO_COUNT_EXIT\n    __syncthreads();\n#else\n"
-     "    if (__syncthreads_count(done) == bs) break;\n#endif\n")]
-OLD_K2S = [
-    OLD_HEAD, CKPT,
-    ("      if (stp::in_order(a, d)) {",
-     "#ifdef GSL_NO_SLOW\n      if (!stp::in_order(a, d)) T += 1e-30f;\n"
-     "      if (true) {\n#else\n      if (stp::in_order(a, d)) {\n#endif"),
-    ("        const uint64_t ranks = stp::count_ranks(d);\n",
-     "#ifdef GSL_NO_RANKS\n        const uint64_t ranks = stp::kIdentity;\n"
-     "#else\n        const uint64_t ranks = stp::count_ranks(d);\n#endif\n"),
-    # the nine fields as one record of 12 floats, read by three 16-byte
-    # loads
-    ("  float* s_col = s_geom + stp::kFields * bs;   // [CG, bs]\n",
-     "  float* s_col = s_geom + (GSL_WORDS == 12 ? 12 : stp::kFields) * bs;\n"),
-    ("      s_geom[f * bs + tid] =\n",
-     "      s_geom[GSL_WORDS == 12 ? tid * 12 + f : f * bs + tid] =\n"),
-    ("        const stp::Pair p = stp::pair_terms(s_geom, bs, first + l, px, "
-     "py);\n",
-     "#ifdef GSL_ONE_RECORD\n        float rr[12];\n"
-     "        const float4* r4 = reinterpret_cast<const float4*>(s_geom) + "
-     "3 * (first + l);\n"
-     "        for (int i = 0; i < 3; ++i) {\n"
-     "          rr[4 * i] = r4[i].x; rr[4 * i + 1] = r4[i].y;\n"
-     "          rr[4 * i + 2] = r4[i].z; rr[4 * i + 3] = r4[i].w;\n        }\n"
-     "        const stp::Pair p = stp::pair_terms(rr, 1, 0, px, py);\n#else\n"
-     "        const stp::Pair p = stp::pair_terms(s_geom, bs, first + l, px, "
-     "py);\n#endif\n"),
-    ("static_cast<size_t>(stp::kFields + CG + stp::kWindow)",
-     "static_cast<size_t>((GSL_WORDS == 12 ? 12 : stp::kFields) + CG + "
-     "stp::kWindow)"),
-    # the first batch gathered and no other, its two barriers passed only
-    # then
-    ("    __syncthreads();  // the previous batch has been composited\n",
-     "#ifdef GSL_GATHER_ONCE\n    if (base == start - start % stp::kWindow) "
-     "{\n#else\n    {\n#endif\n"
-     "    __syncthreads();  // the previous batch has been composited\n"),
-    ("    for (int c = 0; c < CG; ++c) s_col[c * bs + tid] = in_range ? "
-     "col[c] : 0.0f;\n    __syncthreads();\n",
-     "    for (int c = 0; c < CG; ++c) s_col[c * bs + tid] = in_range ? "
-     "col[c] : 0.0f;\n    __syncthreads();\n    }\n")]
-PREVIOUS = {
-    K2: (OLD_K2,
-         {"whole": [], "no_channel_sums": ["GSL_NO_CHANNELS"],
-          "alpha_test_only": ["GSL_TEST_ONLY"],
-          "one_record": ["GSL_ONE_RECORD"],
-          "gather_once": ["GSL_GATHER_ONCE"],
-          "no_block_exit": ["GSL_NO_COUNT_EXIT"],
-          "batch_64": ["GSL_BATCH=64"]}),
-    K2S: (OLD_K2S,
-          {"whole": [], "no_checkpoint_stores": ["GSL_NO_CKPT"],
-           "no_out_of_order_path": ["GSL_NO_SLOW"],
-           "no_rank_count": ["GSL_NO_RANKS"],
-           "one_record": ["GSL_ONE_RECORD"],
-           "gather_once": ["GSL_GATHER_ONCE"]}),
-}
-OLD_WORDS = {
-    K2: dict(ct=3, fn=KERNEL_FN[K2],
-             words="(size_t)(GSL_WORDS + C) * bs"),
-    K2S: dict(ct=3, fn=KERNEL_FN[K2S],
-              words="(size_t)((GSL_WORDS == 12 ? 12 : stp::kFields) + C + "
-                    "stp::kWindow) * bs"),
-}
-ATTRS = {K2: "gsl_rasterize_fwd_attributes",
-         K2S: "gsl_rasterize_fwd_stp_attributes",
-         K3: "gsl_rasterize_bwd_attributes",
-         K6: "gsl_rasterize_surfels_fwd_attributes",
-         K3S: "gsl_rasterize_bwd_stp_attributes",
-         K7: "gsl_rasterize_surfels_bwd_attributes"}
+# the call of the kernel's attributes entry in a copy of it as it is: the
+# raster kernels' take (C, tile size); K4's (R, n_abs)
+ATTRS = {K2: "gsl_rasterize_fwd_attributes(C, ts, out)",
+         K2S: "gsl_rasterize_fwd_stp_attributes(C, ts, out)",
+         K3: "gsl_rasterize_bwd_attributes(C, ts, out)",
+         K6: "gsl_rasterize_surfels_fwd_attributes(C, ts, out)",
+         K3S: "gsl_rasterize_bwd_stp_attributes(C, ts, out)",
+         K7: "gsl_rasterize_surfels_bwd_attributes(C, ts, out)",
+         K1: "gsl_expand_attributes(out)",
+         K4: "gsl_reduce_grads_attributes(C, ts, out)"}
 
 
 def table(design, name):
@@ -506,9 +532,10 @@ def write_copy(design, name, csrc):
         text = text.replace(old, new)
     if design == "current":
         text += ('\nextern "C" int gsl_parts_attributes(int C, int ts, int* '
-                 f'out) {{\n  return {ATTRS[name]}(C, ts, out);\n}}\n')
+                 f'out) {{\n  return {ATTRS[name]};\n}}\n')
     else:
-        text += OLD_ATTRS % OLD_WORDS[name]
+        fn, threads, smem = OLD_ATTRS[name]
+        text += OLD_ATTRS_ENTRY % (fn, fn, threads, smem, smem)
     path = os.path.join(OUT, f"{design}_{name}.cu")
     with open(path, "w") as f:
         f.write(text)
@@ -527,7 +554,7 @@ def build(designs, names):
             src = write_copy(design, name, csrc)
             for variant, defines in table(design, name)[1].items():
                 lib = os.path.join(OUT, f"{design}_{name}_{variant}.so")
-                cmd = [nvcc, *cuda_build.NVCC_FLAGS, "-I", csrc,
+                cmd = [nvcc, *cuda_build._flags(name), "-I", csrc,
                        *(f"-D{d}" for d in defines), "-o", lib, src]
                 jobs[(design, name, variant)] = (subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -546,11 +573,11 @@ def build(designs, names):
     return libs
 
 
-def attributes(lib, C):
+def attributes(lib, short):
     lib.gsl_parts_attributes.argtypes = [ctypes.c_int, ctypes.c_int,
                                          ctypes.c_void_p]
     out = (ctypes.c_int * 4)()
-    cuda_build.check(lib, lib.gsl_parts_attributes(C, CS.TILE, out),
+    cuda_build.check(lib, lib.gsl_parts_attributes(*ATTR_ARGS[short], out),
                      "attributes")
     return {"registers": out[0], "local_bytes": out[1],
             "shared_bytes": out[2], "blocks_per_sm": out[3]}
@@ -572,20 +599,35 @@ def bench_projection(arrays):
     return proj, opac, ch
 
 
-def k2_inputs(arrays):
-    """The bench pose at C = 3, as chip_smoke.phase_kernels builds it: K2's
-    wrapper's arguments."""
+def bench_sorted(arrays, stp=False):
+    """The bench pose at C = 3 through K1 and the sort, as
+    chip_smoke.phase_kernels (and check_stp_kernels with `stp`) builds it:
+    (K1's wrapper's arguments, channels, sorted ids, order, tile bounds)."""
     H, W, TILE = CS.H, CS.W, CS.TILE
     tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
     proj, opac, ch = bench_projection(arrays)
     m2d, con = proj.means2d.contiguous(), proj.conics.contiguous()
-    isects = R.isect_encode(proj, H, W, TILE)
-    keys, gids = R.expand(isects, m2d, con, opac, proj.depths.contiguous(),
-                          tiles_x, tiles_y, TILE, True)
-    sk, gs, _ = R.sort_slots(keys, gids)
-    bounds = R.tile_bounds(sk, tiles_x * tiles_y)
+    args = (R.isect_encode(proj, H, W, TILE), m2d, con, opac,
+            proj.depths.contiguous(), tiles_x, tiles_y, TILE, True, stp,
+            proj.depth_grads.contiguous() if stp else None)
+    keys, gids = R.expand(*args)
+    sk, gs, order = R.sort_slots(keys, gids)
+    return args, ch, gs, order, R.tile_bounds(sk, tiles_x * tiles_y)
+
+
+def k1_inputs(arrays):
+    return bench_sorted(arrays)[0]
+
+
+def k1stp_inputs(arrays):
+    return bench_sorted(arrays, stp=True)[0]
+
+
+def k2_inputs(arrays):
+    """The bench pose at C = 3: K2's wrapper's arguments."""
+    args, ch, gs, _, bounds = bench_sorted(arrays)
     gs = gs[:int(bounds[-1])].contiguous()
-    return (m2d, con, opac, ch, gs, bounds, H, W, TILE)
+    return (*args[1:4], ch, gs, bounds, CS.H, CS.W, CS.TILE)
 
 
 def k3_inputs(arrays):
@@ -600,19 +642,11 @@ def k3_inputs(arrays):
 
 
 def k2s_inputs(arrays):
-    """The bench pose at C = 3, as chip_smoke.check_stp_kernels builds it:
-    K2s's wrapper's arguments."""
-    H, W, TILE = CS.H, CS.W, CS.TILE
-    tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
-    proj, opac, ch = bench_projection(arrays)
-    m2d, con = proj.means2d.contiguous(), proj.conics.contiguous()
-    depths, kz = proj.depths.contiguous(), proj.depth_grads.contiguous()
-    isects = R.isect_encode(proj, H, W, TILE)
-    keys, gids = R.expand(isects, m2d, con, opac, depths, tiles_x, tiles_y,
-                          TILE, True, True, kz)
-    sk, gs, _ = R.sort_slots(keys, gids)
-    bounds = R.tile_bounds(sk, tiles_x * tiles_y)
-    return (m2d, con, opac, ch, depths, kz, gs, bounds, H, W, TILE)
+    """The bench pose at C = 3 with StopThePop keys: K2s's wrapper's
+    arguments."""
+    args, ch, gs, _, bounds = bench_sorted(arrays, stp=True)
+    return (*args[1:4], ch, args[4], args[10], gs, bounds, CS.H, CS.W,
+            CS.TILE)
 
 
 def k3s_inputs(arrays):
@@ -654,6 +688,60 @@ def k7_inputs(arrays):
     return (geom, ch, gs, bounds, g_out, g_aux, aux, stop, TILE)
 
 
+def k4_inputs(arrays):
+    """K4's wrapper's arguments on K3's rows at the bench pose (C = 3),
+    as chip_smoke.check_backward builds them."""
+    args, ch, gs, order, bounds = bench_sorted(arrays)
+    gs = gs[:int(bounds[-1])].contiguous()
+    fwd = (*args[1:4], ch, gs, bounds, CS.H, CS.W, CS.TILE)
+    _, t_fin, stop = R.rasterize_fwd(*fwd)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g_out = torch.randn((CS.H, CS.W, 3), generator=gen, device="cuda")
+    g_alpha = torch.randn((CS.H, CS.W), generator=gen, device="cuda")
+    rows = R.rasterize_bwd(*fwd[:6], g_out, g_alpha, t_fin, stop, CS.TILE)
+    return (rows, gs, args[0].offsets, R.invert_order(order), bounds[-1:],
+            args[1].shape[0], 2)
+
+
+def k4stp_inputs(arrays):
+    """K4's wrapper's arguments on K3s's rows at the bench pose (C = 3),
+    as chip_smoke.check_stp_kernels builds them."""
+    args, ch, gs, order, bounds = bench_sorted(arrays, stp=True)
+    fwd = (*args[1:4], ch, args[4], args[10], gs, bounds, CS.H, CS.W,
+           CS.TILE)
+    _, t_fin, _, ckpt = STP.rasterize_fwd_stp(*fwd, checkpoints=True)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    g_out = torch.randn((CS.H, CS.W, 3), generator=gen, device="cuda")
+    g_alpha = torch.randn((CS.H, CS.W), generator=gen, device="cuda")
+    rows = STP.rasterize_bwd_stp(*fwd[:8], g_out, g_alpha, t_fin, ckpt,
+                                 CS.TILE)
+    return (rows, gs, args[0].offsets, R.invert_order(order), bounds[-1:],
+            args[1].shape[0], 2)
+
+
+def k4surfel_inputs(arrays):
+    """K4's wrapper's arguments on K7's rows at the bench pose (C = 6), as
+    chip_smoke.check_surfel_kernels builds them."""
+    H, W, TILE = CS.H, CS.W, CS.TILE
+    tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
+    state = state_from_raw_arrays(CS.surfel_arrays(arrays), device="cuda")
+    proj, geom, ch = CS.surfel_inputs(state, CS.camera(np.eye(4)), 6)
+    isects = SR.surfel_isect_encode(proj.means2d, proj.depths, proj.radii,
+                                    H, W, TILE)
+    keys, gids = SR.surfel_expand(isects, proj.depths.contiguous(), tiles_x,
+                                  tiles_y)
+    sk, gs, order = R.sort_slots(keys, gids)
+    bounds = R.tile_bounds(sk, tiles_x * tiles_y)
+    _, aux, stop = SR.rasterize_surfels_fwd(geom, ch, gs, bounds, H, W, TILE)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    g_out = torch.randn((H, W, 6), generator=gen, device="cuda")
+    g_aux = torch.randn((3, H, W), generator=gen, device="cuda")
+    rows = SR.rasterize_surfels_bwd(geom, ch, gs, bounds, g_out, g_aux, aux,
+                                    stop, TILE)
+    return (rows, gs, isects.offsets, R.invert_order(order), bounds[-1:],
+            geom.shape[0], 0)
+
+
 def launcher(name, lib, args, outs):
     """A call of the copy's C entry point on the wrapper's arguments,
     writing into `outs`."""
@@ -661,7 +749,25 @@ def launcher(name, lib, args, outs):
     H, W = CS.H, CS.W
     tiles_x, tiles_y = -(-W // CS.TILE), -(-H // CS.TILE)
     grid = (tiles_x * tiles_y, tiles_x, CS.TILE, H, W)
-    if name == K2:
+    if name == K1:
+        fn = lib.gsl_expand
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] * 3)
+        isects, stp, kz = args[0], args[9], args[10]
+        call = (ptr(isects.offsets), ptr(isects.rect), ptr(args[4]),
+                *map(ptr, args[1:4]), ptr(kz) if stp else None,
+                args[1].shape[0], args[7], args[5], args[6], int(args[8]),
+                int(stp), *map(ptr, outs), stream)
+    elif name == K4:
+        fn = lib.gsl_reduce_grads
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        rows, _, offsets, inv, n_valid, n, n_abs = args
+        call = (ptr(rows), rows.shape[1], n_abs, ptr(offsets), inv.numel(),
+                ptr(inv), ptr(n_valid), n, ptr(outs[0]), stream)
+    elif name == K2:
         fn = lib.gsl_rasterize_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
@@ -712,12 +818,16 @@ def launcher(name, lib, args, outs):
     return lambda: cuda_build.check(lib, fn(*call), name)
 
 
-WRAPPERS = {K2: R.rasterize_fwd,
-            K2S: lambda *a: STP.rasterize_fwd_stp(*a, checkpoints=True),
-            K3: R.rasterize_bwd, K6: SR.rasterize_surfels_fwd,
-            K3S: STP.rasterize_bwd_stp, K7: SR.rasterize_surfels_bwd}
-INPUTS = {K2: k2_inputs, K2S: k2s_inputs, K3: k3_inputs, K6: k6_inputs,
-          K3S: k3s_inputs, K7: k7_inputs}
+WRAPPERS = {"K1": R.expand, "K1stp": R.expand, "K2": R.rasterize_fwd,
+            "K2s": lambda *a: STP.rasterize_fwd_stp(*a, checkpoints=True),
+            "K3": R.rasterize_bwd, "K4": R.reduce_grads,
+            "K4stp": R.reduce_grads, "K4surfel": R.reduce_grads,
+            "K6": SR.rasterize_surfels_fwd, "K3s": STP.rasterize_bwd_stp,
+            "K7": SR.rasterize_surfels_bwd}
+INPUTS = {"K1": k1_inputs, "K1stp": k1stp_inputs, "K2": k2_inputs,
+          "K2s": k2s_inputs, "K3": k3_inputs, "K4": k4_inputs,
+          "K4stp": k4stp_inputs, "K4surfel": k4surfel_inputs,
+          "K6": k6_inputs, "K3s": k3s_inputs, "K7": k7_inputs}
 
 
 def rows_read(bounds, n_rows):
@@ -745,8 +855,9 @@ def same_outputs(name, outs, want, args):
             torch.equal(outs[3][rows], want[3][rows])]
 
 
-def time_kernel(name, libs, designs, args):
-    wrapper = WRAPPERS[name]
+def time_kernel(short, libs, designs, args):
+    name = SHORT[short]
+    wrapper = WRAPPERS[short]
     want = wrapper(*args)
     want = want if isinstance(want, tuple) else (want,)
     outs = [torch.zeros_like(t) for t in want]
@@ -755,7 +866,7 @@ def time_kernel(name, libs, designs, args):
     result = {"wrapper_ms": CS.cuda_ms(lambda: wrapper(*args), 20),
               "identical_in_two_runs": same_outputs(name, again, want,
                                                     args)}
-    print(f"{name} package's kernel: {result['wrapper_ms']:.4f} ms through "
+    print(f"{short} package's kernel: {result['wrapper_ms']:.4f} ms through "
           f"its wrapper; outputs identical in two runs: "
           f"{result['identical_in_two_runs']}", flush=True)
     for design in designs:
@@ -769,13 +880,13 @@ def time_kernel(name, libs, designs, args):
             ms = CS.cuda_ms(run, 20)
             same = (same_outputs(name, outs, want, args)
                     if variant == "whole" else None)
-            attrs = attributes(lib, CHANNELS[name])
+            attrs = attributes(lib, short)
             entry = result.setdefault(design, {}).setdefault(variant, {
                 "ms": [], **attrs})
             entry["ms"].append(ms)
             if same is not None:
                 entry["equals_package_kernel"] = same
-            print(f"{name} {design} {variant}: {ms:.4f} ms {attrs}"
+            print(f"{short} {design} {variant}: {ms:.4f} ms {attrs}"
                   + ("" if same is None else
                      f"; output equals the package's kernel's: {same}"),
                   flush=True)
@@ -812,11 +923,78 @@ def k2_counts(args):
     return out
 
 
-def counts(name, args):
+def slot_stats(offsets, total, per_gaussian):
+    """Slots per Gaussian, and the mean warp iterations of the design
+    before (a7fa1ac) in which `per_gaussian` consecutive threads each loop
+    over the slots of one Gaussian (K1: 1; K4: one a column), beside the
+    share of lane iterations that do work."""
+    slots = torch.diff(offsets, append=offsets.new_tensor([total])).float()
+    q = torch.quantile(slots[:1 << 24], torch.tensor(
+        [0.5, 0.9, 0.99], device=slots.device)).tolist()
+    lanes = slots.repeat_interleave(per_gaussian)
+    lanes = torch.nn.functional.pad(lanes, (0, -lanes.numel() % 32))
+    most = lanes.reshape(-1, 32).amax(1)
+    return {"gaussians": slots.numel(), "slots": total,
+            "slots_per_gaussian_mean": float(slots.mean()), "median": q[0],
+            "p90": q[1], "p99": q[2], "max": int(slots.max()),
+            "warp_iterations_before": float(most.mean()),
+            "useful_lane_share_before": float(lanes.sum())
+            / float(32 * most.sum())}
+
+
+def run_stats(offsets, total, run, per_pass):
+    """Slots of each run of `run` Gaussians and the passes of `per_pass`
+    slots that walk them."""
+    ends = torch.cat([offsets[run::run], offsets.new_tensor([total])])
+    slots = torch.diff(ends, prepend=offsets[:1]).float()
+    passes = torch.ceil(slots / per_pass)
+    return {"run": run, "runs": slots.numel(),
+            "run_slots_mean": float(slots.mean()),
+            "run_slots_max": int(slots.max()), "passes": int(passes.sum()),
+            "busy_share": float(slots.sum() / (passes.sum() * per_pass))}
+
+
+def k4_run_length(n_cols, total, n):
+    """The Gaussians a block of K4 owns: csrc/reduce_grads.cu's
+    run_length."""
+    per_gaussian = total / n if n > 0 and total > n else 1.0
+    run = 256
+    while run > 32 and 1.25 * run * per_gaussian > max(1, 4096 // n_cols):
+        run //= 2
+    return run
+
+
+def sector_bytes(inv_order, n_valid, n_cols):
+    """The 32-byte sectors that the valid rows of n_cols floats span, as
+    bytes: each row read at a random 4-byte offset."""
+    pos = inv_order[inv_order < n_valid].long()
+    first = pos * n_cols * 4 // 32
+    last = (pos * n_cols * 4 + n_cols * 4 - 1) // 32
+    return int((last - first + 1).sum()) * 32
+
+
+def counts(short, args):
     """What the plain versions count at these inputs (the backward kernels'
     (slot, warp)s with a composited pixel; K2s's out-of-order windows and
-    live entries), K2's lists and warp steps, or K6's warp steps."""
+    live entries), K2's lists and warp steps, K6's warp steps, or the slots
+    per Gaussian and per run of K1 and K4 with K4's row sectors."""
+    name = SHORT[short]
     stats = {}
+    if name == K1:
+        isects = args[0]
+        return {**slot_stats(isects.offsets, isects.total, 1),
+                "empty_rectangles": int(
+                    (isects.rect[:, 2] * isects.rect[:, 3] == 0).sum()),
+                **run_stats(isects.offsets, isects.total, 128, 128)}
+    if name == K4:
+        rows, _, offsets, inv, n_valid, _, n_abs = args
+        n_cols, nv = rows.shape[1], int(n_valid)
+        return {**slot_stats(offsets, inv.numel(), n_cols + n_abs),
+                "valid_rows": nv, "row_bytes": 4 * n_cols * nv,
+                "row_sector_bytes": sector_bytes(inv, nv, n_cols),
+                **run_stats(offsets, inv.numel(),
+                            k4_run_length(n_cols, inv.numel(), len(offsets)),
+                            max(1, 4096 // n_cols))}
     if name == K2:
         return k2_counts(args)
     if name == K2S:
@@ -833,13 +1011,15 @@ def counts(name, args):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--kernels", default="K2,K2s,K3,K6,K3s,K7",
-                        help="which kernels, comma-separated")
+    parser.add_argument("--kernels", default=",".join(SHORT),
+                        help="which kernels, comma-separated, of "
+                        + ", ".join(SHORT))
     parser.add_argument("--previous", help="a directory holding "
-                        "gsl_tpu_torch/csrc of K2 and K2s before their "
+                        "gsl_tpu_torch/csrc of K1 and K4 before their "
                         "redesign")
     opts = parser.parse_args()
-    names = [SHORT[k] for k in opts.kernels.split(",")]
+    shorts = opts.kernels.split(",")
+    names = sorted({SHORT[k] for k in shorts})
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -859,11 +1039,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     report = {"device": smi}
     with torch.no_grad():
-        for name in names:
-            args = INPUTS[name](arrays)
-            report[name] = time_kernel(name, libs, designs, args)
-            report[name]["stats"] = counts(name, args)
-            print(f"{name} counts: {report[name]['stats']}", flush=True)
+        for short in shorts:
+            args = INPUTS[short](arrays)
+            report[short] = time_kernel(short, libs, designs, args)
+            report[short]["stats"] = counts(short, args)
+            print(f"{short} counts: {report[short]['stats']}", flush=True)
             del args
             torch.cuda.empty_cache()
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

@@ -35,6 +35,7 @@ SHARE = 0.999
 
 RUNTIME = r"""
 #pragma once
+#include <algorithm>
 #include <atomic>
 #include <barrier>
 #include <cmath>
@@ -63,6 +64,14 @@ template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(
     int*, F, int, size_t) { return 1; }
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "emulated"; }
+using std::max;
+using std::min;
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof(u));
+  return u;
+}
+struct int4 { int x, y, z, w; };
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
@@ -149,23 +158,24 @@ def _host_source(name):
     text = re.sub(r"extern __shared__ (__align__\(16\) )?float smem\[\];",
                   "float* smem = emu::smem;", text)
     text = re.sub(
-        r"(\w+<\w+>)<<<([^>]*)>>>\(([^;]*)\);",
+        r"(\w+(?:<\w+>)?)<<<([^>]*)>>>\(([^;]*)\);",
         lambda m: (f"(emu::launch({m.group(2)}, [&] {{ "
                    f"{m.group(1)}({m.group(3)}); }}), 0);"), text, flags=re.S)
     assert "emu::launch" in text and "<<<" not in text
     return text.replace("#include <cuda_runtime.h>", "")
 
 
-@pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
+def build_host_libs(names, out):
+    """{name: ctypes library} of the sources `names`, compiled for the host
+    into the directory `out`, one compiler process each, all started
+    together."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
-    out = tmp_path_factory.mktemp("emulated")
     (out / "cuda_runtime.h").write_text(RUNTIME)
     (out / "cuda_pipeline.h").write_text("#pragma once\n")
     procs = {}
-    for name in ("rasterize_fwd", "rasterize_fwd_stp", "rasterize_bwd_stp"):
+    for name in names:
         src = out / f"{name}.cc"
         src.write_text('#include "cuda_runtime.h"\n' + _host_source(name))
         procs[name] = subprocess.Popen(
@@ -179,6 +189,13 @@ def host_libs(tmp_path_factory):
         assert proc.returncode == 0, log[-3000:]
         libs[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
     return libs
+
+
+@pytest.fixture(scope="module")
+def host_libs(tmp_path_factory):
+    return build_host_libs(
+        ("rasterize_fwd", "rasterize_fwd_stp", "rasterize_bwd_stp"),
+        tmp_path_factory.mktemp("emulated"))
 
 
 def _p(t):

@@ -37,7 +37,7 @@ def test_switches_apply_to_the_source(tmp_path, monkeypatch, name):
     path = PARTS.write_copy("current", name, str(PARTS.cuda_build.CSRC))
     copy = pathlib.Path(path).read_text()
     assert path.startswith(str(tmp_path))
-    assert f"{PARTS.ATTRS[name]}(C, ts, out)" in copy
+    assert f"return {PARTS.ATTRS[name]};" in copy
     assert "whole" in variants
     for variant, defines in variants.items():
         for define in defines:

@@ -60,6 +60,7 @@ import numpy as np
 import pytest
 import torch
 
+import slot_cases
 from gsl_tpu_torch.data.cameras import make_camera
 from gsl_tpu_torch.ops import rasterize as R
 from gsl_tpu_torch.ops import rasterize_stp as STP
@@ -329,6 +330,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         R.expand(isects, proj.means2d, proj.conics, op.cpu(), proj.depths,
                  W // TS, H // TS, TS, True)
+    rect = torch.empty(isects.rect.numel() + 1, dtype=torch.int32,
+                       device=cuda)[1:].view(-1, 4).copy_(isects.rect)
+    with pytest.raises(RuntimeError):      # K1 reads rect 16 bytes a time
+        R.expand(isects._replace(rect=rect), proj.means2d, proj.conics, op,
+                 proj.depths, W // TS, H // TS, TS, True)
     bwd, isects, order, n = _backward_inputs(cuda, 3, n=100)
     with pytest.raises(TypeError):
         R.rasterize_bwd(*bwd[:6], bwd[6].double(), *bwd[7:])
@@ -337,6 +343,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     rows = R.rasterize_bwd(*bwd)
     with pytest.raises(TypeError):
         R.reduce_grads(rows, bwd[4], isects.offsets, order, bwd[5][-1:], n)
+    inv = R.invert_order(order)
+    wide = torch.zeros((rows.shape[0], 5000), device=cuda)
+    with pytest.raises(RuntimeError):      # no pass of one slot in 48 KB
+        R.reduce_grads(wide, bwd[4], isects.offsets, inv, bwd[5][-1:], n)
 
 
 def _cut_lists(gids, bounds, lengths):
@@ -725,6 +735,70 @@ def test_stp_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         STP.rasterize_bwd_stp(*fwd[:8], g_out.double(), g_alpha, t_fin, ckpt,
                               TS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stp", [False, True], ids=["depth", "stp"])
+@pytest.mark.parametrize("case", sorted(slot_cases.K1_CASES))
+def test_k1_edge_cases_equal_plain(cuda, case, stp):
+    """K1 over runs that a Gaussian count fills unevenly, empty rectangles
+    and a rectangle of 40 x 40 tiles (slot_cases): bit for bit, twice."""
+    args = slot_cases.expand_args(case, stp=stp, device=cuda)
+    before = R.expand.launches
+    keys, gids = R.expand(*args)
+    assert R.expand.launches == before + 1
+    keys_p, gids_p = R.expand_plain(*args)
+    assert torch.equal(keys, keys_p) and torch.equal(gids, gids_p)
+    again = R.expand(*args)
+    assert torch.equal(keys, again[0]) and torch.equal(gids, again[1])
+    assert_attributes(R.expand_attributes())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_abs", [0, 2])
+@pytest.mark.parametrize("n_cols", [9, 14, 19, 33, 300])
+def test_k4_edge_cases_sum_in_slot_order(cuda, n_cols, n_abs):
+    """K4 over the same slots, with fewer valid rows than slots and a
+    Gaussian of more slots than a staging pass: equal to the float32 sums
+    in slot order bit for bit, twice, and within 1e-5 of the summed
+    magnitudes of index_add_'s."""
+    rows, gids, offsets, inv, n_valid, n = slot_cases.reduce_args(
+        n_cols, device=cuda)
+    before = R.reduce_grads.launches
+    got = R.reduce_grads(rows, gids, offsets, inv, n_valid, n, n_abs)
+    assert R.reduce_grads.launches == before + 1
+    want = R.reduce_grads_slot_order(rows, offsets, inv, n_valid, n, n_abs)
+    assert torch.equal(got, want)
+    assert torch.equal(got, R.reduce_grads(rows, gids, offsets, inv,
+                                           n_valid, n, n_abs))
+    plain = R.reduce_grads_plain(rows, gids, n, n_abs)
+    into = R.reduce_grads_plain(rows.abs(), gids, n, n_abs)
+    assert bool(((got - plain).abs() <= 1e-5 * into).all())
+    assert_attributes(R.reduce_grads_attributes(n_cols, n_abs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cols", [9, 33, 300])
+def test_k4_with_gaussians_without_slots(cuda, n_cols):
+    """Zeros for a Gaussian without slots where a staging pass begins or a
+    run of several passes ends, in every run."""
+    rows, gids, offsets, inv, n_valid, n = slot_cases.reduce_args(
+        n_cols, without_slots=True, device=cuda)
+    got = R.reduce_grads(rows, gids, offsets, inv, n_valid, n)
+    want = R.reduce_grads_slot_order(rows, offsets, inv, n_valid, n)
+    assert torch.equal(got, want)
+    assert torch.equal(got[1::2], torch.zeros_like(got[1::2]))
+    assert torch.equal(got, R.reduce_grads(rows, gids, offsets, inv,
+                                           n_valid, n))
+
+
+@pytest.mark.cuda
+def test_k4_with_no_valid_slot(cuda):
+    rows, gids, offsets, inv, n_valid, n = slot_cases.reduce_args(
+        9, all_invalid=True, device=cuda)
+    got = R.reduce_grads(rows, gids, offsets, inv, n_valid, n)
+    assert torch.equal(got, torch.zeros_like(got))
+    assert not bool(torch.signbit(got).any())
 
 
 @pytest.mark.cuda
