@@ -42,7 +42,8 @@ package is not beside this script. Phases, each fatal on failure:
    The surfel (2DGS) kernels, on the same scene with 2-column scales and
    C = 6 channels (rgb + view-space normal) at the bench pose and the first
    orbit view, and once each with C = 3 and C = 9: K5 surfel expand must
-   equal surfel_expand_plain bit for bit; K6 surfel forward must agree
+   equal surfel_expand_plain bit for bit and give the same keys and ids
+   when run twice; K6 surfel forward must agree
    with rasterize_surfels_fwd_plain on i_stop at >= 99.9% of pixels and on
    the channels, T, sum w depth, distortion, A, M1 and M2 within K2's
    tolerance at all but 1e-4 of the values, and on the median depth at all
@@ -159,15 +160,15 @@ window and 5 + 2C per live entry of it (csrc/rasterize_bwd_stp.cu), and
 moves the checkpoints (64 bytes per sorted slot) on top of K3's bytes. A
 kernel's `ms`, and a library call's, is the mean of 20 replays of one
 wrapper call captured in a CUDA graph, between CUDA events: the host's
-per-call cost would pace K1's and K5's 0.04 ms kernels; the plain
+per-call cost would pace K1's 0.04 ms and K5's 0.03 ms kernels; the plain
 versions read the device from the host and are timed by calls between
 CUDA events. In the kernels line, `launches` is a kernel's count
 on the training path of its own model (K1-K4: phase 5; K5-K7: phase
 6; K2s, K3s: phase 7) and `serving_launches` on the serving path; K4 also
 carries its surfel-layout numbers under `surfel_*` keys, and K1 its
-StopThePop numbers (phase 7's counts) under `stp_*` keys. K1, K2, K2s, K3,
-K3s, K6, K7 and K4 (K4 with R = 9 and, under `surfel_attributes`, R = 19)
-carry their `attributes` as the card's runtime reports them.
+StopThePop numbers (phase 7's counts) under `stp_*` keys. All nine
+kernels (K4 with R = 9 and, under `surfel_attributes`, R = 19) carry their
+`attributes` as the card's runtime reports them.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -990,11 +991,14 @@ def check_surfel_kernels(vname, C, state, cam, seed, timed):
                                     H, W, TILE)
     args = (isects, proj.depths.contiguous(), tiles_x, tiles_y)
     keys_k, gids_k = SR.surfel_expand(*args)
+    again = SR.surfel_expand(*args)
     keys_p, gids_p = SR.surfel_expand_plain(*args)
     torch.cuda.synchronize()
     if not (torch.equal(keys_k, keys_p) and torch.equal(gids_k, gids_p)):
         fail(f"K5 {tag}: kernel differs from surfel_expand_plain at "
              f"{int((keys_k != keys_p).sum())} slots")
+    if not (torch.equal(keys_k, again[0]) and torch.equal(gids_k, again[1])):
+        fail(f"K5 {tag}: two runs gave different keys or ids")
     sk, gs, order = R.sort_slots(keys_k, gids_k)
     bounds = R.tile_bounds(sk, n_tiles)
     n_valid = int(bounds[-1])
@@ -1002,7 +1006,8 @@ def check_surfel_kernels(vname, C, state, cam, seed, timed):
         fail(f"K5 {tag}: {n_valid} valid keys for {isects.n_isects} "
              "intersections")
     counts = bounds[1:] - bounds[:-1]
-    log(f"K5 {tag}: bit-identical; slots {isects.total} real "
+    log(f"K5 {tag}: bit-identical, identical in two runs; slots "
+        f"{isects.total} real "
         f"{isects.n_isects} (no cull); longest tile list "
         f"{int(counts.max())}, mean {float(counts.float().mean()):.1f}")
 
@@ -1048,6 +1053,8 @@ def check_surfel_kernels(vname, C, state, cam, seed, timed):
     if timed:
         attrs = SR.rasterize_surfels_fwd_attributes(C, TILE)
         log_attributes("K6", C, attrs)
+        expand_attrs = SR.surfel_expand_attributes()
+        log_attributes("K5", None, expand_attrs)
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     g_out = torch.randn((H, W, C), generator=gen, device="cuda")
@@ -1131,7 +1138,7 @@ def check_surfel_kernels(vname, C, state, cam, seed, timed):
         pairs_bwd=pairs_bwd, composited_pairs=composited,
         composited_slot_warps=stats["composited_slot_warps"],
         bwd_attributes=SR.rasterize_surfels_bwd_attributes(C, TILE),
-        fwd_attributes=attrs,
+        fwd_attributes=attrs, expand_attributes=expand_attrs,
         reduce_attributes=R.reduce_grads_attributes(13 + C, 0))
     log_attributes(f"K4 R={13 + C} n_abs=0", None, rec["reduce_attributes"])
     log(f"surfel {tag} timings " + json.dumps(
@@ -1854,12 +1861,14 @@ def main():
                         attributes=rec["reduce_attributes"],
                         surfel_attributes=srec["reduce_attributes"])
     expand_entry.update(attributes=rec["expand_attributes"])
+    surfel_expand_entry = surfel_entry("surfel_expand", 61, 0.0, "expand")
+    surfel_expand_entry.update(attributes=srec["expand_attributes"])
     kernels = [
         expand_entry,
         entry("rasterize_fwd", 869, rec["fwd_err"], "fwd"),
         entry("rasterize_bwd", 1069, rec["bwd_err"], "bwd"),
         reduce_entry,
-        surfel_entry("surfel_expand", 61, 0.0, "expand"),
+        surfel_expand_entry,
         surfel_entry("surfel_fwd", 253, srec["fwd_err"], "fwd"),
         surfel_entry("surfel_bwd", 428, srec["bwd_err"], "bwd"),
         stp_entry("rasterize_fwd_stp", 869, trec["fwd_err"], "fwd"),

@@ -5,12 +5,12 @@
 // rectangle's, or one dummy slot), laid out in Gaussian order, so a block
 // that owns the Gaussians g0 .. g0 + count owns one slot range s0 .. s1 and
 // can walk it slot by slot with all its threads, as the TPU kernel walked
-// its windows of slots. K1 (expand.cu) and K4 (reduce_grads.cu) do; one
-// thread per Gaussian looping over that Gaussian's slots keeps its warp as
-// long as the warp's longest Gaussian (~7 iterations for ~2.6 useful ones
-// at the bench scene). The block stages the run's slot offsets in shared
-// memory, relative to s0, and finds the Gaussian of a slot by binary search
-// there.
+// its windows of slots. K1 (expand.cu), K4 (reduce_grads.cu) and K5
+// (surfel_expand.cu, over surfels) do; one thread per Gaussian looping over
+// that Gaussian's slots keeps its warp as long as the warp's longest
+// Gaussian (~7 iterations for ~2.6 useful ones at the bench scene). The
+// block stages the run's slot offsets in shared memory, relative to s0, and
+// finds the Gaussian of a slot by binary search there.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -121,12 +121,23 @@ def _expand_lib():
     lib.gsl_expand_surfel.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
     lib.gsl_expand_surfel.restype = ctypes.c_int
+    lib.gsl_expand_surfel_attributes.argtypes = [ctypes.c_void_p]
+    lib.gsl_expand_surfel_attributes.restype = ctypes.c_int
     return lib
+
+
+def surfel_expand_attributes():
+    """`kernel_attributes` of the K5 kernel."""
+    return kernel_attributes(_expand_lib(), "gsl_expand_surfel_attributes")
 
 
 def surfel_expand(isects: Isects, depths, tiles_x: int, tiles_y: int):
     """Kernel K5 on CUDA tensors, `surfel_expand_plain` on CPU tensors.
-    Returns (keys [total] int64, gids [total] int32) in slot order."""
+    Returns (keys [total] int64, gids [total] int32) in slot order. On the
+    card `isects.rect` must start 16-byte aligned, as a tensor of its own
+    does (K5 reads a surfel's rectangle in one 16-byte load), and
+    tiles_x * tiles_y * 128 must fit an int32 (a block's run of 128
+    surfels)."""
     if not depths.is_cuda:
         return surfel_expand_plain(isects, depths, tiles_x, tiles_y)
     if depths.dtype != torch.float32:

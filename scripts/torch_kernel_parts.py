@@ -1,18 +1,18 @@
-"""Cost of each part of eight hand-written kernels of the PyTorch port, on
-one CUDA card: the slot kernels K1 (csrc/expand.cu) and K4
-(csrc/reduce_grads.cu), the forward kernels K2 (csrc/rasterize_fwd.cu), K2s
+"""Cost of each part of the nine hand-written kernels of the PyTorch port,
+on one CUDA card: the slot kernels K1 (csrc/expand.cu), K4
+(csrc/reduce_grads.cu) and K5 (csrc/surfel_expand.cu), the forward kernels K2 (csrc/rasterize_fwd.cu), K2s
 (csrc/rasterize_fwd_stp.cu) and K6 (csrc/surfel_fwd.cu), and the backward
 kernels K3 (csrc/rasterize_bwd.cu), K3s (csrc/rasterize_bwd_stp.cu) and K7
 (csrc/surfel_bwd.cu).
 
-    python3 scripts/torch_kernel_parts.py [--kernels K1,K4,K4surfel,...]
+    python3 scripts/torch_kernel_parts.py [--kernels K1,K4,K5,K4surfel,...]
                                           [--previous DIR]
 
 Each part is removed in turn by a preprocessor switch that this script
 writes into a copy of the kernel's source under gsl_tpu_torch/build/parts/
 (the package's sources stay as they are), and every copy is timed with CUDA
 events at chip_smoke.py's bench scene (1M Gaussians or surfels, 1088x1920,
-bench pose; K2, K2s, K3 and K3s at C = 3, K6 and K7 at C = 6) beside the
+bench pose; K2, K2s, K3 and K3s at C = 3, K5, K6 and K7 at C = 6) beside the
 copy with nothing removed, which is timed first and last. K1 is timed with
 depth keys (K1) and StopThePop keys (K1stp), K4 on the rows of K3 (K4, R =
 9 with two absolute columns), K3s (K4stp) and K7 (K4surfel, R = 19). A copy
@@ -26,6 +26,9 @@ The parts of the kernels as they are:
   (the slot's Gaussian guessed from its share of the run); and choices
   undone: runs of 64 or 256 Gaussians in place of 128, a build for 16
   blocks per SM (32 registers);
+- K5: the key stores (the keys computed, one in 2^32 stored); the key and
+  id stores; the binary search (the slot's surfel guessed from its share
+  of the run); and runs of 64, 256 or 512 surfels in place of 128;
 - K4: the row gather (the sorted position staged in place of the row); the
   inv_order load (positions hashed from the slot, all valid); the absolute
   columns; the sums over a Gaussian's slots (one staged value taken); and
@@ -62,25 +65,22 @@ The parts of the kernels as they are:
   two choices undone: the six IEEE divisions by cz and Tw.z in place of
   the two reciprocals, and a build for 3 blocks per SM.
 
-With --previous DIR, also K1 and K4 as they were before their redesign,
-from DIR/gsl_tpu_torch/csrc (`git archive a7fa1ac gsl_tpu_torch/csrc | tar
--x -C DIR`, e.g. into .scratch/prev of the checkout, which git ignores):
-one thread a Gaussian looping over its slots (K1) and one thread a
-(Gaussian, column) looping over its slots (K4). K1 without its cull, its
-key stores or its dummy slots' keys; K4 without its row gather
-(the position added in place of the row), its inv_order gather (positions
-hashed from the slot), its test of the position against the valid count
-(invalid slots read row 0) or its absolute columns. Each "whole" copy's
-outputs are compared with the package's kernel's: K1's keys and ids, K4's
-sums. (The version of this script in commit a7fa1ac timed K2 and K2s of
-commit 48a8ffb the same way, the one in commit 48a8ffb K3 and K6 of commit
-1eebc16, the one in commit 173d447 K3s and K7 of commit daa6548.)
+With --previous DIR, also K5 as it was before its redesign, from
+DIR/gsl_tpu_torch/csrc (`git archive 1bc8fc5 gsl_tpu_torch/csrc | tar -x
+-C DIR`, e.g. into .scratch/prev of the checkout, which git ignores): one
+thread a surfel looping over its slots; without its key and id stores,
+and with its rectangle read in one 16-byte load in place of four 4-byte
+ones. The "whole" copy's keys and ids are compared with the package's
+kernel's. (The version of this script in commit 1bc8fc5 timed K1 and K4 of
+commit a7fa1ac the same way, the one in commit a7fa1ac K2 and K2s of
+commit 48a8ffb, the one in commit 48a8ffb K3 and K6 of commit 1eebc16, the
+one in commit 173d447 K3s and K7 of commit daa6548.)
 
 Prints ptxas's registers and spills, the registers, spills, shared bytes
 and resident blocks per SM that the card's runtime reports, every time;
-for K1 and K4 the slots per Gaussian, the warp iterations of the design
-before (one thread a Gaussian or a (Gaussian, column)) and their useful
-share, the runs' slots and passes, and for K4 the bytes of the valid rows
+for K1, K4 and K5 the slots per Gaussian or surfel, the warp iterations
+of the design before (one thread a Gaussian, surfel or (Gaussian,
+column)) and their useful share, the runs' slots and passes, and for K4 the bytes of the valid rows
 and of the 32-byte sectors they span; for K2 the tiles' list lengths, the
 waves of resident blocks and the (warp, slot) steps of warps of 32 pixels
 and of 32 threads of two pixels each; for K2s the (pixel, window)s and
@@ -115,13 +115,15 @@ from gsl_tpu_torch.renderers import tile_renderer  # noqa: E402
 from gsl_tpu_torch.utils.convert import state_from_raw_arrays  # noqa: E402
 
 OUT = os.path.join(REPO, "gsl_tpu_torch", "build", "parts")
-K1, K2, K2S, K3, K4, K6, K3S, K7 = (
+K1, K2, K2S, K3, K4, K5, K6, K3S, K7 = (
     "expand", "rasterize_fwd", "rasterize_fwd_stp", "rasterize_bwd",
-    "reduce_grads", "surfel_fwd", "rasterize_bwd_stp", "surfel_bwd")
+    "reduce_grads", "surfel_expand", "surfel_fwd", "rasterize_bwd_stp",
+    "surfel_bwd")
 # what is timed -> its source: K1 with either key kind, K4 on the rows of
 # K3, K3s and K7
 SHORT = {"K1": K1, "K1stp": K1, "K2": K2, "K2s": K2S, "K3": K3, "K4": K4,
-         "K4stp": K4, "K4surfel": K4, "K6": K6, "K3s": K3S, "K7": K7}
+         "K4stp": K4, "K4surfel": K4, "K5": K5, "K6": K6, "K3s": K3S,
+         "K7": K7}
 KERNEL_FN = {K2: "rasterize_fwd_kernel", K2S: "rasterize_fwd_stp_kernel",
              K3: "rasterize_bwd_kernel", K6: "rasterize_surfels_fwd_kernel",
              K3S: "rasterize_bwd_stp_kernel",
@@ -129,7 +131,8 @@ KERNEL_FN = {K2: "rasterize_fwd_kernel", K2S: "rasterize_fwd_stp_kernel",
 # the arguments of the attributes entry: (C, tile size); K4's (R, n_abs)
 ATTR_ARGS = {"K1": (0, 0), "K1stp": (0, 0), "K2": (3, 16), "K2s": (3, 16),
              "K3": (3, 16), "K4": (9, 2), "K4stp": (9, 2),
-             "K4surfel": (19, 0), "K6": (6, 16), "K3s": (3, 16),
+             "K4surfel": (19, 0), "K5": (0, 0), "K6": (6, 16),
+             "K3s": (3, 16),
              "K7": (6, 16)}
 
 # one more block per SM where the kernel is built for 4 of 256 threads;
@@ -281,6 +284,12 @@ def no_abs(indent):
             f"\n#else\n{line}#endif\n")
 
 
+# the slot's Gaussian or surfel taken from its share of the run's slots
+NO_SEARCH = (
+    "    const int i = gsl::slot_owner(s_off, run.count, s);\n",
+    "#ifdef GSL_NO_SEARCH\n    const int i = static_cast<int>(\n"
+    "        static_cast<int64_t>(s) * run.count / run.slots);\n#else\n"
+    "    const int i = gsl::slot_owner(s_off, run.count, s);\n#endif\n")
 K1_CURRENT = [
     K1_NO_CULL, constant("kThreads", 128, "GSL_THREADS"),
     min_blocks("expand_kernel"),
@@ -291,11 +300,15 @@ K1_CURRENT = [
     ("    if (hits == 0) {  // culled by projection: one invalid dummy slot\n",
      "#ifdef GSL_NO_DUMMY\n    if (hits == 0) continue;\n#endif\n"
      "    if (hits == 0) {  // culled by projection: one invalid dummy slot\n"),
-    # the slot's Gaussian taken from its share of the run's slots
-    ("    const int i = gsl::slot_owner(s_off, run.count, s);\n",
-     "#ifdef GSL_NO_SEARCH\n    const int i = static_cast<int>(\n"
-     "        static_cast<int64_t>(s) * run.count / run.slots);\n#else\n"
-     "    const int i = gsl::slot_owner(s_off, run.count, s);\n#endif\n")]
+    NO_SEARCH]
+K5_CURRENT = [
+    constant("kThreads", 128, "GSL_THREADS"), NO_SEARCH,
+    ("    gids[at] = run.g0 + i;\n",
+     "#ifndef GSL_NO_STORES\n    gids[at] = run.g0 + i;\n#endif\n"),
+    ("    keys[at] = (tile << 32) | dbits;\n",
+     "#if defined(GSL_NO_STORES) || defined(GSL_NO_KEYS)\n"
+     "    if (dbits == 1) keys[at] = tile;\n#else\n"
+     "    keys[at] = (tile << 32) | dbits;\n#endif\n")]
 K4_CURRENT = [
     # runs of GSL_RUN Gaussians in place of run_length's choice
     ("  return run;\n}\n",
@@ -348,6 +361,13 @@ CURRENT = {
           "runs_of_64": ["GSL_THREADS=64"],
           "runs_of_256": ["GSL_THREADS=256"],
           "sixteen_blocks_per_sm": ["GSL_BLOCKS=16"]}),
+    K5: (K5_CURRENT,
+         {"whole": [], "no_key_stores": ["GSL_NO_KEYS"],
+          "no_stores": ["GSL_NO_STORES"],
+          "no_binary_search": ["GSL_NO_SEARCH"],
+          "runs_of_64": ["GSL_THREADS=64"],
+          "runs_of_256": ["GSL_THREADS=256"],
+          "runs_of_512": ["GSL_THREADS=512"]}),
     K4: (K4_CURRENT,
          {"whole": [], "no_row_gather": ["GSL_NO_GATHER"],
           "no_inv_order_load": ["GSL_NO_INV"],
@@ -451,47 +471,31 @@ CURRENT = {
           "three_blocks_per_sm": ["GSL_BLOCKS=3"]}),
 }
 
-# K1 and K4 before their redesign (commit a7fa1ac): one thread a Gaussian
-# looping over its slots; one thread a (Gaussian, column) looping over its
-# slots, each step a dependent pair of random loads
+# K5 before its redesign (commit 1bc8fc5): one thread a surfel looping over
+# its slots, its rectangle read in four 4-byte loads
 PREVIOUS = {
-    K1: ([K1_NO_CULL,
-          ("    keys[off + local] = valid ? ((tile << 32) | dbits) : "
-           "INT64_MAX;\n",
-           "#ifdef GSL_NO_KEYS\n    if (valid && dbits == 1) keys[off + local] "
-           "= tile;\n#else\n    keys[off + local] = valid ? ((tile << 32) | "
-           "dbits) : INT64_MAX;\n#endif\n"),
-          ("  if (hits == 0) {  // culled by projection: one invalid dummy "
-           "slot\n",
-           "#ifdef GSL_NO_DUMMY\n  if (hits == 0) return;\n#endif\n"
-           "  if (hits == 0) {  // culled by projection: one invalid dummy "
-           "slot\n")],
-         {"whole": [], "no_cull": ["GSL_NO_CULL"],
-          "no_key_stores": ["GSL_NO_KEYS"],
-          "no_dummy_slots": ["GSL_NO_DUMMY"]}),
-    K4: ([("    const int pos = inv_order[s];\n"
-           "    if (pos >= n_valid) continue;  // culled or dummy slot\n",
-           "#if defined(GSL_NO_INV)\n    const int pos = " + hashed_pos("s")
-           + ";\n#elif defined(GSL_NO_VALID_TEST)\n"
-           "    const int raw = inv_order[s];\n"
-           "    const int pos = raw < n_valid ? raw : 0;\n#else\n"
-           "    const int pos = inv_order[s];\n"
-           "    if (pos >= n_valid) continue;  // culled or dummy slot\n"
-           "#endif\n"),
-          ("    const float x = rows[static_cast<int64_t>(pos) * n_cols + "
-           "src];\n",
-           "#ifdef GSL_NO_GATHER\n    const float x = static_cast<float>(pos);"
-           "\n#else\n    const float x = rows[static_cast<int64_t>(pos) * "
-           "n_cols + src];\n#endif\n"),
-          no_abs("  ")],
-         {"whole": [], "no_row_gather": ["GSL_NO_GATHER"],
-          "no_inv_order_gather": ["GSL_NO_INV"],
-          "no_valid_test": ["GSL_NO_VALID_TEST"],
-          "no_absolute_columns": ["GSL_NO_ABS"]}),
+    K5: ([("  const int min_x = rect[4 * g + 0];\n"
+           "  const int min_y = rect[4 * g + 1];\n"
+           "  const int w = rect[4 * g + 2];\n"
+           "  const int h = rect[4 * g + 3];\n",
+           "#ifdef GSL_INT4_RECT\n"
+           "  const int4 r = reinterpret_cast<const int4*>(rect)[g];\n"
+           "  const int min_x = r.x;\n  const int min_y = r.y;\n"
+           "  const int w = r.z;\n  const int h = r.w;\n#else\n"
+           "  const int min_x = rect[4 * g + 0];\n"
+           "  const int min_y = rect[4 * g + 1];\n"
+           "  const int w = rect[4 * g + 2];\n"
+           "  const int h = rect[4 * g + 3];\n#endif\n"),
+          ("    keys[off + local] = (tile << 32) | dbits;\n"
+           "    gids[off + local] = g;\n",
+           "#ifdef GSL_NO_STORES\n    if (dbits == 1) keys[off + local] = tile;"
+           "\n#else\n    keys[off + local] = (tile << 32) | dbits;\n"
+           "    gids[off + local] = g;\n#endif\n")],
+         {"whole": [], "no_stores": ["GSL_NO_STORES"],
+          "int4_rect": ["GSL_INT4_RECT"]}),
 }
 # the resources of the kernels as they were, which had no entry for them
-OLD_ATTRS = {K1: ("expand_kernel", "256", "0"),
-             K4: ("reduce_grads_kernel", "256", "0")}
+OLD_ATTRS = {K5: ("expand_surfel_kernel", "256", "0")}
 OLD_ATTRS_ENTRY = """
 extern "C" int gsl_parts_attributes(int, int, int* out) {
   cudaFuncAttributes attr;
@@ -513,6 +517,7 @@ ATTRS = {K2: "gsl_rasterize_fwd_attributes(C, ts, out)",
          K3S: "gsl_rasterize_bwd_stp_attributes(C, ts, out)",
          K7: "gsl_rasterize_surfels_bwd_attributes(C, ts, out)",
          K1: "gsl_expand_attributes(out)",
+         K5: "gsl_expand_surfel_attributes(out)",
          K4: "gsl_reduce_grads_attributes(C, ts, out)"}
 
 
@@ -660,20 +665,29 @@ def k3s_inputs(arrays):
     return fwd[:8] + (g_out, g_alpha, t_fin, ckpt, TILE)
 
 
-def k6_inputs(arrays):
-    """The bench pose at C = 6, as chip_smoke.check_surfel_kernels builds
-    it: the wrapper's arguments."""
+def bench_surfels(arrays):
+    """The bench pose at C = 6 through K5 and the sort, as
+    chip_smoke.check_surfel_kernels builds it: (K5's wrapper's arguments,
+    geom, channels, sorted ids, order, tile bounds)."""
     H, W, TILE = CS.H, CS.W, CS.TILE
     tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
     state = state_from_raw_arrays(CS.surfel_arrays(arrays), device="cuda")
     proj, geom, ch = CS.surfel_inputs(state, CS.camera(np.eye(4)), 6)
-    isects = SR.surfel_isect_encode(proj.means2d, proj.depths, proj.radii,
-                                    H, W, TILE)
-    keys, gids = SR.surfel_expand(isects, proj.depths.contiguous(), tiles_x,
-                                  tiles_y)
-    sk, gs, _ = R.sort_slots(keys, gids)
-    bounds = R.tile_bounds(sk, tiles_x * tiles_y)
-    return (geom, ch, gs, bounds, H, W, TILE)
+    args = (SR.surfel_isect_encode(proj.means2d, proj.depths, proj.radii, H,
+                                   W, TILE),
+            proj.depths.contiguous(), tiles_x, tiles_y)
+    sk, gs, order = R.sort_slots(*SR.surfel_expand(*args))
+    return args, geom, ch, gs, order, R.tile_bounds(sk, tiles_x * tiles_y)
+
+
+def k5_inputs(arrays):
+    return bench_surfels(arrays)[0]
+
+
+def k6_inputs(arrays):
+    """The bench pose at C = 6: K6's wrapper's arguments."""
+    _, geom, ch, gs, _, bounds = bench_surfels(arrays)
+    return (geom, ch, gs, bounds, CS.H, CS.W, CS.TILE)
 
 
 def k7_inputs(arrays):
@@ -723,15 +737,8 @@ def k4surfel_inputs(arrays):
     """K4's wrapper's arguments on K7's rows at the bench pose (C = 6), as
     chip_smoke.check_surfel_kernels builds them."""
     H, W, TILE = CS.H, CS.W, CS.TILE
-    tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
-    state = state_from_raw_arrays(CS.surfel_arrays(arrays), device="cuda")
-    proj, geom, ch = CS.surfel_inputs(state, CS.camera(np.eye(4)), 6)
-    isects = SR.surfel_isect_encode(proj.means2d, proj.depths, proj.radii,
-                                    H, W, TILE)
-    keys, gids = SR.surfel_expand(isects, proj.depths.contiguous(), tiles_x,
-                                  tiles_y)
-    sk, gs, order = R.sort_slots(keys, gids)
-    bounds = R.tile_bounds(sk, tiles_x * tiles_y)
+    args, geom, ch, gs, order, bounds = bench_surfels(arrays)
+    isects = args[0]
     _, aux, stop = SR.rasterize_surfels_fwd(geom, ch, gs, bounds, H, W, TILE)
     gen = torch.Generator(device="cuda").manual_seed(10)
     g_out = torch.randn((H, W, 6), generator=gen, device="cuda")
@@ -758,6 +765,13 @@ def launcher(name, lib, args, outs):
                 *map(ptr, args[1:4]), ptr(kz) if stp else None,
                 args[1].shape[0], args[7], args[5], args[6], int(args[8]),
                 int(stp), *map(ptr, outs), stream)
+    elif name == K5:
+        fn = lib.gsl_expand_surfel
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 3)
+        isects, depths, tiles_x, tiles_y = args
+        call = (ptr(isects.offsets), ptr(isects.rect), ptr(depths),
+                depths.shape[0], tiles_x, tiles_y, *map(ptr, outs), stream)
     elif name == K4:
         fn = lib.gsl_reduce_grads
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -822,12 +836,12 @@ WRAPPERS = {"K1": R.expand, "K1stp": R.expand, "K2": R.rasterize_fwd,
             "K2s": lambda *a: STP.rasterize_fwd_stp(*a, checkpoints=True),
             "K3": R.rasterize_bwd, "K4": R.reduce_grads,
             "K4stp": R.reduce_grads, "K4surfel": R.reduce_grads,
-            "K6": SR.rasterize_surfels_fwd, "K3s": STP.rasterize_bwd_stp,
+            "K5": SR.surfel_expand, "K6": SR.rasterize_surfels_fwd, "K3s": STP.rasterize_bwd_stp,
             "K7": SR.rasterize_surfels_bwd}
 INPUTS = {"K1": k1_inputs, "K1stp": k1stp_inputs, "K2": k2_inputs,
           "K2s": k2s_inputs, "K3": k3_inputs, "K4": k4_inputs,
           "K4stp": k4stp_inputs, "K4surfel": k4surfel_inputs,
-          "K6": k6_inputs, "K3s": k3s_inputs, "K7": k7_inputs}
+          "K5": k5_inputs, "K6": k6_inputs, "K3s": k3s_inputs, "K7": k7_inputs}
 
 
 def rows_read(bounds, n_rows):
@@ -925,9 +939,10 @@ def k2_counts(args):
 
 def slot_stats(offsets, total, per_gaussian):
     """Slots per Gaussian, and the mean warp iterations of the design
-    before (a7fa1ac) in which `per_gaussian` consecutive threads each loop
-    over the slots of one Gaussian (K1: 1; K4: one a column), beside the
-    share of lane iterations that do work."""
+    before (K1 and K4 of a7fa1ac, K5 of 1bc8fc5) in which `per_gaussian`
+    consecutive threads each loop over the slots of one Gaussian (K1, K5:
+    1; K4: one a column), beside the share of lane iterations that do
+    work."""
     slots = torch.diff(offsets, append=offsets.new_tensor([total])).float()
     q = torch.quantile(slots[:1 << 24], torch.tensor(
         [0.5, 0.9, 0.99], device=slots.device)).tolist()
@@ -977,15 +992,20 @@ def counts(short, args):
     """What the plain versions count at these inputs (the backward kernels'
     (slot, warp)s with a composited pixel; K2s's out-of-order windows and
     live entries), K2's lists and warp steps, K6's warp steps, or the slots
-    per Gaussian and per run of K1 and K4 with K4's row sectors."""
+    per Gaussian and per run of K1, K4 and K5 with K4's row sectors (K5:
+    per run of 64 to 512 surfels)."""
     name = SHORT[short]
     stats = {}
-    if name == K1:
+    if name in (K1, K5):
         isects = args[0]
-        return {**slot_stats(isects.offsets, isects.total, 1),
-                "empty_rectangles": int(
-                    (isects.rect[:, 2] * isects.rect[:, 3] == 0).sum()),
-                **run_stats(isects.offsets, isects.total, 128, 128)}
+        out = {**slot_stats(isects.offsets, isects.total, 1),
+               "empty_rectangles": int(
+                   (isects.rect[:, 2] * isects.rect[:, 3] == 0).sum()),
+               **run_stats(isects.offsets, isects.total, 128, 128)}
+        if name == K5:
+            out["runs"] = [run_stats(isects.offsets, isects.total, r, r)
+                           for r in (64, 256, 512)]
+        return out
     if name == K4:
         rows, _, offsets, inv, n_valid, _, n_abs = args
         n_cols, nv = rows.shape[1], int(n_valid)
@@ -1015,8 +1035,7 @@ def main():
                         help="which kernels, comma-separated, of "
                         + ", ".join(SHORT))
     parser.add_argument("--previous", help="a directory holding "
-                        "gsl_tpu_torch/csrc of K1 and K4 before their "
-                        "redesign")
+                        "gsl_tpu_torch/csrc of K5 before its redesign")
     opts = parser.parse_args()
     shorts = opts.kernels.split(",")
     names = sorted({SHORT[k] for k in shorts})

@@ -1,7 +1,7 @@
-"""The slot kernels K1 (`csrc/expand.cu`) and K4 (`csrc/reduce_grads.cu`),
-their CUDA sources run on the CPU with the stand-in runtime of
-`test_torch_kernel_emulation.py` (one host thread per CUDA thread, the
-blocks one after another, no multiply-add contraction).
+"""The slot kernels K1 (`csrc/expand.cu`), K4 (`csrc/reduce_grads.cu`) and
+K5 (`csrc/surfel_expand.cu`), their CUDA sources run on the CPU with the
+stand-in runtime of `test_torch_kernel_emulation.py` (one host thread per
+CUDA thread, the blocks one after another, no multiply-add contraction).
 
 K1's keys and ids must equal `expand_plain` bit for bit, with and without
 StopThePop keys: the kernel rounds as PyTorch does (-fmad=false on the
@@ -14,7 +14,13 @@ edge cases: a Gaussian count that fills no run evenly, empty rectangles
 (one dummy slot each), a rectangle of 40 x 40 tiles (more slots than a
 staging pass of K4 and a run of K1 hold), every slot without a row, fewer
 valid rows than slots, and R = 9, 14, 19, 33 and 300 columns (more than
-a block has threads) with no or two absolute columns."""
+a block has threads) with no or two absolute columns.
+
+K5's keys and ids must equal `surfel_expand_plain` bit for bit (integer
+work and one max) on K1's projections as surfels and on the cases of
+`slot_cases.K5_CASES` made by hand: rectangles whose rows pass tiles_y
+(the row clamp), one surfel, none. It must refuse a rect that is not
+16-byte aligned and tiles that could overflow a run's int slot count."""
 import ctypes
 
 import pytest
@@ -22,6 +28,7 @@ import torch
 
 import slot_cases
 from gsl_tpu_torch.ops import rasterize as R
+from gsl_tpu_torch.ops import surfel_rasterize as SR
 from test_torch_kernel_emulation import build_host_libs
 
 SUM_RTOL = 1e-5   # chip_smoke.SUM_RTOL
@@ -29,7 +36,7 @@ SUM_RTOL = 1e-5   # chip_smoke.SUM_RTOL
 
 @pytest.fixture(scope="module")
 def slot_libs(tmp_path_factory):
-    return build_host_libs(("expand", "reduce_grads"),
+    return build_host_libs(("expand", "reduce_grads", "surfel_expand"),
                            tmp_path_factory.mktemp("emulated_slots"))
 
 
@@ -155,3 +162,59 @@ def test_k1_source_refuses_a_misaligned_rect(slot_libs):
     code, _, _ = _expand_code(slot_libs["expand"],
                               (isects._replace(rect=rect), *args[1:]))
     assert code != 0
+
+
+def _misaligned(rect):
+    """A copy of rect that starts 4 bytes past a 16-byte boundary."""
+    out = torch.empty(rect.numel() + 1, dtype=torch.int32)[1:]
+    out = out.view(-1, 4).copy_(rect)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+def _surfel_expand_code(lib, isects, depths, tiles_x, tiles_y):
+    """gsl_expand_surfel's return code and the keys and ids it wrote."""
+    keys = torch.full((isects.total,), -1, dtype=torch.int64)
+    gids = torch.full((isects.total,), -1, dtype=torch.int32)
+    fn = lib.gsl_expand_surfel
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 3
+    code = fn(_p(isects.offsets), _p(isects.rect), _p(depths),
+              depths.shape[0], tiles_x, tiles_y, _p(keys), _p(gids), None)
+    return code, keys, gids
+
+
+@pytest.mark.parametrize("case", slot_cases.K5_CASES)
+def test_k5_source_equals_plain(slot_libs, case):
+    args = slot_cases.surfel_expand_args(case)
+    code, keys, gids = _surfel_expand_code(slot_libs["surfel_expand"], *args)
+    assert code == 0
+    keys_p, gids_p = SR.surfel_expand_plain(*args)
+    assert torch.equal(keys, keys_p) and torch.equal(gids, gids_p)
+    rect = args[0].rect
+    hits = rect[:, 2] * rect[:, 3]
+    # only the empty rectangles' dummy slots are invalid: no cull
+    assert int((keys == R.INVALID_KEY).sum()) == int((hits == 0).sum())
+    if case in slot_cases.K1_CASES:
+        assert bool((hits == 0).any())
+    if case == "tile4-big":
+        assert int(hits.max()) == 1600
+    if case == "one-surfel":
+        assert keys.numel() > 128           # more slots than threads
+    if case == "rows-past-tiles_y":         # the clamp decided rows
+        rows = (keys[keys != R.INVALID_KEY] >> 32) // args[2]
+        assert int(rows.max()) == args[3] - 1
+        assert int((keys & 0xFFFFFFFF == 0).sum()) > 0   # depths below 0
+
+
+def test_k5_source_refuses_what_it_does_not_take(slot_libs):
+    lib = slot_libs["surfel_expand"]
+    isects, depths, tiles_x, tiles_y = slot_cases.surfel_expand_args(
+        "tile16")
+    code, keys, _ = _surfel_expand_code(
+        lib, isects._replace(rect=_misaligned(isects.rect)), depths,
+        tiles_x, tiles_y)
+    assert code != 0 and bool((keys == -1).all())
+    # a run of 128 surfels over 2^24 tiles could hold more than 2^31 slots
+    code, keys, _ = _surfel_expand_code(lib, isects, depths, 4096, 4097)
+    assert code != 0 and bool((keys == -1).all())

@@ -24,7 +24,7 @@ identical rows differs from `index_add_` only in the order of its float32
 additions.
 
 The surfel kernels follow the same pattern. K5 (surfel expand) is integer
-work and must equal surfel_expand_plain bit for bit. K6 (surfel forward)
+work and must equal surfel_expand_plain bit for bit, without spilling. K6 (surfel forward)
 decides more per pair than K2 (alpha >= 1/255, rho3d <= rho2d,
 depth >= 0.2, the 0.5 crossing of the median, the stop), all on rounded
 values, so its images are held at a share of values like K2's; the median
@@ -538,6 +538,12 @@ def test_surfel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     depths = proj.depths.contiguous()
     with pytest.raises(TypeError):
         SR.surfel_expand(isects, depths.double(), W // TS, H // TS)
+    rect = torch.empty(isects.rect.numel() + 1, dtype=torch.int32,
+                       device=cuda)[1:].view(-1, 4).copy_(isects.rect)
+    with pytest.raises(RuntimeError):      # K5 reads rect 16 bytes a time
+        SR.surfel_expand(isects._replace(rect=rect), depths, W // TS, H // TS)
+    with pytest.raises(RuntimeError):      # a run's slots could pass 2^31
+        SR.surfel_expand(isects, depths, 4096, 4097)
     keys, gids = SR.surfel_expand(isects, depths, W // TS, H // TS)
     sk, gs, order = R.sort_slots(keys, gids)
     bounds = R.tile_bounds(sk, (W // TS) * (H // TS))
@@ -752,6 +758,25 @@ def test_k1_edge_cases_equal_plain(cuda, case, stp):
     again = R.expand(*args)
     assert torch.equal(keys, again[0]) and torch.equal(gids, again[1])
     assert_attributes(R.expand_attributes())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", slot_cases.K5_CASES)
+def test_k5_edge_cases_equal_plain(cuda, case):
+    """K5 over K1's slot cases as surfels, rectangles whose rows pass
+    tiles_y, one surfel and none (slot_cases): bit for bit, twice."""
+    args = slot_cases.surfel_expand_args(case, device=cuda)
+    n = args[1].shape[0]
+    before = SR.surfel_expand.launches
+    keys, gids = SR.surfel_expand(*args)
+    assert SR.surfel_expand.launches == before + (n > 0)
+    keys_p, gids_p = SR.surfel_expand_plain(*args)
+    assert torch.equal(keys, keys_p) and torch.equal(gids, gids_p)
+    again = SR.surfel_expand(*args)
+    assert torch.equal(keys, again[0]) and torch.equal(gids, again[1])
+    attrs = SR.surfel_expand_attributes()
+    assert_attributes(attrs)
+    assert attrs["local_bytes"] == 0
 
 
 @pytest.mark.cuda
