@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port's render and training paths (3DGS, 2DGS
-and StopThePop) on one CUDA card.
+and StopThePop) and of its fit through the CLI on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -125,6 +125,27 @@ package is not beside this script. Phases, each fatal on failure:
    launched and no kernel of another path was, the counters zeroed just
    before each run. Prints ms per frame and per step, the stage split, peak
    memory, and the same numbers of phases 4 and 5 beside them.
+8. fit main path, through the CLI: 24 views of the bench scene rendered by
+   the port at 1088x1920 (the bench pose, then an orbit around TARGET)
+   written as images/*.png, and sparse/0/{cameras,images,points3D}.bin
+   written by the port's write_model_bin, with 100,000 of the bench means
+   and their DC colours as the SfM points. Then
+   gsl_tpu_torch.cli.main(["fit", "--config",
+   "gsl_tpu_torch/configs/colmap.yaml", ...]) for 300 steps with
+   densify_from_iter=100 and densification_interval=100 (every other
+   field at the preset's value), and again to 600 steps, which must resume
+   at 301; then "validate", and GaussianModelLoader.load on the run, which
+   must pick the step-600 checkpoint and render a frame; then 100-step fits
+   of gs2d.yaml and stp.yaml on the same data. Each command runs with the
+   launch counters zeroed just before: the fits must launch every kernel
+   of their path (K1-K4; K5-K7 and K4; K1, K2s, K3s and K4) and no other.
+   Fatal on a non-finite loss, a val PSNR at step 600 not above the
+   initial cloud's, or a missing checkpoint, PLY or CSV. Prints ms per
+   step in each log window (and the median over the windows after each
+   run's first), the share of wall time spent waiting on next(loader), ms
+   per densify and the rows it cloned, split and pruned, the Gaussian count
+   per window, peak memory, the val PSNR
+   of the initial cloud and at steps 300 and 600, and each fit's launches.
 
 Bounds in the kernels line: the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM f32 without tensor cores). K1 moves 52
@@ -173,6 +194,9 @@ kernels (K4 with R = 9 and, under `surfel_attributes`, R = 19) carry their
 The last line is {"ok": true, "device": {...}}.
 """
 import concurrent.futures
+import contextlib
+import csv
+import io
 import json
 import math
 import os
@@ -183,8 +207,13 @@ import time
 
 import numpy as np
 import torch
+from PIL import Image
 
+from gsl_tpu_torch import cli
 from gsl_tpu_torch.data.cameras import make_camera
+from gsl_tpu_torch.data.colmap_io import (ColmapCamera, ColmapImage,
+                                          ColmapModel, rotmat_to_qvec,
+                                          write_model_bin)
 from gsl_tpu_torch.ops import cuda_build
 from gsl_tpu_torch.ops import rasterize as R
 from gsl_tpu_torch.ops import rasterize_stp as STP
@@ -200,6 +229,7 @@ from gsl_tpu_torch.models.gaussian_2d import Gaussian2DConfig
 from gsl_tpu_torch.renderers.surfel_renderer import SurfelRendererConfig
 from gsl_tpu_torch.renderers.tile_renderer import TileRendererConfig
 from gsl_tpu_torch.training.density import VanillaDensityControllerConfig
+from gsl_tpu_torch.training.fit import _init_gaussians, validate
 from gsl_tpu_torch.training.gs2d import GS2DMetricsConfig, GS2DTrainer
 from gsl_tpu_torch.training.metrics import train_loss
 from gsl_tpu_torch.training.trainer import Trainer, TrainerConfig
@@ -1709,6 +1739,216 @@ def phase_surfel_main_path(arrays):
     return serving, launches
 
 
+FIT_VIEWS, SFM_POINTS = 24, 100_000
+FIT_STEPS, RESUME_STEPS, VARIANT_STEPS = 300, 600, 100
+LOG_INTERVAL = 100                 # FitConfig's, which the presets keep
+FIT_OVERRIDES = ("model.density.init_args.densify_from_iter=100",
+                 "model.density.init_args.densification_interval=100")
+PRESETS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "gsl_tpu_torch", "configs")
+SH_C0 = 0.28209479177387814
+
+
+class Tee(io.TextIOBase):
+    """Standard output that is also kept, to read what a command said."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, s):
+        self.kept.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def write_colmap_scene(root, arrays):
+    """FIT_VIEWS views of the bench scene rendered by the port at HxW (the
+    bench pose, then an orbit around TARGET) as images/*.png, and
+    sparse/0/{cameras,images,points3D}.bin with SFM_POINTS of the bench
+    means and their DC colours as the SfM cloud."""
+    state = state_from_raw_arrays(arrays, device="cuda")
+    renderer = TileRendererConfig().instantiate()
+    bg = torch.zeros(3, device="cuda")
+    poses = [np.eye(4)] + [
+        orbit_c2w(yaw, 8.0 * math.sin(i), 5.0, TARGET)
+        for i, yaw in enumerate(np.linspace(-40.0, 40.0, FIT_VIEWS - 1))]
+    os.makedirs(os.path.join(root, "images"))
+    images = {}
+    for i, c2w in enumerate(poses):
+        with torch.no_grad():
+            out = renderer.forward(state, camera(c2w), H, W, bg, SH_DEGREE)
+        img = (out.render.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+        name = f"view_{i:03d}.png"
+        Image.fromarray(img).save(os.path.join(root, "images", name),
+                                  compress_level=1)
+        w2c = np.linalg.inv(c2w)
+        images[i + 1] = ColmapImage(i + 1, rotmat_to_qvec(w2c[:3, :3]),
+                                    w2c[:3, 3], 1, name)
+    pick = np.random.RandomState(3).choice(N_GAUSSIANS, SFM_POINTS,
+                                           replace=False)
+    rgb = np.clip(0.5 + SH_C0 * arrays["shs_dc"][pick, 0], 0.0, 1.0)
+    write_model_bin(ColmapModel(
+        cameras={1: ColmapCamera(1, "PINHOLE", W, H,
+                                 np.array([FOCAL, FOCAL, W / 2, H / 2]))},
+        images=images, points_xyz=arrays["means"][pick].astype(np.float64),
+        points_rgb=(rgb * 255 + 0.5).astype(np.uint8),
+        points_err=np.zeros(SFM_POINTS)), os.path.join(root, "sparse", "0"))
+
+
+def run_cli(argv, kernels):
+    """cli.main(argv), the launch counters zeroed just before and read just
+    after; fails unless every kernel in `kernels` was launched. Returns a
+    dict: results, launches, peak_gib, said (standard output) and, for a
+    fit, timing (its fit_timing.json) and rows (train_log.csv)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        _, results = cli.main(argv)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_launches().items() if v}
+    for name in kernels:
+        if launches.get(name, 0) <= 0:
+            fail(f"{' '.join(argv)}: kernel {name} was never launched")
+    if set(launches) - set(kernels):
+        fail(f"{' '.join(argv)}: launched {launches}, a kernel of another "
+             "path among them")
+    out = {"results": results, "launches": launches, "said":
+           tee.kept.getvalue(),
+           "peak_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3)}
+    if argv[0] == "fit":
+        run = os.path.join(argv[argv.index("--output") + 1],
+                           argv[argv.index("-n") + 1])
+        with open(os.path.join(run, "fit_timing.json")) as f:
+            out["timing"] = json.load(f)
+        with open(os.path.join(run, "train_log.csv")) as f:
+            out["rows"] = list(csv.reader(f))[1:]
+        if not all(math.isfinite(float(r[1])) for r in out["rows"]):
+            fail(f"{run}: a non-finite loss in {out['rows']}")
+    return out
+
+
+def log_fit(tag, fits, warm=()):
+    """A fit's numbers: ms per step in each log window (the median over
+    the windows `warm` after warm-up), Gaussians and loss per window, the
+    share of wall time waiting on next(loader), ms per densify and its
+    counts (alive before, cloned, split, pruned, alive after), peak memory
+    and launches, for each run in `fits`."""
+    rows = fits[-1]["rows"]
+    ms = {int(r[0]): round(1e3 / float(r[3]), 2) for r in rows}
+    log(f"{tag}: ms per step in each log window {ms}" + (
+        f"; median over the windows ending {list(warm)} "
+        f"{float(np.median([ms[s] for s in warm])):.2f}" if warm else ""))
+    log(f"{tag}: Gaussians per log window "
+        f"{ {int(r[0]): int(r[2]) for r in rows} }; loss "
+        f"{ {int(r[0]): round(float(r[1]), 5) for r in rows} }")
+    for f in fits:
+        t = f["timing"]
+        n = t["end_step"] - t["start_step"] + 1
+        log(f"{tag}: steps {t['start_step']}-{t['end_step']}: "
+            f"{1e3 * t['wall_s'] / n:.2f} ms per step over the loop; "
+            f"waiting on next(loader) {t['loader_wait_s']:.3f} of "
+            f"{t['wall_s']:.2f} s "
+            f"({100 * t['loader_wait_s'] / t['wall_s']:.2f}%); ms per "
+            f"densify {[round(x, 2) for x in t['densify_ms']]}; peak "
+            f"memory {f['peak_gib']} GiB; launches {f['launches']}")
+        for d in t["densify"]:
+            log(f"{tag}: densify at step {d['step']}: {d['before']} alive, "
+                f"{d['clone']} cloned, {d['split']} split, {d['pruned']} "
+                f"pruned -> {d['after']}")
+
+
+def phase_fit(arrays):
+    log("== phase 8: a synthesised COLMAP scene fitted through "
+        "gsl_tpu_torch.cli at 1088x1920")
+    colmap = os.path.join(PRESETS, "colmap.yaml")
+    with tempfile.TemporaryDirectory() as tmp:
+        data, runs = os.path.join(tmp, "scene"), os.path.join(tmp, "runs")
+        t0 = time.perf_counter()
+        write_colmap_scene(data, arrays)
+        log(f"fit: {FIT_VIEWS} views at {H}x{W} and {SFM_POINTS} SfM points "
+            f"written in {time.perf_counter() - t0:.1f} s")
+
+        def argv(sub, name, steps, preset=colmap, extra=FIT_OVERRIDES):
+            return [sub, "--config", preset, "--data.path", data,
+                    "--output", runs, "-n", name, "--max_steps",
+                    str(steps), *extra]
+
+        # the initial cloud, initialised as the fit initialises it
+        trainer, dp_cfg, fit_cfg = cli.build_components(cli.load_config(
+            [colmap], cli.parse_overrides(FIT_OVERRIDES
+                                          + (f"data.path={data}",))))
+        outputs = dp_cfg.instantiate().get_outputs()
+        fit_cfg.output_dir = os.path.join(tmp, "initial")
+        with contextlib.redirect_stdout(io.StringIO()):
+            psnr0 = validate(trainer, trainer.setup(
+                _init_gaussians(trainer, outputs, fit_cfg, "cuda"),
+                outputs.camera_extent), outputs, fit_cfg)["psnr"]
+        del trainer
+
+        first = run_cli(argv("fit", "colmap", FIT_STEPS), GAUSSIAN_KERNELS)
+        second = run_cli(argv("fit", "colmap", RESUME_STEPS),
+                         GAUSSIAN_KERNELS)
+        if f"-> continuing at {FIT_STEPS + 1}" not in second["said"]:
+            fail(f"the second fit did not continue at {FIT_STEPS + 1}")
+        run = os.path.join(runs, "colmap")
+        for rel in [f"checkpoints/step_{s}/{f}"
+                    for s in (FIT_STEPS, RESUME_STEPS)
+                    for f in ("state.pt", "fit_meta.json")] + [
+                f"point_cloud/iteration_{s}/point_cloud.ply"
+                for s in (FIT_STEPS, RESUME_STEPS)] + [
+                "train_log.csv", "metrics/val.csv", "config.yaml"]:
+            if not os.path.isfile(os.path.join(run, rel)):
+                fail(f"the fit wrote no {rel}")
+        if [int(r[0]) for r in second["rows"]] != list(
+                range(LOG_INTERVAL, RESUME_STEPS + 1, LOG_INTERVAL)) \
+                or second["rows"][:len(first["rows"])] != first["rows"]:
+            fail(f"train_log.csv holds {second['rows']}, not the first "
+                 f"run's {first['rows']} and then the resumed run's")
+        val = run_cli(["validate", "--output", runs, "-n", "colmap"],
+                      ("expand", "rasterize_fwd"))
+        psnr = val["results"]["psnr"]
+        if not psnr > psnr0:
+            fail(f"val PSNR at step {RESUME_STEPS}, {psnr:.3f} dB, is not "
+                 f"above the initial cloud's {psnr0:.3f}")
+        picked = GaussianModelLoader.search_load_file(run)
+        if picked != os.path.join(run, "checkpoints", f"step_{RESUME_STEPS}"):
+            fail(f"GaussianModelLoader picked {picked}")
+        loaded, renderer, sh_degree = GaussianModelLoader.load(run)
+        with torch.no_grad():
+            frame = renderer.forward(loaded, camera(np.eye(4)), H, W,
+                                     torch.zeros(3, device="cuda"),
+                                     sh_degree).render
+        if not (bool(torch.isfinite(frame).all())
+                and float(frame.mean()) > 0.0):
+            fail("the loaded model renders no finite frame")
+        log(f"fit: val PSNR of the initial cloud {psnr0:.3f} dB, at step "
+            f"{FIT_STEPS} {first['results']['psnr']:.3f}, at step "
+            f"{RESUME_STEPS} {second['results']['psnr']:.3f} (validate "
+            f"command {psnr:.3f}, SSIM {val['results']['ssim']:.4f}); the "
+            f"loader took step_{RESUME_STEPS}, {loaded.capacity} Gaussians, "
+            f"frame mean {float(frame.mean()):.4f}")
+        del loaded, frame
+        # a run's first window holds its warm-up and first image decodes
+        warm = [s for s in range(LOG_INTERVAL, RESUME_STEPS + 1,
+                                 LOG_INTERVAL)
+                if s not in (LOG_INTERVAL, FIT_STEPS + LOG_INTERVAL)]
+        log_fit("fit colmap.yaml", [first, second], warm)
+
+        for preset, kernels in (("gs2d.yaml", SURFEL_KERNELS),
+                                ("stp.yaml", STP_KERNELS)):
+            name = preset.split(".")[0]
+            f = run_cli(argv("fit", name, VARIANT_STEPS,
+                             preset=os.path.join(PRESETS, preset), extra=()),
+                        kernels)
+            log(f"fit {preset}: val PSNR {f['results']['psnr']:.3f} dB at "
+                f"step {VARIANT_STEPS}")
+            log_fit(f"fit {preset}", [f])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1784,6 +2024,8 @@ def main():
             arrays, {"rasterize_bwd_stp": trec["bwd_ms"],
                      "invert_order": rec["invert_ms"],
                      "reduce_grads": trec["reduce_ms"]}, stp=True)
+    torch.cuda.empty_cache()
+    phase_fit(arrays)
     # StopThePop beside plain 3DGS, phases 7 and 4/5 of this run
     log("StopThePop over plain 3DGS, this run: bench-pose rgb frame ms "
         f"{[round(x, 2) for x in stp_serving['rgb_frame_ms']]} vs "

@@ -12,9 +12,14 @@ Same layout as ``gsl_tpu``, PyTorch idiom inside:
 - ``renderers`` ``TileRenderer`` (``stp_resort`` selects StopThePop) and
                 ``SurfelRenderer``: camera -> image.
 - ``training``  loss, per-property Adam, density control, ``Trainer`` and
-                ``GS2DTrainer``.
-- ``data``      cameras.
-- ``utils``     PLY I/O, model loading, visualizers, JAX -> torch state.
+                ``GS2DTrainer``; the fit and validate loops, their hooks
+                and loggers.
+- ``data``      cameras, the COLMAP reader, the COLMAP and Blender
+                dataparsers, the cached dataset and its loader.
+- ``utils``     PLY I/O, checkpoints, model loading, visualizers, JAX ->
+                torch state.
+- ``cli``       ``python -m gsl_tpu_torch.cli fit|validate|test`` over the
+                presets in ``configs/``.
 - ``viewer``    ``ViewerRenderer`` and camera paths.
 - ``render``    ``python -m gsl_tpu_torch.render`` video frames.
 

@@ -91,6 +91,21 @@ def _scatter_rows(dst: torch.Tensor, dest: torch.Tensor,
     return ext[:-1]
 
 
+def densify_masks(gstate: GaussianState, dstate: DensityControlState,
+                  cfg: VanillaDensityControllerConfig, cameras_extent: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (clone_mask, split_mask): the alive rows whose mean view-space
+    gradient reaches the threshold, small ones cloned, large ones split."""
+    grads = torch.where(dstate.denom > 0.0,
+                        dstate.grad_accum / torch.clamp(dstate.denom,
+                                                        min=1.0),
+                        torch.zeros_like(dstate.denom))
+    max_scale = torch.exp(gstate.params.scales).max(dim=-1).values
+    high_grad = (grads >= cfg.densify_grad_threshold) & gstate.alive
+    small = max_scale <= cfg.percent_dense * cameras_extent
+    return high_grad & small, high_grad & ~small
+
+
 def densify_and_prune(
     noise,
     gstate: GaussianState,
@@ -112,16 +127,9 @@ def densify_and_prune(
     alive = gstate.alive
     dev = alive.device
 
-    grads = torch.where(dstate.denom > 0.0,
-                        dstate.grad_accum / torch.clamp(dstate.denom,
-                                                        min=1.0),
-                        torch.zeros_like(dstate.denom))
+    clone_mask, split_mask = densify_masks(gstate, dstate, cfg,
+                                           cameras_extent)
     scales_act = torch.exp(p.scales)
-    max_scale = scales_act.max(dim=-1).values
-    high_grad = (grads >= cfg.densify_grad_threshold) & alive
-    small = max_scale <= cfg.percent_dense * cameras_extent
-    clone_mask = high_grad & small
-    split_mask = high_grad & ~small
 
     # split offsets: std = activated scales, rotated into the world
     # sdim is 3 for Gaussians and 2 for surfels, whose offsets lie in the

@@ -223,8 +223,7 @@ class Trainer:
         after a capacity growth draws again for the larger state."""
         cfg = self.density_cfg
         if step < cfg.densify_until_iter:
-            if (step > cfg.densify_from_iter
-                    and step % cfg.densification_interval == 0):
+            if self.densifies_at(step):
                 use_size_prune = step > cfg.opacity_reset_interval
                 prev = state
                 state, n_trunc = self.density_step(state, noise,
@@ -247,6 +246,12 @@ class Trainer:
                     or (white_bg and step == cfg.densify_from_iter)):
                 state = self.opacity_reset_step(state)
         return state
+
+    def densifies_at(self, step: int) -> bool:
+        """Whether `maybe_density_ops` densifies at the 1-based `step`."""
+        cfg = self.density_cfg
+        return (cfg.densify_from_iter < step < cfg.densify_until_iter
+                and step % cfg.densification_interval == 0)
 
     def sh_degree_at(self, step: int) -> int:
         return min(step // self.config.sh_degree_interval,

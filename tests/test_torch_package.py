@@ -170,6 +170,17 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
         main([str(ply), "--n_frames", "1", "--size", "8", "--output",
               str(tmp_path / "out")])
 
+    from gsl_tpu_torch import cli
+    argv = ["fit", "--config", str(REPO / "gsl_tpu_torch" / "configs" /
+                                   "colmap.yaml"),
+            "--data.path", str(tmp_path / "no_scene"), "--output",
+            str(tmp_path / "runs")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    # on the CPU it gets past the device and on to the (missing) data
+    with pytest.raises(FileNotFoundError, match="no COLMAP sparse model"):
+        cli.main(argv + ["--device", "cpu"])
+
 
 def _run_chip_smoke(cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -159,10 +159,11 @@ def test_loader_finds_largest_iteration_and_refuses_checkpoints(tmp_path):
     assert sh_degree == 3 and state.n_alive == 120
     np.testing.assert_array_equal(state.params.means.numpy(),
                                   params["means"])
+    # a step_N directory without state.pt is gsl_tpu's orbax checkpoint
     ckpt_only = tmp_path / "ckpt_run" / "checkpoints" / "step_100"
     ckpt_only.mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="orbax"):
-        GaussianModelLoader.search_load_file(str(tmp_path / "ckpt_run"))
+    with pytest.raises(FileNotFoundError, match="orbax"):
+        GaussianModelLoader.load(str(tmp_path / "ckpt_run"), device="cpu")
 
 
 @pytest.mark.parametrize("output_type", ["rgb", "exp_depth", "normal"])
