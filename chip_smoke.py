@@ -1,5 +1,6 @@
-"""Smoke run of the PyTorch port's render and training paths (3DGS, 2DGS
-and StopThePop) and of its fit through the CLI on one CUDA card.
+"""Smoke run of the PyTorch port's render and training paths (3DGS, 2DGS,
+StopThePop, Mip-Splatting and MCMC) and of its fit through the CLI on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -146,6 +147,34 @@ package is not beside this script. Phases, each fatal on failure:
    per densify and the rows it cloned, split and pruned, the Gaussian count
    per window, peak memory, the val PSNR
    of the initial cloud and at steps 300 and 600, and each fit's launches.
+9. Mip-Splatting and MCMC through K1-K4. (a) At full width, on the bench
+   scene: compute_3d_filter over phase 8's 24 cameras (timed); 5 rgb
+   frames through ViewerRenderer over MipSplattingRenderer (K1 and K2
+   5 times each, nothing else) and the frame's stage ms; then
+   Trainer(model=MipSplattingConfig, renderer=MipSplattingRendererConfig)
+   at capacity 1M, 10 train_steps from the perturbed scene with the
+   filter recomputed after step 5. MCMC: 5% of the rows (seeded) at
+   opacity 0.001, Trainer with MCMCMetricsConfig (opacity and scale
+   regularisers) and MCMCDensityControllerConfig(cap_max=2,000,000) at
+   capacity 1M: 10 train_steps, each followed by the position noise of
+   MCMCDensityHook at the step's means learning rate; then one
+   relocation and growth round (the hook's density_round: the capacity
+   grows to 2,097,152 first), run twice from one generator state, which
+   must give identical parameters, moments and alive masks, with exactly
+   the 50,000 dead rows relocated and alive 1,000,000 -> 1,050,000; then
+   2 steps at the grown capacity. Each step must launch K1-K4 once each
+   and no other kernel (counters zeroed before it), the noise, the filter
+   and the round none; losses and parameters finite. (b) Through the CLI
+   on phase 8's scene (colmap.yaml plus the variant's preset, log every 50
+   steps): mip_splatting.yaml for 200 steps (densify from 100 every 100,
+   the filter recomputed at step 100), resumed to 300, which must say
+   "continuing at 201" and keep the checkpoint's filter_3d on its alive
+   rows (different from the initial cloud's); mcmc.yaml for 200 steps
+   (relocation from 100 every 50); absgrad.yaml for 100 steps (densify
+   from 50 every 50). Each must launch K1-K4 and no other kernel, give
+   finite losses, run its number of densify rounds and end with a val
+   PSNR above its initial cloud's. Prints the same numbers as phase 8's
+   fits, MCMC rounds as dead relocated and added rows.
 
 Bounds in the kernels line: the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM f32 without tensor cores). K1 moves 52
@@ -196,6 +225,7 @@ The last line is {"ok": true, "device": {...}}.
 import concurrent.futures
 import contextlib
 import csv
+import dataclasses
 import io
 import json
 import math
@@ -210,7 +240,7 @@ import torch
 from PIL import Image
 
 from gsl_tpu_torch import cli
-from gsl_tpu_torch.data.cameras import make_camera
+from gsl_tpu_torch.data.cameras import make_camera, stack_cameras
 from gsl_tpu_torch.data.colmap_io import (ColmapCamera, ColmapImage,
                                           ColmapModel, rotmat_to_qvec,
                                           write_model_bin)
@@ -226,12 +256,19 @@ from gsl_tpu_torch.models.gaussian import (PARAM_FIELDS, GaussianParams,
                                            GaussianState,
                                            VanillaGaussianConfig)
 from gsl_tpu_torch.models.gaussian_2d import Gaussian2DConfig
+from gsl_tpu_torch.models.mip_splatting import (MipSplattingConfig,
+                                                compute_3d_filter)
+from gsl_tpu_torch.renderers.mip_splatting_renderer import \
+    MipSplattingRendererConfig
 from gsl_tpu_torch.renderers.surfel_renderer import SurfelRendererConfig
 from gsl_tpu_torch.renderers.tile_renderer import TileRendererConfig
 from gsl_tpu_torch.training.density import VanillaDensityControllerConfig
-from gsl_tpu_torch.training.fit import _init_gaussians, validate
+from gsl_tpu_torch.training.fit import FitConfig, _init_gaussians, validate
 from gsl_tpu_torch.training.gs2d import GS2DMetricsConfig, GS2DTrainer
-from gsl_tpu_torch.training.metrics import train_loss
+from gsl_tpu_torch.training.hooks import FitContext, MCMCDensityHook
+from gsl_tpu_torch.training.mcmc import (MCMCDensityControllerConfig,
+                                         dead_mask, grow_target)
+from gsl_tpu_torch.training.metrics import MCMCMetricsConfig, train_loss
 from gsl_tpu_torch.training.trainer import Trainer, TrainerConfig
 from gsl_tpu_torch.utils.convert import state_from_raw_arrays
 from gsl_tpu_torch.utils.gaussian_model_loader import GaussianModelLoader
@@ -600,7 +637,7 @@ def phase_kernels(state, renderer):
         proj = project_gaussians(
             state.get_means(), state.get_scales(), state.get_rotations(),
             cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, W, H)
-        opac = renderer.get_opacities(state, proj).contiguous()
+        opac = renderer.get_opacities(state, cam, proj).contiguous()
         C = 3 if vi == 0 else 8
         ch = channels_for(state, renderer, proj, cam, C)
         m2d, con = proj.means2d.contiguous(), proj.conics.contiguous()
@@ -723,7 +760,7 @@ def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
     proj = project_gaussians(
         state.get_means(), state.get_scales(), state.get_rotations(),
         cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, W, H)
-    opac = renderer.get_opacities(state, proj).contiguous()
+    opac = renderer.get_opacities(state, cam, proj).contiguous()
     ch = channels_for(state, renderer, proj, cam, C)
     m2d, con = proj.means2d.contiguous(), proj.conics.contiguous()
     depths, kz = proj.depths.contiguous(), proj.depth_grads.contiguous()
@@ -1339,16 +1376,20 @@ def timed_frames(renderer, state, cam, bg, sh_degree, reps=5):
 
 
 def stage_times(state, renderer, sh_degree, cam, reps=5, stp=False):
-    """The rgb render's stages, as TileRenderer.forward runs them."""
+    """The rgb render's stages, as TileRenderer.forward runs them (through
+    the renderer's seams, so a variant's filtered scales and opacities are
+    part of "project")."""
     tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
     rows = []
     for _ in range(reps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
         ev[0].record()
         proj = project_gaussians(
-            state.get_means(), state.get_scales(), state.get_rotations(),
-            cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, W, H)
-        opac = renderer.get_opacities(state, proj).contiguous()
+            renderer.get_means(state, cam), renderer.get_scales(state, cam),
+            state.get_rotations(), cam.world_to_camera, cam.fx, cam.fy,
+            cam.cx, cam.cy, W, H,
+            filter_2d=renderer.config.filter_2d_kernel_size)
+        opac = renderer.get_opacities(state, cam, proj).contiguous()
         ev[1].record()
         rgb = renderer.get_rgbs(state, cam, sh_degree).contiguous()
         ev[2].record()
@@ -1763,6 +1804,14 @@ class Tee(io.TextIOBase):
         self.out.flush()
 
 
+def fit_poses():
+    """The FIT_VIEWS camera-to-world poses of phase 8's scene: the bench
+    pose, then an orbit around TARGET."""
+    return [np.eye(4)] + [
+        orbit_c2w(yaw, 8.0 * math.sin(i), 5.0, TARGET)
+        for i, yaw in enumerate(np.linspace(-40.0, 40.0, FIT_VIEWS - 1))]
+
+
 def write_colmap_scene(root, arrays):
     """FIT_VIEWS views of the bench scene rendered by the port at HxW (the
     bench pose, then an orbit around TARGET) as images/*.png, and
@@ -1771,12 +1820,9 @@ def write_colmap_scene(root, arrays):
     state = state_from_raw_arrays(arrays, device="cuda")
     renderer = TileRendererConfig().instantiate()
     bg = torch.zeros(3, device="cuda")
-    poses = [np.eye(4)] + [
-        orbit_c2w(yaw, 8.0 * math.sin(i), 5.0, TARGET)
-        for i, yaw in enumerate(np.linspace(-40.0, 40.0, FIT_VIEWS - 1))]
     os.makedirs(os.path.join(root, "images"))
     images = {}
-    for i, c2w in enumerate(poses):
+    for i, c2w in enumerate(fit_poses()):
         with torch.no_grad():
             out = renderer.forward(state, camera(c2w), H, W, bg, SH_DEGREE)
         img = (out.render.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
@@ -1800,14 +1846,14 @@ def write_colmap_scene(root, arrays):
 def run_cli(argv, kernels):
     """cli.main(argv), the launch counters zeroed just before and read just
     after; fails unless every kernel in `kernels` was launched. Returns a
-    dict: results, launches, peak_gib, said (standard output) and, for a
-    fit, timing (its fit_timing.json) and rows (train_log.csv)."""
+    dict: state, results, launches, peak_gib, said (standard output) and,
+    for a fit, timing (its fit_timing.json) and rows (train_log.csv)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     tee = Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
-        _, results = cli.main(argv)
+        state, results = cli.main(argv)
     torch.cuda.synchronize()
     launches = {k: v for k, v in read_launches().items() if v}
     for name in kernels:
@@ -1816,7 +1862,8 @@ def run_cli(argv, kernels):
     if set(launches) - set(kernels):
         fail(f"{' '.join(argv)}: launched {launches}, a kernel of another "
              "path among them")
-    out = {"results": results, "launches": launches, "said":
+    out = {"state": state, "results": results, "launches": launches,
+           "said":
            tee.kept.getvalue(),
            "peak_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3)}
     if argv[0] == "fit":
@@ -1856,98 +1903,403 @@ def log_fit(tag, fits, warm=()):
             f"densify {[round(x, 2) for x in t['densify_ms']]}; peak "
             f"memory {f['peak_gib']} GiB; launches {f['launches']}")
         for d in t["densify"]:
+            if "dead" in d:     # an MCMC relocation and growth round
+                log(f"{tag}: relocation at step {d['step']}: {d['before']} "
+                    f"alive, {d['dead']} dead relocated, {d['added']} added "
+                    f"-> {d['after']}")
+                continue
             log(f"{tag}: densify at step {d['step']}: {d['before']} alive, "
                 f"{d['clone']} cloned, {d['split']} split, {d['pruned']} "
                 f"pruned -> {d['after']}")
 
 
-def phase_fit(arrays):
+def phase_fit(arrays, tmp):
+    """Phase 8 in the directory `tmp`; its scene stays there for phase 9."""
     log("== phase 8: a synthesised COLMAP scene fitted through "
         "gsl_tpu_torch.cli at 1088x1920")
     colmap = os.path.join(PRESETS, "colmap.yaml")
-    with tempfile.TemporaryDirectory() as tmp:
-        data, runs = os.path.join(tmp, "scene"), os.path.join(tmp, "runs")
+    data, runs = os.path.join(tmp, "scene"), os.path.join(tmp, "runs")
+    t0 = time.perf_counter()
+    write_colmap_scene(data, arrays)
+    log(f"fit: {FIT_VIEWS} views at {H}x{W} and {SFM_POINTS} SfM points "
+        f"written in {time.perf_counter() - t0:.1f} s")
+
+    def argv(sub, name, steps, preset=colmap, extra=FIT_OVERRIDES):
+        return [sub, "--config", preset, "--data.path", data,
+                "--output", runs, "-n", name, "--max_steps",
+                str(steps), *extra]
+
+    # the initial cloud, initialised as the fit initialises it
+    trainer, dp_cfg, fit_cfg = cli.build_components(cli.load_config(
+        [colmap], cli.parse_overrides(FIT_OVERRIDES
+                                      + (f"data.path={data}",))))
+    outputs = dp_cfg.instantiate().get_outputs()
+    fit_cfg.output_dir = os.path.join(tmp, "initial")
+    with contextlib.redirect_stdout(io.StringIO()):
+        psnr0 = validate(trainer, trainer.setup(
+            _init_gaussians(trainer, outputs, fit_cfg, "cuda"),
+            outputs.camera_extent), outputs, fit_cfg)["psnr"]
+    del trainer
+
+    first = run_cli(argv("fit", "colmap", FIT_STEPS), GAUSSIAN_KERNELS)
+    second = run_cli(argv("fit", "colmap", RESUME_STEPS),
+                     GAUSSIAN_KERNELS)
+    if f"-> continuing at {FIT_STEPS + 1}" not in second["said"]:
+        fail(f"the second fit did not continue at {FIT_STEPS + 1}")
+    run = os.path.join(runs, "colmap")
+    for rel in [f"checkpoints/step_{s}/{f}"
+                for s in (FIT_STEPS, RESUME_STEPS)
+                for f in ("state.pt", "fit_meta.json")] + [
+            f"point_cloud/iteration_{s}/point_cloud.ply"
+            for s in (FIT_STEPS, RESUME_STEPS)] + [
+            "train_log.csv", "metrics/val.csv", "config.yaml"]:
+        if not os.path.isfile(os.path.join(run, rel)):
+            fail(f"the fit wrote no {rel}")
+    if [int(r[0]) for r in second["rows"]] != list(
+            range(LOG_INTERVAL, RESUME_STEPS + 1, LOG_INTERVAL)) \
+            or second["rows"][:len(first["rows"])] != first["rows"]:
+        fail(f"train_log.csv holds {second['rows']}, not the first "
+             f"run's {first['rows']} and then the resumed run's")
+    val = run_cli(["validate", "--output", runs, "-n", "colmap"],
+                  ("expand", "rasterize_fwd"))
+    psnr = val["results"]["psnr"]
+    if not psnr > psnr0:
+        fail(f"val PSNR at step {RESUME_STEPS}, {psnr:.3f} dB, is not "
+             f"above the initial cloud's {psnr0:.3f}")
+    picked = GaussianModelLoader.search_load_file(run)
+    if picked != os.path.join(run, "checkpoints", f"step_{RESUME_STEPS}"):
+        fail(f"GaussianModelLoader picked {picked}")
+    loaded, renderer, sh_degree = GaussianModelLoader.load(run)
+    with torch.no_grad():
+        frame = renderer.forward(loaded, camera(np.eye(4)), H, W,
+                                 torch.zeros(3, device="cuda"),
+                                 sh_degree).render
+    if not (bool(torch.isfinite(frame).all())
+            and float(frame.mean()) > 0.0):
+        fail("the loaded model renders no finite frame")
+    log(f"fit: val PSNR of the initial cloud {psnr0:.3f} dB, at step "
+        f"{FIT_STEPS} {first['results']['psnr']:.3f}, at step "
+        f"{RESUME_STEPS} {second['results']['psnr']:.3f} (validate "
+        f"command {psnr:.3f}, SSIM {val['results']['ssim']:.4f}); the "
+        f"loader took step_{RESUME_STEPS}, {loaded.capacity} Gaussians, "
+        f"frame mean {float(frame.mean()):.4f}")
+    del loaded, frame
+    # a run's first window holds its warm-up and first image decodes
+    warm = [s for s in range(LOG_INTERVAL, RESUME_STEPS + 1,
+                             LOG_INTERVAL)
+            if s not in (LOG_INTERVAL, FIT_STEPS + LOG_INTERVAL)]
+    log_fit("fit colmap.yaml", [first, second], warm)
+
+    for preset, kernels in (("gs2d.yaml", SURFEL_KERNELS),
+                            ("stp.yaml", STP_KERNELS)):
+        name = preset.split(".")[0]
+        f = run_cli(argv("fit", name, VARIANT_STEPS,
+                         preset=os.path.join(PRESETS, preset), extra=()),
+                    kernels)
+        log(f"fit {preset}: val PSNR {f['results']['psnr']:.3f} dB at "
+            f"step {VARIANT_STEPS}")
+        log_fit(f"fit {preset}", [f])
+
+
+VARIANT_TRAIN_STEPS, FILTER_AT = 10, 5       # phase 9 (a): steps, recompute
+MCMC_DEAD_SHARE, MCMC_CAP_MAX = 0.05, 2_000_000
+MCMC_STEPS_AFTER = 2                          # steps at the grown capacity
+VARIANT_FIT_STEPS, MIP_RESUME_STEPS, ABSGRAD_STEPS = 200, 300, 100
+VARIANT_LOG_INTERVAL = 50
+
+
+def fit_cameras():
+    """Phase 8's FIT_VIEWS cameras as one batch on the card."""
+    return stack_cameras([camera(c2w) for c2w in fit_poses()])
+
+
+def check_step_launches(what, step):
+    """Fails unless the step just run launched K1-K4 once each and no
+    other kernel (the counters were zeroed just before it)."""
+    counts = read_launches()
+    want = {k: (1 if k in GAUSSIAN_KERNELS else 0) for k in counts}
+    if counts != want:
+        fail(f"{what} step {step}: launches {counts}, not K1-K4 once each")
+
+
+def variant_steps(what, trainer, state, cams, targets, bg, first_step,
+                  n_steps, after=None):
+    """`n_steps` train_steps from `first_step`, each checked for its
+    launches, and `after(state, step)` (untimed in the step, launching no
+    kernel) after each. Returns (state, losses, ms per step, ms of after)."""
+    losses, step_ms, after_ms = [], [], []
+    for step in range(first_step, first_step + n_steps):
+        view = step % len(cams)
+        torch.cuda.synchronize()
+        reset_launches()
         t0 = time.perf_counter()
-        write_colmap_scene(data, arrays)
-        log(f"fit: {FIT_VIEWS} views at {H}x{W} and {SFM_POINTS} SfM points "
-            f"written in {time.perf_counter() - t0:.1f} s")
+        state, scalars = trainer.train_step(
+            state, cams[view], targets[view], H, W, SH_DEGREE, bg)
+        losses.append(float(scalars["loss"]))       # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check_step_launches(what, step)
+        if after is not None:
+            t0 = time.perf_counter()
+            state = after(state, step)
+            torch.cuda.synchronize()
+            after_ms.append((time.perf_counter() - t0) * 1e3)
+            check_step_launches(f"{what} (and the pass after it)", step)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: non-finite loss in {losses}")
+    for k in PARAM_FIELDS:
+        if not bool(torch.isfinite(getattr(state.params, k)).all()):
+            fail(f"{what}: non-finite {k}")
+    return state, losses, step_ms, after_ms
 
-        def argv(sub, name, steps, preset=colmap, extra=FIT_OVERRIDES):
-            return [sub, "--config", preset, "--data.path", data,
-                    "--output", runs, "-n", name, "--max_steps",
-                    str(steps), *extra]
 
-        # the initial cloud, initialised as the fit initialises it
-        trainer, dp_cfg, fit_cfg = cli.build_components(cli.load_config(
-            [colmap], cli.parse_overrides(FIT_OVERRIDES
-                                          + (f"data.path={data}",))))
-        outputs = dp_cfg.instantiate().get_outputs()
-        fit_cfg.output_dir = os.path.join(tmp, "initial")
-        with contextlib.redirect_stdout(io.StringIO()):
-            psnr0 = validate(trainer, trainer.setup(
-                _init_gaussians(trainer, outputs, fit_cfg, "cuda"),
-                outputs.camera_extent), outputs, fit_cfg)["psnr"]
-        del trainer
+def phase_mip(arrays):
+    """Phase 9 (a), Mip-Splatting at full width."""
+    log("== phase 9 (a): Mip-Splatting at 1088x1920: compute_3d_filter, "
+        "ViewerRenderer -> MipSplattingRenderer, Trainer.train_step")
+    state = state_from_raw_arrays(arrays, device="cuda")
+    fcams = fit_cameras()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f3d = compute_3d_filter(state.params.means, state.alive, fcams)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not (bool(torch.isfinite(f3d).all()) and float(f3d.min()) > 0.0):
+        fail("compute_3d_filter: non-finite or non-positive filter")
+    log(f"Mip-Splatting: compute_3d_filter over {len(fcams)} cameras at "
+        f"{N_GAUSSIANS} Gaussians, host clock ms (synchronised) "
+        f"{[round(x, 3) for x in times]}; filter_3d from "
+        f"{float(f3d.min()):.3e} to {float(f3d.max()):.3e}")
+    state.extra = {"filter_3d": f3d}
+    renderer = MipSplattingRendererConfig().instantiate()
+    vr = ViewerRenderer(state, renderer, SH_DEGREE)
+    fov_y = math.degrees(2.0 * math.atan(0.5 * H / FOCAL))
+    torch.cuda.synchronize()
+    reset_launches()
+    frame_ms = []
+    for yaw in (0.0, 10.0, 20.0, 30.0, 40.0):
+        t0 = time.perf_counter()
+        img = vr.get_outputs(orbit_c2w(yaw, 0.0, 5.0, TARGET), W, H, fov_y)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        if img.shape != (H, W, 3) or int(img.max()) == 0:
+            fail(f"Mip-Splatting serving: frame at yaw {yaw} is wrong")
+    launches = {k: v for k, v in read_launches().items() if v}
+    if launches != {"expand": 5, "rasterize_fwd": 5}:
+        fail(f"Mip-Splatting serving: launches {launches}")
+    cam = camera(np.eye(4))
+    stage_ms = stage_times(state, renderer, SH_DEGREE, cam)
+    log(f"Mip-Splatting serving: 5 rgb frames, host clock ms per frame "
+        f"{[round(x, 3) for x in frame_ms]}; launches {launches}; "
+        "bench-pose stage ms (CUDA events, median of 5) "
+        + json.dumps(stage_ms))
 
-        first = run_cli(argv("fit", "colmap", FIT_STEPS), GAUSSIAN_KERNELS)
-        second = run_cli(argv("fit", "colmap", RESUME_STEPS),
-                         GAUSSIAN_KERNELS)
-        if f"-> continuing at {FIT_STEPS + 1}" not in second["said"]:
-            fail(f"the second fit did not continue at {FIT_STEPS + 1}")
-        run = os.path.join(runs, "colmap")
-        for rel in [f"checkpoints/step_{s}/{f}"
-                    for s in (FIT_STEPS, RESUME_STEPS)
-                    for f in ("state.pt", "fit_meta.json")] + [
-                f"point_cloud/iteration_{s}/point_cloud.ply"
-                for s in (FIT_STEPS, RESUME_STEPS)] + [
-                "train_log.csv", "metrics/val.csv", "config.yaml"]:
-            if not os.path.isfile(os.path.join(run, rel)):
-                fail(f"the fit wrote no {rel}")
-        if [int(r[0]) for r in second["rows"]] != list(
-                range(LOG_INTERVAL, RESUME_STEPS + 1, LOG_INTERVAL)) \
-                or second["rows"][:len(first["rows"])] != first["rows"]:
-            fail(f"train_log.csv holds {second['rows']}, not the first "
-                 f"run's {first['rows']} and then the resumed run's")
-        val = run_cli(["validate", "--output", runs, "-n", "colmap"],
-                      ("expand", "rasterize_fwd"))
-        psnr = val["results"]["psnr"]
+    trainer = Trainer(model=MipSplattingConfig(sh_degree=SH_DEGREE),
+                      renderer=MipSplattingRendererConfig())
+    bg = torch.zeros(3, device="cuda")
+    cams = [camera(c2w) for c2w in views().values()]
+    with torch.no_grad():
+        targets = [renderer.forward(state, c, H, W, bg, SH_DEGREE).render
+                   for c in cams]
+    start = state_from_raw_arrays(perturbed(arrays), device="cuda")
+    start.extra = {"filter_3d": f3d}
+    del state, vr
+    tstate = trainer.setup(start, cameras_extent=TRAIN_EXTENT)
+
+    def recompute(st, step):
+        if step != FILTER_AT:
+            return st
+        return dataclasses.replace(st, extra={"filter_3d": compute_3d_filter(
+            st.params.means, st.alive, fcams)})
+
+    tstate, losses, step_ms, after_ms = variant_steps(
+        "Mip-Splatting training", trainer, tstate, cams, targets, bg, 1,
+        VARIANT_TRAIN_STEPS, recompute)
+    moved = float((tstate.extra["filter_3d"] - f3d).abs().max())
+    if tstate.gaussians.n_alive != N_GAUSSIANS or not moved > 0.0:
+        fail(f"Mip-Splatting training: alive {tstate.gaussians.n_alive}, "
+             f"filter moved by {moved}")
+    log(f"Mip-Splatting training at capacity {tstate.params.capacity}: "
+        f"losses {[round(x, 5) for x in losses]}; ms per step (host "
+        f"clock, synchronised) {[round(x, 2) for x in step_ms]}, median "
+        f"{float(np.median(step_ms[1:])):.2f} over steps 2-"
+        f"{VARIANT_TRAIN_STEPS}; filter recompute at step {FILTER_AT} "
+        f"{after_ms[FILTER_AT - 1]:.2f} ms (moved by up to {moved:.3e}); "
+        f"each step launched K1-K4 once; alive {tstate.gaussians.n_alive}")
+
+
+def phase_mcmc(arrays):
+    """Phase 9 (a), MCMC at full width."""
+    log("== phase 9 (a): MCMC at 1088x1920: train_step with the MCMC "
+        "regularisers, the position noise, a relocation and growth round "
+        "through a capacity growth")
+    cfg = MCMCDensityControllerConfig(cap_max=MCMC_CAP_MAX)
+    trainer = Trainer(model=VanillaGaussianConfig(sh_degree=SH_DEGREE),
+                      density=cfg, metrics=MCMCMetricsConfig())
+    bg = torch.zeros(3, device="cuda")
+    cams = [camera(c2w) for c2w in views().values()]
+    with torch.no_grad():
+        truth = state_from_raw_arrays(arrays, device="cuda")
+        targets = [trainer.renderer.forward(truth, c, H, W, bg,
+                                            SH_DEGREE).render for c in cams]
+        del truth
+    start = perturbed(arrays)
+    n_dead = int(MCMC_DEAD_SHARE * N_GAUSSIANS)
+    dead_rows = np.random.RandomState(5).choice(N_GAUSSIANS, n_dead,
+                                                replace=False)
+    start["opacities"] = start["opacities"].copy()
+    start["opacities"][dead_rows] = math.log(0.001 / 0.999)
+    state = trainer.setup(state_from_raw_arrays(start, device="cuda"),
+                          cameras_extent=TRAIN_EXTENT)
+    hook = MCMCDensityHook(FitContext(
+        trainer=trainer, outputs=None, dataset=None,
+        cfg=FitConfig(max_steps=1000), bg=bg))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, losses, step_ms, noise_ms = variant_steps(
+        "MCMC training", trainer, state, cams, targets, bg, 1,
+        VARIANT_TRAIN_STEPS, lambda st, step: hook.noise(st, gen, step))
+    dead = int(dead_mask(state.gaussians, cfg).sum())
+    n_alive = state.gaussians.n_alive
+    target = grow_target(n_alive, cfg)
+    if dead != n_dead or n_alive != N_GAUSSIANS:
+        fail(f"MCMC: {dead} dead of {n_alive} alive before the round, "
+             f"predicted {n_dead} of {N_GAUSSIANS}")
+
+    rounds, ms = [], []
+    saved = gen.get_state()
+    for _ in range(2):                 # the same generator state twice
+        gen.set_state(saved)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        rounds.append(hook.density_round(state, gen))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if any(read_launches().values()):
+            fail(f"MCMC round launched {read_launches()}")
+    a, b = rounds
+    same = (all(torch.equal(getattr(a.params, k), getattr(b.params, k))
+                and torch.equal(a.opt_state.exp_avg[k], b.opt_state.exp_avg[k])
+                and torch.equal(a.opt_state.exp_avg_sq[k],
+                                b.opt_state.exp_avg_sq[k])
+                for k in PARAM_FIELDS)
+            and torch.equal(a.alive, b.alive))
+    if not same:
+        fail("MCMC: two rounds from the same generator state differ")
+    after = a.gaussians.n_alive
+    relocated = int((a.params.opacities[:state.params.capacity, 0]
+                     != state.params.opacities[:, 0])[
+                         torch.from_numpy(dead_rows).cuda()].sum())
+    if (after != target or a.params.capacity != 1 << 21
+            or hook.n_new != target - n_alive or relocated != n_dead):
+        fail(f"MCMC round: alive {n_alive} -> {after} (predicted "
+             f"{target}), capacity {a.params.capacity}, added "
+             f"{hook.n_new}, relocated {relocated} of {n_dead} dead")
+    del b, rounds
+    state, after_losses, after_ms, _ = variant_steps(
+        "MCMC training", trainer, a, cams, targets, bg,
+        VARIANT_TRAIN_STEPS + 1, MCMC_STEPS_AFTER,
+        lambda st, step: hook.noise(st, gen, step))
+    log(f"MCMC training at capacity {N_GAUSSIANS}: losses "
+        f"{[round(x, 5) for x in losses]}; ms per step (host clock, "
+        f"synchronised) {[round(x, 2) for x in step_ms]}, median "
+        f"{float(np.median(step_ms[1:])):.2f} over steps 2-"
+        f"{VARIANT_TRAIN_STEPS}; noise step ms "
+        f"{[round(x, 2) for x in noise_ms]}; each step launched K1-K4 once")
+    log(f"MCMC round: {dead} dead relocated ({relocated} rewritten), "
+        f"{hook.n_new} added, alive {n_alive} -> {after}, capacity "
+        f"{N_GAUSSIANS} -> {a.params.capacity}; ms (host clock, "
+        f"synchronised) {[round(x, 2) for x in ms]}; the two rounds from "
+        "one generator state are identical")
+    log(f"MCMC training at capacity {state.params.capacity}: losses "
+        f"{[round(x, 5) for x in after_losses]}; ms per step "
+        f"{[round(x, 2) for x in after_ms]}")
+
+
+def initial_psnr(configs, overrides, tmp, name):
+    """Val PSNR of the initial cloud, built as the fit builds it."""
+    trainer, dp_cfg, fit_cfg = cli.build_components(cli.load_config(
+        configs, cli.parse_overrides(overrides)))
+    outputs = dp_cfg.instantiate().get_outputs()
+    fit_cfg.output_dir = os.path.join(tmp, f"initial_{name}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        gaussians = _init_gaussians(trainer, outputs, fit_cfg, "cuda")
+        psnr0 = validate(trainer, trainer.setup(
+            gaussians, outputs.camera_extent), outputs, fit_cfg)["psnr"]
+    return psnr0, gaussians.extra
+
+
+def phase_variant_fits(tmp):
+    """Phase 9 (b): the Mip-Splatting, MCMC and AbsGS presets fitted
+    through the CLI on phase 8's scene."""
+    log("== phase 9 (b): mip_splatting.yaml, mcmc.yaml and absgrad.yaml "
+        "fitted through gsl_tpu_torch.cli on phase 8's scene")
+    data, runs = os.path.join(tmp, "scene"), os.path.join(tmp, "runs")
+    colmap = os.path.join(PRESETS, "colmap.yaml")
+    windows = (f"fit.log_interval={VARIANT_LOG_INTERVAL}",)
+    fits = {
+        "mip_splatting": (VARIANT_FIT_STEPS, windows + (
+            "model.density.init_args.densify_from_iter=100",
+            "model.density.init_args.densification_interval=100",
+            "model.gaussian.init_args.filter_3d_update_interval=100")),
+        "mcmc": (VARIANT_FIT_STEPS, windows + (
+            "model.density.init_args.densify_from_iter=100",
+            "model.density.init_args.densification_interval=50")),
+        "absgrad": (ABSGRAD_STEPS, windows + (
+            "model.density.init_args.densify_from_iter=50",
+            "model.density.init_args.densification_interval=50")),
+    }
+    for name, (steps, extra) in fits.items():
+        configs = [colmap, os.path.join(PRESETS, f"{name}.yaml")]
+        psnr0, extra0 = initial_psnr(configs, extra + (f"data.path={data}",),
+                                     tmp, name)
+
+        def argv(n_steps):
+            return ["fit", "--config", configs[0], "--config", configs[1],
+                    "--data.path", data, "--output", runs, "-n", name,
+                    "--max_steps", str(n_steps), *extra]
+
+        f = run_cli(argv(steps), GAUSSIAN_KERNELS)
+        fitted = [f]
+        psnr = f["results"]["psnr"]
         if not psnr > psnr0:
-            fail(f"val PSNR at step {RESUME_STEPS}, {psnr:.3f} dB, is not "
-                 f"above the initial cloud's {psnr0:.3f}")
-        picked = GaussianModelLoader.search_load_file(run)
-        if picked != os.path.join(run, "checkpoints", f"step_{RESUME_STEPS}"):
-            fail(f"GaussianModelLoader picked {picked}")
-        loaded, renderer, sh_degree = GaussianModelLoader.load(run)
-        with torch.no_grad():
-            frame = renderer.forward(loaded, camera(np.eye(4)), H, W,
-                                     torch.zeros(3, device="cuda"),
-                                     sh_degree).render
-        if not (bool(torch.isfinite(frame).all())
-                and float(frame.mean()) > 0.0):
-            fail("the loaded model renders no finite frame")
-        log(f"fit: val PSNR of the initial cloud {psnr0:.3f} dB, at step "
-            f"{FIT_STEPS} {first['results']['psnr']:.3f}, at step "
-            f"{RESUME_STEPS} {second['results']['psnr']:.3f} (validate "
-            f"command {psnr:.3f}, SSIM {val['results']['ssim']:.4f}); the "
-            f"loader took step_{RESUME_STEPS}, {loaded.capacity} Gaussians, "
-            f"frame mean {float(frame.mean()):.4f}")
-        del loaded, frame
-        # a run's first window holds its warm-up and first image decodes
-        warm = [s for s in range(LOG_INTERVAL, RESUME_STEPS + 1,
-                                 LOG_INTERVAL)
-                if s not in (LOG_INTERVAL, FIT_STEPS + LOG_INTERVAL)]
-        log_fit("fit colmap.yaml", [first, second], warm)
-
-        for preset, kernels in (("gs2d.yaml", SURFEL_KERNELS),
-                                ("stp.yaml", STP_KERNELS)):
-            name = preset.split(".")[0]
-            f = run_cli(argv("fit", name, VARIANT_STEPS,
-                             preset=os.path.join(PRESETS, preset), extra=()),
-                        kernels)
-            log(f"fit {preset}: val PSNR {f['results']['psnr']:.3f} dB at "
-                f"step {VARIANT_STEPS}")
-            log_fit(f"fit {preset}", [f])
-
+            fail(f"fit {name}.yaml: val PSNR {psnr:.3f} dB at step {steps} "
+                 f"is not above the initial cloud's {psnr0:.3f}")
+        n_rounds = len(f["timing"]["densify"])
+        if n_rounds != (2 if name == "mcmc" else 1):
+            fail(f"fit {name}.yaml: {n_rounds} densify rounds")
+        said = f"val PSNR initial cloud {psnr0:.4f} dB, at step {steps} " \
+            f"{psnr:.4f}"
+        if name == "mip_splatting":
+            ckpt = torch.load(os.path.join(
+                runs, name, "checkpoints", f"step_{steps}", "state.pt"),
+                map_location="cuda", weights_only=True)
+            kept = ckpt["extra"]["filter_3d"]
+            del f["state"]
+            r = run_cli(argv(MIP_RESUME_STEPS), GAUSSIAN_KERNELS)
+            if f"-> continuing at {steps + 1}" not in r["said"]:
+                fail(f"the Mip-Splatting resume did not continue at "
+                     f"{steps + 1}")
+            rows = ckpt["alive"]
+            got = r["state"].extra["filter_3d"][:rows.numel()]
+            init = extra0["filter_3d"][:rows.numel()]
+            if not (torch.equal(got[rows], kept[rows])
+                    and not torch.equal(kept[rows], init[rows])):
+                fail("the Mip-Splatting resume did not keep the "
+                     "checkpoint's filter_3d")
+            fitted.append(r)
+            said += (f", at step {MIP_RESUME_STEPS} "
+                     f"{r['results']['psnr']:.3f}; the resume continued at "
+                     f"{steps + 1} and kept the checkpoint's filter_3d on "
+                     f"its {int(rows.sum())} alive rows")
+            del ckpt, kept, got, init
+        for fr in fitted:
+            fr.pop("state", None)
+        log(f"fit {name}.yaml: {said}")
+        last = fitted[-1]["rows"]
+        warm = [int(row[0]) for row in last][1:]
+        warm = [s for s in warm if s not in (steps + VARIANT_LOG_INTERVAL,)]
+        log_fit(f"fit {name}.yaml", fitted, warm)
 
 def main():
     if not torch.cuda.is_available():
@@ -2025,7 +2377,14 @@ def main():
                      "invert_order": rec["invert_ms"],
                      "reduce_grads": trec["reduce_ms"]}, stp=True)
     torch.cuda.empty_cache()
-    phase_fit(arrays)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_fit(arrays, tmp)
+        torch.cuda.empty_cache()
+        phase_mip(arrays)
+        torch.cuda.empty_cache()
+        phase_mcmc(arrays)
+        torch.cuda.empty_cache()
+        phase_variant_fits(tmp)
     # StopThePop beside plain 3DGS, phases 7 and 4/5 of this run
     log("StopThePop over plain 3DGS, this run: bench-pose rgb frame ms "
         f"{[round(x, 2) for x in stp_serving['rgb_frame_ms']]} vs "

@@ -27,32 +27,38 @@ from .data.dataparsers.blender import BlenderDataParserConfig
 from .data.dataparsers.colmap import ColmapDataParserConfig
 from .models.gaussian import VanillaGaussianConfig
 from .models.gaussian_2d import Gaussian2DConfig
+from .models.mip_splatting import MipSplattingConfig
+from .renderers.mip_splatting_renderer import MipSplattingRendererConfig
 from .renderers.surfel_renderer import SurfelRendererConfig
 from .renderers.tile_renderer import TileRendererConfig
 from .training.density import VanillaDensityControllerConfig
 from .training.fit import FitConfig, _round_capacity, fit, validate
 from .training.gs2d import GS2DMetricsConfig, GS2DTrainer
-from .training.metrics import VanillaMetricsConfig
+from .training.mcmc import MCMCDensityControllerConfig
+from .training.metrics import MCMCMetricsConfig, VanillaMetricsConfig
 from .training.trainer import Trainer, TrainerConfig
 from .utils.checkpoint import find_latest_checkpoint, load_checkpoint
 from .utils.device import resolve_device
 
 _REGISTRY = {
     "VanillaGaussian": VanillaGaussianConfig,
+    "MipSplatting": MipSplattingConfig,
     "Gaussian2D": Gaussian2DConfig,
     "TileRenderer": TileRendererConfig,
+    "MipSplattingRenderer": MipSplattingRendererConfig,
     "SurfelRenderer": SurfelRendererConfig,
     "VanillaDensityController": VanillaDensityControllerConfig,
+    "MCMCDensityController": MCMCDensityControllerConfig,
     "VanillaMetrics": VanillaMetricsConfig,
+    "MCMCMetrics": MCMCMetricsConfig,
     "GS2DMetrics": GS2DMetricsConfig,
     "Colmap": ColmapDataParserConfig,
     "Blender": BlenderDataParserConfig,
 }
 
-# components of gsl_tpu's registry that the port has not yet -> ROADMAP item
+# components of gsl_tpu's registry (or class paths into gsl_tpu, which the
+# port never imports) that the port has not yet -> ROADMAP item
 _UNPORTED_COMPONENTS = {
-    "MipSplatting": 7, "MipSplattingRenderer": 7,
-    "MCMCDensityController": 8, "MCMCMetrics": 8,
     "DepthMetrics": 9, "EstimatedDepthColmap": 9,
     "NSVF": 12, "PhotoTourism": 12, "MatrixCity": 12, "Nerfies": 12,
     "SegAnyColmap": 12, "NGP": 12, "AppearanceFeatureGaussian": 12,
@@ -62,6 +68,7 @@ _UNPORTED_COMPONENTS = {
     "AccurateVisibilityFilterDensityController": 12,
     "BackgroundRemoval": 12, "GNS": 12, "Feature3DGSColmap": 12,
     "SILVR": 12, "PVG": 12, "PVGRenderer": 12,
+    "gsl_tpu.training.taming.Taming3DGSDensityControllerConfig": 12,
 }
 
 # fields of gsl_tpu's configs that exist for the TPU's static shapes, its

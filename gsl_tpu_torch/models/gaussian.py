@@ -6,15 +6,17 @@ activated getters, the same initialization and capacity growth, and the
 same per-property optimizer settings. Rows map one to one onto the JAX
 state's: densification writes children into free slots (alive False) and
 pruning only clears `alive`. Dead slots get opacity 0, so they never
-rasterize. The optional properties of the variant models (appearance
-features, the periodic-vibration fields, `extra`) come with those
-variants.
+rasterize. `extra` holds non-trainable properties, such as
+Mip-Splatting's `filter_3d`: a dict of tensors, where an entry whose first
+dimension is the capacity is per Gaussian and follows every row edit. The
+optional trainable properties of the other variant models (appearance
+features, the periodic-vibration fields) come with those variants.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -55,10 +57,17 @@ class GaussianParams:
                                  for k in PARAM_FIELDS})
 
 
+def is_per_gaussian(x, capacity: int) -> bool:
+    """Whether an `extra` entry has one row per Gaussian."""
+    return isinstance(x, torch.Tensor) and x.ndim >= 1 \
+        and x.shape[0] == capacity
+
+
 @dataclasses.dataclass
 class GaussianState:
     params: GaussianParams
     alive: torch.Tensor       # [N] bool
+    extra: Optional[Dict[str, torch.Tensor]] = None
 
     @property
     def capacity(self) -> int:
@@ -160,14 +169,15 @@ def active_sh_degree(step: int, max_degree: int, interval: int = 1000):
 
 def grow_capacity(state: GaussianState, new_capacity: int) -> GaussianState:
     """Pad every property to `new_capacity` rows. New rows are dead:
-    identity rotation, raw scale and opacity -10, everything else 0."""
+    identity rotation, raw scale and opacity -10, everything else 0;
+    per-Gaussian `extra` entries are padded with zeros."""
     cap = state.capacity
-    extra = new_capacity - cap
-    if extra <= 0:
+    n_new = new_capacity - cap
+    if n_new <= 0:
         return state
 
     def pad(name, x):
-        tail = torch.zeros((extra,) + x.shape[1:], dtype=x.dtype,
+        tail = torch.zeros((n_new,) + x.shape[1:], dtype=x.dtype,
                            device=x.device)
         if name == "rotations":
             tail[:, 0] = 1.0
@@ -177,7 +187,20 @@ def grow_capacity(state: GaussianState, new_capacity: int) -> GaussianState:
             tail.fill_(DEAD_LOGIT)
         return torch.cat([x, tail], dim=0)
 
+    def pad_extra(x):
+        if not is_per_gaussian(x, cap):
+            return x
+        return torch.cat([x, x.new_zeros((n_new,) + x.shape[1:])])
+
     return GaussianState(
         params=state.params.map(pad),
         alive=torch.cat([state.alive, torch.zeros(
-            extra, dtype=torch.bool, device=state.alive.device)]))
+            n_new, dtype=torch.bool, device=state.alive.device)]),
+        extra=map_extra(state.extra, pad_extra))
+
+
+def map_extra(extra, fn):
+    """`extra` with fn applied to every entry (None stays None)."""
+    if extra is None:
+        return None
+    return {k: fn(v) for k, v in extra.items()}

@@ -1,7 +1,7 @@
 """Quaternion math for 3D Gaussians (wxyz quaternions).
 
 Port of ``gsl_tpu/ops/transforms.py``: Sigma = R S S^T R^T with
-S = diag(scales).
+S = diag(scales) (`build_cov3d`, which MCMC's position noise takes).
 """
 from __future__ import annotations
 
@@ -34,3 +34,14 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         torch.stack([r10, r11, r12], dim=-1),
         torch.stack([r20, r21, r22], dim=-1),
     ], dim=-2)
+
+
+def build_cov3d(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
+    """3D covariance Sigma = (R S)(R S)^T.
+
+    scales: activated (positive) scales [..., 3]; quats: normalized wxyz
+    [..., 4]. Returns [..., 3, 3].
+    """
+    M = quat_to_rotmat(quats) * scales[..., None, :]  # R @ diag(s)
+    # summed elementwise: a batched matmul could take TF32 on the card
+    return (M[..., :, None, :] * M[..., None, :, :]).sum(-1)

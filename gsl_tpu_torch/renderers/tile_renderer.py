@@ -6,7 +6,9 @@ rgb; hard inverse depth is a second pass with opacities pushed to 1. The
 output is always the reference's exact mode (exact (tile, depth) order,
 f32 payload). The whole forward is differentiable in the Gaussian
 parameters; the two taps hand the screen-space mean gradients to density
-control.
+control. A variant renderer overrides the seams `get_means`,
+`get_scales` and `get_opacities`, each of which sees the camera (the
+Mip-Splatting renderer filters scales and opacities there).
 """
 from __future__ import annotations
 
@@ -67,7 +69,15 @@ class TileRenderer:
         since the kernels' plain versions produce it too."""
         return True
 
-    def get_opacities(self, gaussians: GaussianState, proj: Projections):
+    # ---- seams a variant renderer overrides ----
+    def get_means(self, gaussians: GaussianState, camera: Cameras):
+        return gaussians.get_means()
+
+    def get_scales(self, gaussians: GaussianState, camera: Cameras):
+        return gaussians.get_scales()
+
+    def get_opacities(self, gaussians: GaussianState, camera: Cameras,
+                      proj: Projections):
         op = gaussians.get_opacities()
         if self.config.anti_aliased:
             op = op * proj.compensations
@@ -98,14 +108,14 @@ class TileRenderer:
         cfg = self.config
         with float32_math():   # the camera transform's matrix product
             proj = project_gaussians(
-                gaussians.get_means(),
-                gaussians.get_scales() * scaling_modifier,
+                self.get_means(gaussians, camera),
+                self.get_scales(gaussians, camera) * scaling_modifier,
                 gaussians.get_rotations(), camera.world_to_camera,
                 camera.fx, camera.fy, camera.cx, camera.cy, img_width,
                 img_height, filter_2d=cfg.filter_2d_kernel_size)
         if means2d_tap is not None:
             proj = proj._replace(means2d=proj.means2d + means2d_tap)
-        opacities = self.get_opacities(gaussians, proj)
+        opacities = self.get_opacities(gaussians, camera, proj)
         rgbs = self.get_rgbs(gaussians, camera, sh_degree)
 
         # extra composited channels next to rgb
@@ -126,7 +136,8 @@ class TileRenderer:
             # flipped to face the camera
             normals = quat_to_rotmat(
                 normalize_quat(gaussians.get_rotations()))[:, :, 2]
-            dirs = gaussians.get_means().detach() - camera.camera_center
+            dirs = (self.get_means(gaussians, camera).detach()
+                    - camera.camera_center)
             away = torch.sum(normals * dirs, dim=-1) > 0.0
             normals = normals * torch.where(away, -1.0, 1.0)[:, None]
             channels.append(normals)

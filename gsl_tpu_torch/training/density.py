@@ -13,7 +13,10 @@ of touched rows are zeroed.
 - prune opacity < cull_opacity_threshold and, after the first opacity
   reset, screen radius > 20 px or world scale > 0.1 * prune_extent;
 - all statistics restart at zero after every densify;
-- opacity reset to min(opacity, 0.01), zeroing the opacity moments.
+- opacity reset to min(opacity, 0.01), zeroing the opacity moments;
+- the per-Gaussian `extra` entries (Mip-Splatting's `filter_3d`) of a new
+  slot are copied from its source row, and stay as they are until the
+  variant recomputes them.
 
 The functions build new tensors and leave their arguments as they were.
 Nothing here reads a value back to the host.
@@ -27,7 +30,7 @@ from typing import Tuple
 import torch
 
 from ..models.gaussian import (PARAM_FIELDS, GaussianParams, GaussianState,
-                               inverse_sigmoid)
+                               inverse_sigmoid, is_per_gaussian, map_extra)
 from ..ops.transforms import normalize_quat, quat_to_rotmat
 from .optimizers import (AdamState, zero_opacity_opt_state,
                          zero_opt_state_rows)
@@ -175,6 +178,8 @@ def densify_and_prune(
     born = _scatter_rows(torch.zeros_like(alive), dest,
                          torch.ones_like(alive))
     alive = alive | born
+    extra = map_extra(gstate.extra, lambda x: (
+        _scatter_rows(x, dest, x[src]) if is_per_gaussian(x, cap) else x))
 
     # prune, on the values after densification
     opacities_act = torch.sigmoid(params.opacities[:, 0])
@@ -193,8 +198,8 @@ def densify_and_prune(
     opt_state = zero_opt_state_rows(opt_state, born | split_mask | prune)
 
     n_truncated = torch.clamp(total_new - n_free, min=0)
-    return (GaussianState(params=params, alive=alive), opt_state,
-            init_density_state(cap, dev), n_truncated)
+    return (GaussianState(params=params, alive=alive, extra=extra),
+            opt_state, init_density_state(cap, dev), n_truncated)
 
 
 def reset_opacities(gstate: GaussianState, opt_state: AdamState,
@@ -205,5 +210,5 @@ def reset_opacities(gstate: GaussianState, opt_state: AdamState,
     op = torch.sigmoid(p.opacities)
     new_raw = inverse_sigmoid(torch.clamp(op, max=reset_value))
     return (GaussianState(params=dataclasses.replace(p, opacities=new_raw),
-                          alive=gstate.alive),
+                          alive=gstate.alive, extra=gstate.extra),
             zero_opacity_opt_state(opt_state))

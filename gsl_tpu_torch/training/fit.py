@@ -3,7 +3,8 @@
 Port of ``gsl_tpu/training/fit.py``:
 - setup from DataParserOutputs (point-cloud init, or a trained artifact
   with ``init_from``, optionally with a background sphere; camera-extent
-  learning-rate scaling),
+  learning-rate scaling; Mip-Splatting's 3D filter over the train
+  cameras, which on resume comes from the checkpoint),
 - the per-step order: step hook -> pre-density hooks -> density hook ->
   post-density hooks -> a ``train_log.csv`` row every ``log_interval``
   steps -> a checkpoint (and PLY) at ``save_iterations`` and at the end,
@@ -18,7 +19,8 @@ pads images to a size bucket, both for the TPU's static shapes; the port
 sizes its slot buffers per call and renders images at their own size.
 Each fit also writes ``fit_timing.json`` beside ``train_log.csv``: wall
 time, time spent waiting on the loader, and the milliseconds and counts
-(alive before, cloned, split, pruned, alive after) of each densify.
+of each densify (alive before and after; cloned, split and pruned rows,
+or for MCMC the dead rows relocated and the rows added).
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from ..data.dataset import (CachedDataset, DataLoader, add_background_sphere,
                             image_to_float)
 from ..models.gaussian import GaussianState, grow_capacity
 from ..models.gaussian_2d import Gaussian2DConfig
+from ..models.mip_splatting import MipSplattingConfig, compute_3d_filter
 from ..ops.sh import num_sh_bases
 from ..ops.ssim import ssim as ssim_fn
 from ..utils.checkpoint import (find_latest_checkpoint, load_checkpoint,
@@ -44,7 +47,6 @@ from ..utils.checkpoint import (find_latest_checkpoint, load_checkpoint,
 from ..utils.device import resolve_device
 from ..utils.gaussian_model_loader import GaussianModelLoader
 from ..utils.ply import save_state_ply
-from .density import densify_masks
 from .hooks import FitContext, build_hooks
 from .loggers import make_logger
 from .trainer import Trainer, TrainState
@@ -96,7 +98,18 @@ def _round_capacity(n: int) -> int:
 def _init_gaussians(trainer: Trainer, outputs: DataParserOutputs,
                     cfg: FitConfig, device=None) -> GaussianState:
     """Point-cloud (or `init_from` artifact) initialization, with the
-    background sphere when asked for, padded to the run's capacity."""
+    background sphere when asked for, padded to the run's capacity, and
+    for Mip-Splatting the 3D filter over the train cameras."""
+    gaussians = _init_rows(trainer, outputs, cfg, device)
+    if isinstance(trainer.model, MipSplattingConfig):
+        f3d = compute_3d_filter(gaussians.params.means, gaussians.alive,
+                                outputs.train_set.cameras)
+        gaussians = dataclasses.replace(gaussians, extra={"filter_3d": f3d})
+    return gaussians
+
+
+def _init_rows(trainer: Trainer, outputs: DataParserOutputs,
+               cfg: FitConfig, device=None) -> GaussianState:
     pc = outputs.point_cloud
     if cfg.add_background_sphere:
         pc = add_background_sphere(pc, camera_centers(
@@ -212,21 +225,15 @@ def fit(trainer: Trainer, outputs: DataParserOutputs, cfg: FitConfig,
                 state = hook.periodic(state, generator, step)
             timed = density_hook.densifies_at(step)
             if timed:
-                clone, split = densify_masks(
-                    state.gaussians, state.density, trainer.density_cfg,
-                    trainer.cameras_extent)
                 counts = {"step": step, "before": state.gaussians.n_alive,
-                          "clone": int(clone.sum()),
-                          "split": int(split.sum())}
+                          **density_hook.counts_before(state)}
                 t0 = time.perf_counter()
             state = density_hook(state, generator, step)
             if timed:
                 _sync(dev)
                 densify_ms.append((time.perf_counter() - t0) * 1e3)
                 counts["after"] = state.gaussians.n_alive
-                counts["pruned"] = (counts["before"] + counts["clone"]
-                                    + counts["split"] - counts["after"])
-                densify_counts.append(counts)
+                densify_counts.append(density_hook.counts_after(counts))
             for hook in post_density:
                 state = hook.periodic(state, generator, step)
 

@@ -2,7 +2,8 @@
 
 Port of ``gsl_tpu/training/trainer.py`` (the vanilla trainer; plugins and
 output processors come with their variants), as plain functions on an
-explicit `TrainState`:
+explicit `TrainState`, whose `extra` carries the non-trainable properties
+of a variant (Mip-Splatting's `filter_3d`) through every step:
 
 - `train_step`: render -> L1 + SSIM loss -> gradients (through the
   rasterizer's backward kernels, with the means2d tap for the
@@ -17,7 +18,7 @@ only the loss. Each step returns a new state and leaves the old one valid.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,10 +42,12 @@ class TrainState:
     opt_state: AdamState
     density: DensityControlState
     step: int
+    extra: Optional[Dict[str, torch.Tensor]] = None
 
     @property
     def gaussians(self) -> GaussianState:
-        return GaussianState(params=self.params, alive=self.alive)
+        return GaussianState(params=self.params, alive=self.alive,
+                             extra=self.extra)
 
 
 @dataclasses.dataclass
@@ -78,14 +81,17 @@ class Trainer:
 
     def setup(self, gaussians: GaussianState, cameras_extent: float,
               prune_extent: Optional[float] = None) -> TrainState:
-        factor = self.density_cfg.camera_extent_factor
+        # the MCMC controller has neither field; gsl_tpu's setup raises
+        # AttributeError for it
+        factor = getattr(self.density_cfg, "camera_extent_factor", 1.0)
+        override = getattr(self.density_cfg, "scene_extent_override", -1.0)
         self.cameras_extent = float(cameras_extent) * factor
         self.prune_extent = float(
             prune_extent if prune_extent is not None else cameras_extent
         ) * factor
-        if self.density_cfg.scene_extent_override > 0:
-            self.cameras_extent = self.density_cfg.scene_extent_override
-            self.prune_extent = self.density_cfg.scene_extent_override
+        if override > 0:
+            self.cameras_extent = override
+            self.prune_extent = override
         self.tx = GaussianAdam(self.model.optimization,
                                spatial_lr_scale=self.cameras_extent)
         return TrainState(
@@ -94,7 +100,7 @@ class Trainer:
             opt_state=self.tx.init(gaussians.params),
             density=init_density_state(gaussians.capacity,
                                        gaussians.device),
-            step=0)
+            step=0, extra=gaussians.extra)
 
     def render_losses(self, gstate: GaussianState, camera: Cameras,
                       img_height: int, img_width: int, bg_color, sh_degree,
@@ -132,7 +138,7 @@ class Trainer:
         itself never waits for the device beyond the rasterizer's one
         read that sizes its slot buffers."""
         dev = state.alive.device
-        use_absgrad = (self.density_cfg.absgrad
+        use_absgrad = (getattr(self.density_cfg, "absgrad", False)
                        and self.renderer.supports_absgrad())
         leaves = state.params.map(
             lambda _, x: x.detach().requires_grad_(True))
@@ -144,7 +150,8 @@ class Trainer:
         # convolutions and their gradients
         with float32_math():
             loss, (scalars, radii, n_dropped) = self.render_losses(
-                GaussianState(params=leaves, alive=state.alive), camera,
+                GaussianState(params=leaves, alive=state.alive,
+                              extra=state.extra), camera,
                 img_height, img_width, bg_color, sh_degree, gt_image, mask,
                 tap, abstap, state.step)
             wrt = [getattr(leaves, k) for k in PARAM_FIELDS] + [tap]
@@ -165,7 +172,7 @@ class Trainer:
         scalars["n_dropped_isects"] = n_dropped
         return TrainState(params=params, alive=state.alive,
                           opt_state=opt_state, density=density,
-                          step=state.step + 1), scalars
+                          step=state.step + 1, extra=state.extra), scalars
 
     @torch.no_grad()
     def density_step(self, state: TrainState, noise, use_size_prune):
@@ -176,7 +183,7 @@ class Trainer:
             use_size_prune)
         return TrainState(
             params=gstate.params, alive=gstate.alive, opt_state=opt_state,
-            density=density, step=state.step), n_trunc
+            density=density, step=state.step, extra=gstate.extra), n_trunc
 
     @torch.no_grad()
     def opacity_reset_step(self, state: TrainState) -> TrainState:
@@ -198,13 +205,14 @@ class Trainer:
 
     @torch.no_grad()
     def grow_state(self, state: TrainState, new_capacity: int) -> TrainState:
-        """Grow the capacity, carrying the Adam moments, the schedule count
-        and the density statistics of the existing rows."""
-        extra = new_capacity - state.params.capacity
+        """Grow the capacity, carrying the Adam moments, the schedule count,
+        the density statistics and the per-Gaussian extras of the existing
+        rows."""
+        n_new = new_capacity - state.params.capacity
         gstate = grow_capacity(state.gaussians, new_capacity)
 
         def pad(x):
-            return torch.cat([x, torch.zeros(extra, dtype=x.dtype,
+            return torch.cat([x, torch.zeros(n_new, dtype=x.dtype,
                                              device=x.device)])
 
         d = state.density
@@ -214,7 +222,7 @@ class Trainer:
             density=DensityControlState(
                 grad_accum=pad(d.grad_accum), denom=pad(d.denom),
                 max_radii=pad(d.max_radii)),
-            step=state.step)
+            step=state.step, extra=gstate.extra)
 
     def maybe_density_ops(self, state: TrainState, noise, step: int
                           ) -> TrainState:

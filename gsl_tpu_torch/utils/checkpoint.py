@@ -4,7 +4,9 @@ Port of ``gsl_tpu/utils/checkpoint.py``. Layout, as the JAX package's:
 
     <ckpt_dir>/step_N/state.pt        the TrainState: params, alive, Adam
                                       moments and count, density statistics,
-                                      step, and the fit's generator state
+                                      step, the variant's `extra` tensors
+                                      (or None), and the fit's generator
+                                      state
     <ckpt_dir>/step_N/fit_meta.json   {"capacity": ..., "step": N, ...}
 
 ``state.pt`` holds only tensors, numbers, strings and dicts of them, so it
@@ -43,6 +45,8 @@ def _state_dict(state: TrainState, generator: Optional[torch.Generator]):
         "density": {k: cpu(getattr(state.density, k))
                     for k in _DENSITY_FIELDS},
         "step": int(state.step),
+        "extra": (None if state.extra is None
+                  else {k: cpu(v) for k, v in state.extra.items()}),
         "generator": None if generator is None else generator.get_state(),
     }
 
@@ -113,7 +117,8 @@ def load_checkpoint(path: str, target: TrainState,
     property's trailing shape (scale columns, SH bands) must equal
     `target`'s. With `drop_optimizer_states`, `target`'s Adam state is
     kept, and the capacities must be equal. With a `generator`, the saved
-    generator state is restored into it."""
+    generator state is restored into it. `extra` comes from the
+    checkpoint (None when it holds none)."""
     dev = target.alive.device
     raw = read_state_dict(path, dev)
     params = GaussianParams(**raw["params"])
@@ -138,4 +143,4 @@ def load_checkpoint(path: str, target: TrainState,
         generator.set_state(raw["generator"].cpu())
     return TrainState(params=params, alive=raw["alive"], opt_state=opt_state,
                       density=DensityControlState(**raw["density"]),
-                      step=int(raw["step"]))
+                      step=int(raw["step"]), extra=raw.get("extra"))

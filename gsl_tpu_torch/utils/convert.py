@@ -34,12 +34,13 @@ def state_from_raw_arrays(arrays: dict, device=None) -> GaussianState:
 
 
 def train_state_from_jax_arrays(params: dict, alive: np.ndarray, opt: dict,
-                                density: dict, step: int, device=None):
+                                density: dict, step: int, extra=None,
+                                device=None):
     """The port's `TrainState` from a JAX ``TrainState`` taken apart into
     numpy arrays: `params` and `alive` as for `state_from_jax_arrays`;
     `opt` = {property: {"mu": ..., "nu": ..., "count": int}}, the optax
     Adam state of each property; `density` = {"grad_accum", "denom",
-    "max_radii"}."""
+    "max_radii"}; `extra`: None or {name: array}, e.g. {"filter_3d"}."""
     gstate = state_from_jax_arrays(params, alive, device)
     dev = gstate.device
 
@@ -58,7 +59,8 @@ def train_state_from_jax_arrays(params: dict, alive: np.ndarray, opt: dict,
             count=counts.pop()),
         density=DensityControlState(**{k: t(density[k]) for k in (
             "grad_accum", "denom", "max_radii")}),
-        step=int(step))
+        step=int(step),
+        extra=None if extra is None else {k: t(v) for k, v in extra.items()})
 
 
 def train_state_to_numpy(state) -> dict:
@@ -75,4 +77,6 @@ def train_state_to_numpy(state) -> dict:
                  "count": state.opt_state.count} for k in PARAM_FIELDS},
         density={k: a(getattr(state.density, k)) for k in (
             "grad_accum", "denom", "max_radii")},
-        step=state.step)
+        step=state.step,
+        extra=(None if state.extra is None
+               else {k: a(v) for k, v in state.extra.items()}))

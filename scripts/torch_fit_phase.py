@@ -19,14 +19,21 @@ import sys
 import time
 
 CHILD = """
+import inspect
 import sys
+import tempfile
 import torch
 sys.path.insert(0, ".")
 import chip_smoke as CS
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 CS.cuda_build.build()
-CS.phase_fit(CS.scene_arrays(CS.N_GAUSSIANS))
+arrays = CS.scene_arrays(CS.N_GAUSSIANS)
+if len(inspect.signature(CS.phase_fit).parameters) == 1:
+    CS.phase_fit(arrays)          # a checkout from before phase 9
+else:
+    with tempfile.TemporaryDirectory() as tmp:
+        CS.phase_fit(arrays, tmp)
 """
 
 

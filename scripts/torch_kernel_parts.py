@@ -599,7 +599,7 @@ def bench_projection(arrays):
     proj = project_gaussians(
         state.get_means(), state.get_scales(), state.get_rotations(),
         cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, CS.W, CS.H)
-    opac = renderer.get_opacities(state, proj).contiguous()
+    opac = renderer.get_opacities(state, cam, proj).contiguous()
     ch = CS.channels_for(state, renderer, proj, cam, 3)
     return proj, opac, ch
 

@@ -32,7 +32,7 @@ from torch_port_utils import (PARAM_FIELDS, jax_train_state_arrays,
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESETS = ("colmap.yaml", "blender.yaml", "stp.yaml", "gs2d.yaml",
-           "absgrad.yaml")
+           "absgrad.yaml", "mip_splatting.yaml", "mcmc.yaml")
 OVERRIDES = ["data.path=/data/scene",
              "model.density.init_args.densify_from_iter=100",
              "model.density.init_args.densification_interval=50",
@@ -99,7 +99,7 @@ def test_unknown_field_raises():
 
 
 @pytest.mark.parametrize("preset,item", [
-    ("mcmc.yaml", 8), ("mip_splatting.yaml", 7), ("light_gaussian.yaml", 12),
+    ("taming.yaml", 12), ("gns.yaml", 12), ("light_gaussian.yaml", 12),
     ("distributed.yaml", 13), ("depth_regularization.yaml", 9),
     ("grad_acc.yaml", 12)])
 def test_unported_presets_raise_naming_their_item(preset, item):

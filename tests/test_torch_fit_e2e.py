@@ -1,6 +1,7 @@
 """End to end through gsl_tpu_torch's CLI on the CPU, the port alone: a
 small Blender-style scene rendered by the port is fitted with one densify,
-validated and resumed; the 2DGS and StopThePop presets take a few steps."""
+validated and resumed; the 2DGS, StopThePop, AbsGS, Mip-Splatting and MCMC
+presets take a few steps, and the last two resume bit for bit."""
 import csv
 import json
 import os
@@ -12,6 +13,9 @@ from PIL import Image
 
 from gsl_tpu_torch import cli
 from gsl_tpu_torch.data.cameras import make_camera
+from gsl_tpu_torch.data.colmap_io import (ColmapCamera, ColmapImage,
+                                          ColmapModel, rotmat_to_qvec,
+                                          write_model_bin)
 from gsl_tpu_torch.renderers.tile_renderer import TileRendererConfig
 from gsl_tpu_torch.training.fit import _init_gaussians, validate
 from gsl_tpu_torch.utils.convert import state_from_raw_arrays
@@ -42,22 +46,34 @@ def _scene_arrays(n=200, seed=9, spread=0.8, z_range=(2.0, 6.0)):
                 shs_rest=np.zeros((n, 0, 3), np.float32))
 
 
-def make_dataset(root, n_views=N_VIEWS):
-    """Render a known scene with the port to PNGs + transforms_train.json
-    (cameras along x, looking +z, as tests/test_fit_e2e.py places them)."""
+def _render_views(n_views):
+    """The known scene rendered by the port from `n_views` cameras along x,
+    looking +z, as tests/test_fit_e2e.py places them: [(uint8 image, T of
+    the world-to-camera transform)], and the focal length."""
     state = state_from_raw_arrays(_scene_arrays(), device="cpu")
     renderer = TileRendererConfig().instantiate()
-    os.makedirs(os.path.join(root, "train"), exist_ok=True)
-    fov_x = 0.8
-    f = 0.5 * W / np.tan(0.5 * fov_x)
-    frames = []
+    f = 0.5 * W / np.tan(0.5 * FOV_X)
+    views = []
     for i in range(n_views):
         T = np.array([0.25 * i - 0.6, 0.0, 0.0], np.float32)
         cam = make_camera(np.eye(3), T, f, f, W / 2, H / 2, W, H,
                           device="cpu")
         with torch.no_grad():
             out = renderer.forward(state, cam, H, W, torch.zeros(3), 0)
-        img = (np.clip(out.render.numpy(), 0, 1) * 255).astype(np.uint8)
+        views.append(((np.clip(out.render.numpy(), 0, 1) * 255).astype(
+            np.uint8), T))
+    return views, f
+
+
+FOV_X = 0.8
+
+
+def make_dataset(root, n_views=N_VIEWS):
+    """Render a known scene with the port to PNGs + transforms_train.json
+    (cameras along x, looking +z, as tests/test_fit_e2e.py places them)."""
+    os.makedirs(os.path.join(root, "train"), exist_ok=True)
+    frames = []
+    for i, (img, T) in enumerate(_render_views(n_views)[0]):
         name = f"train/r_{i}"
         Image.fromarray(img).save(os.path.join(root, name + ".png"))
         c2w = np.eye(4)
@@ -65,7 +81,29 @@ def make_dataset(root, n_views=N_VIEWS):
         c2w[:3, 1:3] *= -1          # OpenCV -> OpenGL; the parser flips back
         frames.append({"file_path": name, "transform_matrix": c2w.tolist()})
     with open(os.path.join(root, "transforms_train.json"), "w") as fjs:
-        json.dump({"camera_angle_x": fov_x, "frames": frames}, fjs)
+        json.dump({"camera_angle_x": FOV_X, "frames": frames}, fjs)
+
+
+def make_colmap_dataset(root, n_views=N_VIEWS):
+    """The same views as a COLMAP scene: images/*.png and
+    sparse/0/*.bin (PINHOLE), with the scene's means and colours as the
+    SfM points."""
+    views, f = _render_views(n_views)
+    os.makedirs(os.path.join(root, "images"))
+    images = {}
+    for i, (img, T) in enumerate(views):
+        name = f"view_{i}.png"
+        Image.fromarray(img).save(os.path.join(root, "images", name))
+        images[i + 1] = ColmapImage(i + 1, rotmat_to_qvec(np.eye(3)), T, 1,
+                                    name)
+    arrays = _scene_arrays()
+    rgb = np.clip(0.5 + 0.28209479177387814 * arrays["shs_dc"][:, 0], 0, 1)
+    write_model_bin(ColmapModel(
+        cameras={1: ColmapCamera(1, "PINHOLE", W, H,
+                                 np.array([f, f, W / 2, H / 2]))},
+        images=images, points_xyz=arrays["means"].astype(np.float64),
+        points_rgb=(rgb * 255 + 0.5).astype(np.uint8),
+        points_err=np.zeros(len(rgb))), os.path.join(root, "sparse", "0"))
 
 
 @pytest.fixture(scope="module")
@@ -205,15 +243,27 @@ def test_resume_from_a_missing_path_fails_fast(scene, tmp_path):
                        extra=(f"fit.resume={tmp_path / 'nowhere'}",)))
 
 
+# overrides that put a 3D-filter recompute into the 4 steps (the densify,
+# or the MCMC relocation round, at step 3 comes from the common ones)
+VARIANT_EXTRA = {"mip_splatting.yaml": (
+    "model.gaussian.init_args.filter_3d_update_interval=2",)}
+
+
+# the renderer is the one the loader serves the run with: gsl_tpu's
+# loader, and so the port's, serves every 3DGS checkpoint through a plain
+# TileRenderer
 @pytest.mark.parametrize("preset,renderer", [
-    ("gs2d.yaml", "SurfelRenderer"), ("stp.yaml", "TileRenderer")])
+    ("gs2d.yaml", "SurfelRenderer"), ("stp.yaml", "TileRenderer"),
+    ("absgrad.yaml", "TileRenderer"), ("mip_splatting.yaml", "TileRenderer"),
+    ("mcmc.yaml", "TileRenderer")])
 def test_variant_presets_fit_through_the_cli(scene, tmp_path, preset,
                                              renderer):
+    extra = VARIANT_EXTRA.get(preset, ())
     state, results = cli.main(_argv(
         "fit", scene, str(tmp_path), "run", 4, preset=preset, extra=(
             "model.gaussian.sh_degree=1", "fit.log_interval=1",
             "model.density.init_args.densify_from_iter=1",
-            "model.density.init_args.densification_interval=3")))
+            "model.density.init_args.densification_interval=3", *extra)))
     log = _log(os.path.join(str(tmp_path), "run"))
     assert len(log) == 5 and all(np.isfinite(float(r[1])) for r in log[1:])
     assert int(log[-1][2]) != 400                   # the densify at 3 ran
@@ -225,3 +275,106 @@ def test_variant_presets_fit_through_the_cli(scene, tmp_path, preset,
                                             else 3)
     if preset == "stp.yaml":
         assert got_renderer.config.stp_resort is False   # a loader default
+    with open(os.path.join(str(tmp_path), "run", "fit_timing.json")) as f:
+        (d,) = json.load(f)["densify"]
+    if preset == "mcmc.yaml":
+        # 5% more (float32 rounds 1.05 x 400 to 419), no dead row
+        assert int(log[2][2]) == 400 and int(log[3][2]) == 419
+        assert d == {"step": 3, "before": 400, "dead": 0, "added": 19,
+                     "after": 419}
+        assert type(cli.build_components(cli.load_config(
+            [os.path.join(REPO, "gsl_tpu_torch", "configs", preset)], {}))[
+                0].metrics_cfg).__name__ == "MCMCMetricsConfig"
+    else:
+        assert d["after"] == d["before"] + d["clone"] + d["split"] \
+            - d["pruned"]
+    if preset == "mip_splatting.yaml":
+        # recomputed at step 2 over the rows alive then; the densify at 3
+        # copied it into the new rows
+        f3d = state.extra["filter_3d"]
+        assert f3d.shape == (state.params.capacity, 1)
+        assert bool((f3d[state.alive] > 0).all())
+    else:
+        assert state.extra is None
+
+
+def _variant_resume_argv(scene, out, name, resume, preset):
+    return _argv("fit", scene, out, name, 16, preset=preset, extra=(
+        "model.gaussian.sh_degree=1", "fit.log_interval=2",
+        "fit.save_iterations=[8]", "fit.save_ply=false",
+        f"fit.resume={resume}",
+        "model.density.init_args.densify_from_iter=1",
+        "model.density.init_args.densification_interval=4",
+        "model.gaussian.init_args.filter_3d_update_interval=3"
+        if preset == "mip_splatting.yaml"
+        else "model.density.init_args.cap_max=1000000"))
+
+
+@pytest.mark.parametrize("preset", ["mip_splatting.yaml", "mcmc.yaml"])
+def test_variant_resume_is_bit_exact(scene, tmp_path, capsys, preset):
+    """A 16-step run, and a second run of 16 steps resumed from the
+    first's checkpoint at step 8: the same parameters, moments and alive
+    rows, and for Mip-Splatting the same filter_3d (recomputed at 3, 6, 9
+    and 12; the one of step 6 comes from the checkpoint); the MCMC noise
+    and relocation draw from the checkpoint's generator. Both runs end at
+    16: the filter recompute (while step + interval <= max_steps) and the
+    noise (step < max_steps) follow the run's last step, as gsl_tpu's
+    do, so a run that stops at 8 skips what a run to 16 does at 6 and 8."""
+    out = str(tmp_path)
+    ref, _ = cli.main(_variant_resume_argv(scene, out, "ref", "never",
+                                           preset))
+    step_8 = os.path.join(out, "ref", "checkpoints", "step_8")
+    saved = torch.load(os.path.join(step_8, "state.pt"), weights_only=True)
+    capsys.readouterr()
+    res, _ = cli.main(_variant_resume_argv(scene, out, "res", step_8,
+                                           preset))
+    assert "-> continuing at 9" in capsys.readouterr().out
+    for k in ("means", "scales", "rotations", "opacities", "shs_dc",
+              "shs_rest"):
+        assert torch.equal(getattr(res.params, k), getattr(ref.params, k)), k
+        assert torch.equal(res.opt_state.exp_avg[k],
+                           ref.opt_state.exp_avg[k]), k
+    assert torch.equal(res.alive, ref.alive)
+    if preset == "mip_splatting.yaml":
+        assert torch.equal(res.extra["filter_3d"], ref.extra["filter_3d"])
+        assert saved["extra"]["filter_3d"].shape == (16384, 1)
+    else:
+        assert saved["extra"] is None and res.extra is None
+        assert ref.gaussians.n_alive > 400      # the rounds grew it
+
+
+@pytest.mark.parametrize("preset,extra", [
+    ("mip_splatting.yaml",
+     ("model.gaussian.init_args.filter_3d_update_interval=2",)),
+    ("mcmc.yaml", ("model.density.init_args.densify_from_iter=1",
+                   "model.density.init_args.densification_interval=3"))])
+def test_colmap_variant_fit_and_validate_through_the_cli(tmp_path, preset,
+                                                         extra):
+    """`cli fit --config colmap.yaml --config <variant>` on a COLMAP scene
+    for 4 steps (a filter recompute at 2, or a relocation round at 3),
+    then `cli validate` of the run: its snapshot builds the variant's
+    model again, and the checkpoint brings its state back."""
+    root = str(tmp_path / "colmap")
+    make_colmap_dataset(root)
+    configs = [os.path.join(REPO, "gsl_tpu_torch", "configs", p)
+               for p in ("colmap.yaml", preset)]
+    out = str(tmp_path / "runs")
+    state, results = cli.main([
+        "fit", "--config", configs[0], "--config", configs[1],
+        "--data.path", root, "--output", out, "-n", "run", "--max_steps",
+        "4", "--device", "cpu", "fit.min_capacity=1024",
+        "fit.log_interval=1", "model.gaussian.sh_degree=1", *extra])
+    log = _log(os.path.join(out, "run"))
+    assert len(log) == 5 and all(np.isfinite(float(r[1])) for r in log[1:])
+    assert np.isfinite(results["psnr"])
+    vstate, vres = cli.main(["validate", "--output", out, "-n", "run",
+                             "--device", "cpu"])
+    assert vres["psnr"] == pytest.approx(results["psnr"], abs=1e-6)
+    assert torch.equal(vstate.alive, state.alive)
+    if preset == "mcmc.yaml":
+        # 5% more: float32 rounds 1.05 x 200 to 209
+        assert int(log[-1][2]) == 209 > int(log[2][2]) == 200
+        assert vstate.extra is None
+    else:
+        assert torch.equal(vstate.extra["filter_3d"],
+                           state.extra["filter_3d"])

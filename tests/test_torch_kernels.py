@@ -51,6 +51,7 @@ kernel and the plain version, moving the pixel by up to one weight; image,
 alpha and K3s's rows are held at the shares of K2 and K3. A saturated tile
 (T_final == 0) must give finite gradients equal to the CPU's.
 """
+import dataclasses
 import math
 import pathlib
 import subprocess
@@ -61,7 +62,8 @@ import pytest
 import torch
 
 import slot_cases
-from gsl_tpu_torch.data.cameras import make_camera
+from gsl_tpu_torch.data.cameras import make_camera, stack_cameras
+from gsl_tpu_torch.models.gaussian import PARAM_FIELDS, grow_capacity
 from gsl_tpu_torch.ops import rasterize as R
 from gsl_tpu_torch.ops import rasterize_stp as STP
 from gsl_tpu_torch.ops import surfel_rasterize as SR
@@ -824,6 +826,126 @@ def test_k4_with_no_valid_slot(cuda):
     got = R.reduce_grads(rows, gids, offsets, inv, n_valid, n)
     assert torch.equal(got, torch.zeros_like(got))
     assert not bool(torch.signbit(got).any())
+
+
+def _variant_grads(trainer, state, dev, target):
+    """The loss of `trainer`'s render_losses on one view and its gradients
+    for the six parameter tensors, on `dev`."""
+    leaves = state.params.map(lambda _, x: x.detach().requires_grad_(True))
+    tap = torch.zeros((state.capacity, 2), device=dev, requires_grad=True)
+    loss, (_, _, _) = trainer.render_losses(
+        dataclasses.replace(state, params=leaves), camera(dev), H, W,
+        torch.tensor([0.1, 0.2, 0.3], device=dev), 3, target, None, tap,
+        None, 0)
+    grads = torch.autograd.grad(loss, [getattr(leaves, k)
+                                       for k in PARAM_FIELDS])
+    return float(loss.detach()), {k: g.cpu()
+                                  for k, g in zip(PARAM_FIELDS, grads)}
+
+
+def _assert_grads_close(got, want):
+    """The rule of test_parameter_gradients_on_card_match_cpu: 1e-3 of the
+    tensor's largest gradient + 1e-2 |ref| at all but 1e-3 of the values."""
+    for k, g in got.items():
+        w = want[k]
+        assert bool(torch.isfinite(g).all()), k
+        bad = (g - w).abs() > 1e-3 * float(w.abs().max()) + 1e-2 * w.abs()
+        assert float(bad.float().mean()) <= 1e-3, k
+
+
+@pytest.mark.cuda
+def test_mip_splatting_on_card_matches_cpu(cuda):
+    """A small scene with a 3D filter through MipSplattingRenderer: the
+    card's frame and the gradients of one step's loss (through the
+    filtered scales and the compensated opacities) against the CPU's."""
+    from gsl_tpu_torch.models.mip_splatting import (MipSplattingConfig,
+                                                    compute_3d_filter)
+    from gsl_tpu_torch.renderers.mip_splatting_renderer import \
+        MipSplattingRendererConfig
+    from gsl_tpu_torch.training.trainer import Trainer
+    arrays = scene(1500, seed=3)
+    trainer = Trainer(model=MipSplattingConfig(),
+                      renderer=MipSplattingRendererConfig())
+    target = torch.rand((H, W, 3), generator=torch.Generator(
+        device="cpu").manual_seed(4))
+    frames, losses, grads = [], [], []
+    for dev in (cuda, torch.device("cpu")):
+        state = state_from_raw_arrays(arrays, device=dev)
+        state.extra = {"filter_3d": compute_3d_filter(
+            state.params.means, state.alive,
+            stack_cameras([camera(dev), camera(dev, W // 2, H // 2)]))}
+        with torch.no_grad():
+            frames.append(trainer.renderer.forward(
+                state, camera(dev), H, W, torch.zeros(3, device=dev),
+                3).render.cpu())
+        loss, g = _variant_grads(trainer, state, dev, target.to(dev))
+        losses.append(loss)
+        grads.append(g)
+    assert close_share(frames[0], frames[1]) >= SHARE
+    assert losses[0] == pytest.approx(losses[1], rel=1e-4)
+    _assert_grads_close(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_mcmc_on_card_matches_cpu_and_repeats(cuda):
+    """One step's MCMC loss (with its opacity and scale terms) and
+    gradients, card against CPU; the noise and a relocation and growth
+    round from the same draws, card against CPU (float32 reductions in
+    another order: rtol 1e-5); and a round from a card generator twice
+    from one generator state: identical."""
+    from gsl_tpu_torch.training.mcmc import (MCMCDensityControllerConfig,
+                                             grow_target, mcmc_densify,
+                                             mcmc_noise_step)
+    from gsl_tpu_torch.training.metrics import MCMCMetricsConfig
+    from gsl_tpu_torch.training.trainer import Trainer
+    arrays = scene(1500, seed=5)
+    arrays["opacities"][:75] = -7.0              # 5% dead
+    cfg = MCMCDensityControllerConfig(cap_max=4000)
+    n_new = grow_target(1500, cfg) - 1500
+    trainer = Trainer(density=cfg, metrics=MCMCMetricsConfig())
+    target = torch.rand((H, W, 3), generator=torch.Generator(
+        device="cpu").manual_seed(6))
+    rng = np.random.RandomState(7)
+    eps = torch.from_numpy(rng.normal(size=(2048, 3)).astype(np.float32))
+    draws = (torch.from_numpy(rng.randint(75, 1500, 75)),
+             torch.from_numpy(rng.randint(0, 1500, n_new)))
+    losses, grads, rounds = [], [], []
+    for dev in (cuda, torch.device("cpu")):
+        state = trainer.setup(grow_capacity(state_from_raw_arrays(
+            arrays, device=dev), 2048), 1.0)
+        loss, g = _variant_grads(trainer, state.gaussians, dev,
+                                 target.to(dev))
+        losses.append(loss)
+        grads.append(g)
+        noisy = mcmc_noise_step(eps.to(dev), state.gaussians,
+                                torch.tensor(1e-4), cfg.noise_lr)
+        got, _, added = mcmc_densify(
+            tuple(d.to(dev) for d in draws), noisy, state.opt_state, cfg)
+        assert added == n_new > 70
+        rounds.append(got)
+    assert losses[0] == pytest.approx(losses[1], rel=1e-4)
+    _assert_grads_close(grads[0], grads[1])
+    assert torch.equal(rounds[0].alive.cpu(), rounds[1].alive)
+    for k in PARAM_FIELDS:
+        np.testing.assert_allclose(
+            getattr(rounds[0].params, k).cpu().numpy(),
+            getattr(rounds[1].params, k).numpy(), rtol=1e-5, atol=1e-6,
+            err_msg=k)
+
+    state = trainer.setup(grow_capacity(state_from_raw_arrays(
+        arrays, device=cuda), 2048), 1.0)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    saved = gen.get_state()
+    twice = []
+    for _ in range(2):
+        gen.set_state(saved)
+        twice.append(mcmc_densify(gen, state.gaussians, state.opt_state,
+                                  cfg))
+    (a, a_opt, n_a), (b, b_opt, n_b) = twice
+    assert n_a == n_b == n_new and torch.equal(a.alive, b.alive)
+    for k in PARAM_FIELDS:
+        assert torch.equal(getattr(a.params, k), getattr(b.params, k)), k
+        assert torch.equal(a_opt.exp_avg[k], b_opt.exp_avg[k]), k
 
 
 @pytest.mark.cuda

@@ -559,7 +559,8 @@ def test_stp_renderer_renders_every_output():
         plain = TileRendererConfig().instantiate().forward(
             state, cam, RH, RW, bg, 3, render_types=ALL_TYPES)
         img, alpha, aux = R.rasterize(
-            out.projections, renderer.get_opacities(state, out.projections),
+            out.projections,
+            renderer.get_opacities(state, cam, out.projections),
             renderer.get_rgbs(state, cam, 3), RH, RW, stp_resort=True)
     shapes = dict(render=(RH, RW, 3), alpha=(RH, RW), acc_depth=(RH, RW),
                   exp_depth=(RH, RW), inverse_depth=(RH, RW),

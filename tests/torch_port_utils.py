@@ -74,4 +74,6 @@ def jax_train_state_arrays(state):
         alive=np.asarray(state.alive), opt=jax_opt_arrays(state.opt_state),
         density={k: np.asarray(getattr(state.density, k))
                  for k in ("grad_accum", "denom", "max_radii")},
-        step=int(state.step))
+        step=int(state.step),
+        extra=(None if state.extra is None
+               else {k: np.asarray(v) for k, v in state.extra.items()}))
