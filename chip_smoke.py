@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port's render and training paths (3DGS, 2DGS,
-StopThePop, Mip-Splatting and MCMC) and of its fit through the CLI on one
-CUDA card.
+StopThePop, Mip-Splatting, MCMC, the depth, normal and ground
+regularisers), of its fit through the CLI and of 2DGS mesh extraction on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -176,6 +177,36 @@ package is not beside this script. Phases, each fatal on failure:
    PSNR above its initial cloud's. Prints the same numbers as phase 8's
    fits, MCMC rounds as dead relocated and added rows.
 
+10. geometry: the depth, normal and ground regularisers and 2DGS mesh
+   extraction. (a) On the bench scene: K1-K4 against their plain versions
+   at the bench pose, as phase 3 holds them, at C = 1 (the hard inverse
+   depth, every splat opaque), C = 4 (rgb + inverse depth) and C = 7 (rgb
+   + depth + normal), K2 and K3 timed there; then from phase 5's perturbed
+   scene at capacity 1M, 10 train_steps each of DepthTrainer with
+   hard_inverse_depth and with inverse_depth (the target: the scene's own
+   hard inverse depth at the view), and of Trainer with NormalRegPlugin and
+   with GroundRegPlugin (plane z = 0). Each step must launch K1-K4 twice
+   (hard inverse depth) or once and nothing else; losses, terms and
+   parameters finite; the depth loss at step 10 below step 1's. (b) On
+   phase 8's scene: estimated_depths/view_i.npy as the port's rendered
+   inverse depth through d = (inv - b) / a, a = 2, b = -0.05; then
+   get_depth_scales.main, whose recovered a and b are printed, and its
+   solve over the SfM points each map sees at their own depth, which must
+   give a within 2% and b within 0.01 in every view (phase 8's SfM cloud is
+   a volume, most of whose points are hidden in any view); the scales file
+   then holds the known affine. Fits through the CLI: colmap.yaml +
+   depth_regularization.yaml for 200 steps, resumed to 300 (must continue
+   at 201; every logged step must have had a map, and the depth term must
+   fall from the first logged step to the last), normal_reg.yaml,
+   ground_reg.yaml and scale_reg.yaml for 100 steps each; each launches
+   K1-K4 and nothing else and must end above its initial cloud's val PSNR.
+   Prints what phase 9 (b) prints and the launches a step. (c)
+   gs2d_mesh_extraction.main on phase 8's gs2d.yaml run at resolution 256
+   with --expected-depth: K5 and K6 once a view and nothing else; a PLY
+   with vertices and faces, finite. Prints the ms per view of the render
+   and of integrate, the ms of extract_mesh (marching tetrahedra), the
+   counts, the share of edges two faces share, and the peak memory.
+
 Bounds in the kernels line: the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM f32 without tensor cores). K1 moves 52
 bytes per Gaussian and 12 per slot, and does ~40 operations per real slot
@@ -242,7 +273,8 @@ from PIL import Image
 from gsl_tpu_torch import cli
 from gsl_tpu_torch.data.cameras import make_camera, stack_cameras
 from gsl_tpu_torch.data.colmap_io import (ColmapCamera, ColmapImage,
-                                          ColmapModel, rotmat_to_qvec,
+                                          ColmapModel, qvec_to_rotmat,
+                                          read_model, rotmat_to_qvec,
                                           write_model_bin)
 from gsl_tpu_torch.ops import cuda_build
 from gsl_tpu_torch.ops import rasterize as R
@@ -251,7 +283,7 @@ from gsl_tpu_torch.ops import surfel_rasterize as SR
 from gsl_tpu_torch.ops.projection import Projections, project_gaussians
 from gsl_tpu_torch.ops.sh import sh_to_rgb
 from gsl_tpu_torch.ops.surfel import project_surfels
-from gsl_tpu_torch.ops.transforms import quat_to_rotmat
+from gsl_tpu_torch.ops.transforms import normalize_quat, quat_to_rotmat
 from gsl_tpu_torch.models.gaussian import (PARAM_FIELDS, GaussianParams,
                                            GaussianState,
                                            VanillaGaussianConfig)
@@ -262,7 +294,12 @@ from gsl_tpu_torch.renderers.mip_splatting_renderer import \
     MipSplattingRendererConfig
 from gsl_tpu_torch.renderers.surfel_renderer import SurfelRendererConfig
 from gsl_tpu_torch.renderers.tile_renderer import TileRendererConfig
+from gsl_tpu_torch.tools import get_depth_scales, gs2d_mesh_extraction
 from gsl_tpu_torch.training.density import VanillaDensityControllerConfig
+from gsl_tpu_torch.training.depth_trainer import (DepthMetricsConfig,
+                                                  DepthTrainer)
+from gsl_tpu_torch.training.plugins import (GroundRegPluginConfig,
+                                            NormalRegPluginConfig)
 from gsl_tpu_torch.training.fit import FitConfig, _init_gaussians, validate
 from gsl_tpu_torch.training.gs2d import GS2DMetricsConfig, GS2DTrainer
 from gsl_tpu_torch.training.hooks import FitContext, MCMCDensityHook
@@ -2301,6 +2338,374 @@ def phase_variant_fits(tmp):
         warm = [s for s in warm if s not in (steps + VARIANT_LOG_INTERVAL,)]
         log_fit(f"fit {name}.yaml", fitted, warm)
 
+# ---- phase 10: geometry ---------------------------------------------------
+
+GEOMETRY_WIDTHS = (1, 4, 7)       # hard inverse depth; + rgb; rgb, depth, n
+GEOMETRY_STEPS = 10
+DEPTH_A, DEPTH_B = 2.0, -0.05     # estimated d = (inverse depth - b) / a > 0
+DEPTH_FIT_STEPS, DEPTH_RESUME_STEPS = 200, 300
+MESH_RESOLUTION = 256
+CARD = "the card"     # nvidia-smi's name and power limit, set by main
+
+
+def geometry_channels(state, renderer, cam, proj, C):
+    """(opacities, channels) as TileRenderer.forward composites them for
+    the depth and normal regularisers: C = 1, the hard-inverse-depth pass
+    (every splat opaque); C = 4, rgb + inverse depth; C = 7, rgb + depth +
+    the normal facing the camera."""
+    op = renderer.get_opacities(state, cam, proj)
+    d = proj.depths[:, None]
+    inv = 1.0 / torch.clamp(d, min=1e-8)
+    if C == 1:
+        return (op > 0.0).to(op.dtype).contiguous(), inv.contiguous()
+    rgb = renderer.get_rgbs(state, cam, SH_DEGREE)
+    if C == 4:
+        return op.contiguous(), torch.cat([rgb, inv], 1).contiguous()
+    normals = quat_to_rotmat(normalize_quat(state.get_rotations()))[:, :, 2]
+    away = torch.sum(normals * (state.get_means() - cam.camera_center),
+                     -1) > 0.0
+    normals = normals * torch.where(away, -1.0, 1.0)[:, None]
+    return op.contiguous(), torch.cat([rgb, d, normals], 1).contiguous()
+
+
+def phase_geometry_kernels(state, renderer):
+    """Phase 10 (a): K1-K4 against their plain versions at the bench pose
+    at the widths the geometry losses train at, held as phase 3 holds them
+    at C = 3. Returns {C: (K2 ms, K3 ms)}."""
+    log("== phase 10 (a): K1-K4 against their plain versions at C = 1, 4 "
+        f"and 7, full width; times on {CARD}")
+    tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
+    n = state.capacity
+    cam = camera(np.eye(4))
+    proj = project_gaussians(
+        state.get_means(), state.get_scales(), state.get_rotations(),
+        cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, W, H)
+    m2d, con = proj.means2d.contiguous(), proj.conics.contiguous()
+    depths = proj.depths.contiguous()
+    times = {}
+    for C in GEOMETRY_WIDTHS:
+        opac, ch = geometry_channels(state, renderer, cam, proj, C)
+        isects = R.isect_encode(proj, H, W, TILE)
+        args = (isects, m2d, con, opac, depths, tiles_x, tiles_y, TILE, True)
+        keys, gids = R.expand(*args)
+        keys_p, gids_p = R.expand_plain(*args)
+        if not (torch.equal(keys, keys_p) and torch.equal(gids, gids_p)):
+            fail(f"K1 C={C}: kernel differs from expand_plain")
+        sk, gs, order = R.sort_slots(keys, gids)
+        n_valid = int((sk != R.INVALID_KEY).sum())
+        bounds = R.tile_bounds(sk, tiles_x * tiles_y)
+        gids = gs[:n_valid].contiguous()
+        fwd = (m2d, con, opac, ch, gids, bounds, H, W, TILE)
+        got = R.rasterize_fwd(*fwd)
+        want = R.rasterize_fwd_plain(*fwd)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, R.rasterize_fwd(
+                *fwd))):
+            fail(f"K2 C={C}: two runs gave different outputs")
+        err, share = compare_raster(f"K2 bench C={C}", got, want)
+        loose = R.rasterize_fwd(*fwd, contract=False)
+        ustop = float((loose[2] == want[2]).float().mean())
+        if ustop < UNCONTRACTED_SHARE:
+            fail(f"K2 C={C} built without contraction: i_stop agrees on "
+                 f"{ustop:.6f} of pixels < {UNCONTRACTED_SHARE}")
+        off_share(f"K2 C={C} image, built without contraction", loose[0],
+                  want[0], 1.0 - UNCONTRACTED_SHARE)
+        off_share(f"K2 C={C} alpha, built without contraction",
+                  1 - loose[1], 1 - want[1], 1.0 - UNCONTRACTED_SHARE)
+        log(f"K2 bench C={C}: i_stop agrees on {share:.6f}, max abs err "
+            f"{err:.3e}; identical in two runs; built without contraction "
+            f"i_stop agrees on {ustop:.7f}; {n_valid} valid slots")
+        gen = torch.Generator(device="cuda").manual_seed(10 + C)
+        bwd = (m2d, con, opac, ch, gids, bounds,
+               torch.randn((H, W, C), generator=gen, device="cuda"),
+               torch.randn((H, W), generator=gen, device="cuda"), got[1],
+               got[2], TILE)
+        check_backward("bench", C, bwd, isects, order, n, False)
+        times[C] = (graph_ms(lambda: R.rasterize_fwd(*fwd), 20),
+                    graph_ms(lambda: R.rasterize_bwd(*bwd), 20))
+        del keys, gids, keys_p, gids_p, sk, gs, order, got, want, loose
+    log("K2 and K3 ms at the bench pose (CUDA graph, mean of 20 replays) "
+        + json.dumps({f"C={C}": {"K2": round(f, 4), "K3": round(b, 4)}
+                      for C, (f, b) in times.items()}))
+    return times
+
+
+def phase_geometry_training(arrays, plain_step_ms):
+    """Phase 10 (a): DepthTrainer (hard and blended inverse depth), and
+    Trainer with NormalRegPlugin and with GroundRegPlugin, 10 steps each
+    at capacity 1M from phase 5's perturbed scene; the depth target is the
+    scene's own hard inverse depth."""
+    log("== phase 10 (a): depth, normal and ground regularisers at "
+        f"1088x1920, capacity 1M; times on {CARD}")
+    bg = torch.zeros(3, device="cuda")
+    cams = [camera(c2w) for c2w in views().values()]
+    truth = state_from_raw_arrays(arrays, device="cuda")
+    renderer = TileRendererConfig().instantiate()
+    with torch.no_grad():
+        outs = [renderer.forward(truth, c, H, W, bg, SH_DEGREE,
+                                 render_types=frozenset(
+                                     {"rgb", "hard_inverse_depth"}))
+                for c in cams]
+    targets = [o.render for o in outs]
+    depth_targets = [o.hard_inverse_depth for o in outs]
+    del truth, outs
+    model = VanillaGaussianConfig(sh_degree=SH_DEGREE)
+    runs = {
+        "depth hard_inverse_depth": (DepthTrainer, dict(
+            metrics=DepthMetricsConfig(
+                depth_output_key="hard_inverse_depth")), 2, "depth_loss"),
+        "depth inverse_depth": (DepthTrainer, dict(
+            metrics=DepthMetricsConfig(depth_output_key="inverse_depth")),
+            1, "depth_loss"),
+        "normal_reg": (Trainer, dict(plugins=(
+            NormalRegPluginConfig().instantiate(),)), 1, "normal_loss"),
+        "ground_reg z=0": (Trainer, dict(plugins=(
+            GroundRegPluginConfig().instantiate(),)), 1, "ground"),
+    }
+    for what, (cls, kw, per_step, term_key) in runs.items():
+        trainer = cls(model=model, **kw)
+        state = trainer.setup(
+            state_from_raw_arrays(perturbed(arrays), device="cuda"),
+            cameras_extent=TRAIN_EXTENT)
+        depth = cls is DepthTrainer
+        want = {k: (per_step if k in GAUSSIAN_KERNELS else 0)
+                for k in KERNELS}
+        losses, terms, step_ms = [], [], []
+        for step in range(1, GEOMETRY_STEPS + 1):
+            view = step % len(cams)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            state, sc = trainer.train_step(
+                state, cams[view], targets[view], H, W, SH_DEGREE, bg,
+                **({"aux_inputs": depth_targets[view]} if depth else {}))
+            losses.append(float(sc["loss"]))        # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            terms.append(float(sc[term_key]))
+            if read_launches() != want:
+                fail(f"{what} step {step}: launches {read_launches()}, not "
+                     f"K1-K4 {per_step} times each")
+        if not all(math.isfinite(x) for x in losses + terms):
+            fail(f"{what}: non-finite loss in {losses} or term in {terms}")
+        if depth and not terms[-1] < terms[0]:
+            fail(f"{what}: the depth loss did not fall: {terms}")
+        for k in PARAM_FIELDS:
+            if not bool(torch.isfinite(getattr(state.params, k)).all()):
+                fail(f"{what}: non-finite {k}")
+        log(f"{what}: ms per step (host clock, synchronised) "
+            f"{[round(x, 2) for x in step_ms]}, median "
+            f"{float(np.median(step_ms[1:])):.2f} over steps 2-"
+            f"{GEOMETRY_STEPS} (phase 5's plain step in this run "
+            f"{plain_step_ms:.2f}); {term_key} at step 1 {terms[0]:.6g}, "
+            f"at step {GEOMETRY_STEPS} {terms[-1]:.6g}; losses "
+            f"{[round(x, 5) for x in losses]}; K1-K4 launched {per_step}x "
+            "a step, nothing else")
+        del trainer, state
+        torch.cuda.empty_cache()
+
+
+def write_depth_maps(root, arrays):
+    """estimated_depths/<stem>.npy for phase 8's views: the port's rendered
+    (blended) inverse depth mapped through d = (inv - b) / a."""
+    state = state_from_raw_arrays(arrays, device="cuda")
+    renderer = TileRendererConfig().instantiate()
+    bg = torch.zeros(3, device="cuda")
+    os.makedirs(os.path.join(root, "estimated_depths"))
+    for i, c2w in enumerate(fit_poses()):
+        with torch.no_grad():
+            inv = renderer.forward(
+                state, camera(c2w), H, W, bg, SH_DEGREE,
+                render_types=frozenset({"rgb", "inverse_depth"})
+            ).inverse_depth
+        np.save(os.path.join(root, "estimated_depths", f"view_{i:03d}.npy"),
+                ((inv - DEPTH_B) / DEPTH_A).cpu().numpy())
+
+
+def visible_solve(root):
+    """The tool's solve per view over the SfM points that the map sees at
+    their own depth (the map's inverse depth within 1% of 1/z at their
+    pixel, as a point tracked in that image would be): -> [(a, b)]."""
+    model = read_model(os.path.join(root, "sparse", "0"))
+    xyz = torch.as_tensor(model.points_xyz, device="cuda")
+    out = []
+    for im in model.images.values():
+        stem = im.name.rsplit(".", 1)[0]
+        d_est = torch.as_tensor(np.load(os.path.join(
+            root, "estimated_depths", stem + ".npy")), device="cuda").double()
+        R_ = torch.as_tensor(qvec_to_rotmat(im.qvec), device="cuda")
+        t_ = torch.as_tensor(im.tvec, device="cuda")
+        cam = model.cameras[im.camera_id]
+        p = xyz @ R_.T + t_
+        z = p[:, 2]
+        u = torch.round(float(cam.fx) * p[:, 0] / z + float(cam.cx)).long()
+        v = torch.round(float(cam.fy) * p[:, 1] / z + float(cam.cy)).long()
+        ok = (z > 0.01) & (u >= 0) & (u < W) & (v >= 0) & (v < H)
+        inv = d_est[v.clamp(0, H - 1), u.clamp(0, W - 1)] * DEPTH_A + DEPTH_B
+        seen = ok & ((inv - 1.0 / z).abs() < 0.01 / z)
+        ab = get_depth_scales.solve_scale(xyz[seen], R_, t_, cam, d_est, 10)
+        out.append((ab, int(seen.sum()), int(ok.sum())))
+    return out
+
+
+def phase_depth_fits(arrays, tmp):
+    """Phase 10 (b): estimated depth on phase 8's scene, the depth-scale
+    tool, and the geometry presets fitted through the CLI."""
+    log("== phase 10 (b): get_depth_scales and depth_regularization.yaml, "
+        "normal_reg.yaml, ground_reg.yaml and scale_reg.yaml through "
+        f"gsl_tpu_torch.cli on phase 8's scene; times on {CARD}")
+    data, runs = os.path.join(tmp, "scene"), os.path.join(tmp, "runs")
+    t0 = time.perf_counter()
+    write_depth_maps(data, arrays)
+    log(f"depth: {FIT_VIEWS} maps d = (inverse depth - ({DEPTH_B})) / "
+        f"{DEPTH_A} written in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        solved = get_depth_scales.main([data])
+    tool_s = time.perf_counter() - t0
+    a = np.array([v["scale"] for v in solved.values()])
+    b = np.array([v["offset"] for v in solved.values()])
+    log(f"get_depth_scales: {len(solved)} of {FIT_VIEWS} views solved in "
+        f"{tool_s:.2f} s; known a {DEPTH_A}, b {DEPTH_B}; recovered a "
+        f"median {np.median(a):.6g} (from {a.min():.6g} to {a.max():.6g}),"
+        f" b median {np.median(b):.6g} (from {b.min():.6g} to "
+        f"{b.max():.6g})")
+    vis = visible_solve(data)
+    va = np.array([ab[0] for ab, _, _ in vis if ab is not None])
+    vb = np.array([ab[1] for ab, _, _ in vis if ab is not None])
+    log(f"get_depth_scales' solve over the SfM points each map sees at "
+        f"their own depth ({[s for _, s, _ in vis]} of "
+        f"{[o for _, _, o in vis]} in view): a from {va.min():.6g} to "
+        f"{va.max():.6g}, b from {vb.min():.6g} to {vb.max():.6g} (known "
+        f"{DEPTH_A}, {DEPTH_B}) in {len(va)} views")
+    if len(va) < FIT_VIEWS or not (np.abs(va - DEPTH_A).max() < 0.02
+                                   * DEPTH_A
+                                   and np.abs(vb - DEPTH_B).max() < 0.01):
+        fail("the depth-scale solve over the visible points did not "
+             "recover the known affine")
+    # the fit reads the affine the maps were made with: the tool's solve
+    # over all SfM points of this volumetric scene is printed above
+    with open(os.path.join(data, "estimated_depth_scales.json"), "w") as f:
+        json.dump({f"view_{i:03d}.png": {"scale": DEPTH_A,
+                                         "offset": DEPTH_B}
+                   for i in range(FIT_VIEWS)}, f)
+
+    colmap = os.path.join(PRESETS, "colmap.yaml")
+    windows = (f"fit.log_interval={VARIANT_LOG_INTERVAL}",
+               "model.density.init_args.densify_from_iter=100",
+               "model.density.init_args.densification_interval=100")
+    depth_terms = {}
+    step_of = DepthTrainer.train_step
+
+    def spy(self, state, *args, **kw):
+        new, sc = step_of(self, state, *args, **kw)
+        if new.step % VARIANT_LOG_INTERVAL == 0 or new.step == 1:
+            depth_terms[new.step] = (None if "depth_loss" not in sc
+                                     else float(sc["depth_loss"]))
+        return new, sc
+
+    fits = {"depth_regularization": DEPTH_FIT_STEPS, "normal_reg":
+            VARIANT_STEPS, "ground_reg": VARIANT_STEPS, "scale_reg":
+            VARIANT_STEPS}
+    for name, steps in fits.items():
+        configs = [colmap, os.path.join(PRESETS, f"{name}.yaml")]
+        psnr0, _ = initial_psnr(configs, windows + (f"data.path={data}",),
+                                tmp, name)
+
+        def argv(n_steps):
+            return ["fit", "--config", configs[0], "--config", configs[1],
+                    "--data.path", data, "--output", runs, "-n", name,
+                    "--max_steps", str(n_steps), *windows]
+
+        DepthTrainer.train_step = spy
+        try:
+            fitted = [run_cli(argv(steps), GAUSSIAN_KERNELS)]
+            if name == "depth_regularization":
+                r = run_cli(argv(DEPTH_RESUME_STEPS), GAUSSIAN_KERNELS)
+                if f"-> continuing at {steps + 1}" not in r["said"]:
+                    fail(f"the depth fit's resume did not continue at "
+                         f"{steps + 1}")
+                fitted.append(r)
+        finally:
+            DepthTrainer.train_step = step_of
+        psnr = fitted[-1]["results"]["psnr"]
+        if not psnr > psnr0:
+            fail(f"fit {name}.yaml: val PSNR {psnr:.3f} dB is not above "
+                 f"the initial cloud's {psnr0:.3f}")
+        n_steps = sum(f["timing"]["end_step"] - f["timing"]["start_step"]
+                      + 1 for f in fitted)
+        per_step = {k: round(sum(f["launches"].get(k, 0) for f in fitted)
+                             / n_steps, 3) for k in GAUSSIAN_KERNELS}
+        said = (f"val PSNR initial cloud {psnr0:.4f} dB, at step "
+                f"{fitted[-1]['timing']['end_step']} {psnr:.4f}; launches a "
+                f"step, validation included {per_step}")
+        if name == "depth_regularization":
+            logged = sorted(depth_terms)
+            if any(depth_terms[s] is None for s in logged):
+                fail(f"the depth fit stepped without a map: {depth_terms}")
+            first, last = depth_terms[logged[0]], depth_terms[logged[-1]]
+            if not (math.isfinite(first) and math.isfinite(last)
+                    and last < first):
+                fail(f"the depth fit's depth term did not fall: "
+                     f"{depth_terms}")
+            said += (f"; depth term at step {logged[0]} {first:.6g}, at "
+                     f"step {logged[-1]} {last:.6g} (every logged step "
+                     f"{ {s: round(v, 6) for s, v in depth_terms.items()} })")
+        for f in fitted:
+            f.pop("state", None)
+        log(f"fit {name}.yaml: {said}")
+        warm = [int(row[0]) for row in fitted[-1]["rows"]][1:]
+        warm = [s for s in warm if s != steps + VARIANT_LOG_INTERVAL]
+        log_fit(f"fit {name}.yaml", fitted, warm)
+        torch.cuda.empty_cache()
+
+
+def phase_mesh(tmp):
+    """Phase 10 (c): python -m gsl_tpu_torch.tools.gs2d_mesh_extraction on
+    phase 8's gs2d.yaml run, expected depth, resolution 256."""
+    log(f"== phase 10 (c): gs2d_mesh_extraction of phase 8's gs2d.yaml run "
+        f"at resolution {MESH_RESOLUTION} with --expected-depth; times on "
+        f"{CARD}")
+    run = os.path.join(tmp, "runs", "gs2d")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = gs2d_mesh_extraction.main([run, "--resolution",
+                                         str(MESH_RESOLUTION),
+                                         "--expected-depth"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k: v for k, v in read_launches().items() if v}
+    if launches != {"surfel_expand": FIT_VIEWS, "surfel_fwd": FIT_VIEWS}:
+        fail(f"mesh extraction launched {launches}, not K5 and K6 once a "
+             "view")
+    verts, faces = got["verts"], got["faces"]
+    if not (len(verts) > 0 and len(faces) > 0
+            and bool(torch.isfinite(verts).all())
+            and int(faces.min()) >= 0 and int(faces.max()) < len(verts)):
+        fail(f"mesh extraction: {len(verts)} vertices, {len(faces)} faces")
+    e = torch.cat([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]])
+    key = e.min(1).values * len(verts) + e.max(1).values
+    _, counts = torch.unique(key, return_counts=True)
+    shared = float((counts == 2).float().mean())
+    with open(got["path"], "rb") as f:
+        head = f.read(300)
+    if not (head.startswith(b"ply") and b"element face" in head):
+        fail(f"{got['path']} is not a PLY mesh")
+    log(f"mesh: {len(verts)} vertices, {len(faces)} faces, {shared:.4f} of "
+        f"{len(counts)} edges shared by two faces; ms per view (host clock, "
+        f"synchronised): render median "
+        f"{float(np.median(got['render_ms'])):.2f}, integrate median "
+        f"{float(np.median(got['integrate_ms'])):.2f} (from "
+        f"{min(got['integrate_ms']):.2f} to {max(got['integrate_ms']):.2f}) "
+        f"over {len(got['integrate_ms'])} views of "
+        f"{MESH_RESOLUTION ** 3} voxels; marching tetrahedra (extract_mesh) "
+        f"{got['extract_ms']:.1f} ms; the tool {wall:.1f} s; peak memory "
+        f"{peak:.3f} GiB; launches {launches}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2319,6 +2724,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()
     log(smi[0])
+    global CARD
+    CARD = smi[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {kind} "
         f"x{count}")
     t0 = time.perf_counter()
@@ -2385,6 +2792,18 @@ def main():
         phase_mcmc(arrays)
         torch.cuda.empty_cache()
         phase_variant_fits(tmp)
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            phase_geometry_kernels(
+                state_from_raw_arrays(arrays, device="cuda"),
+                TileRendererConfig().instantiate())
+        torch.cuda.empty_cache()
+        phase_geometry_training(
+            arrays, float(np.median(training["step_ms"][5:TRAIN_STEPS])))
+        torch.cuda.empty_cache()
+        phase_depth_fits(arrays, tmp)
+        torch.cuda.empty_cache()
+        phase_mesh(tmp)
     # StopThePop beside plain 3DGS, phases 7 and 4/5 of this run
     log("StopThePop over plain 3DGS, this run: bench-pose rgb frame ms "
         f"{[round(x, 2) for x in stp_serving['rgb_frame_ms']]} vs "

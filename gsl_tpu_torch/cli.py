@@ -25,6 +25,8 @@ import yaml
 
 from .data.dataparsers.blender import BlenderDataParserConfig
 from .data.dataparsers.colmap import ColmapDataParserConfig
+from .data.dataparsers.estimated_depth_colmap import \
+    EstimatedDepthColmapDataParserConfig
 from .models.gaussian import VanillaGaussianConfig
 from .models.gaussian_2d import Gaussian2DConfig
 from .models.mip_splatting import MipSplattingConfig
@@ -32,10 +34,12 @@ from .renderers.mip_splatting_renderer import MipSplattingRendererConfig
 from .renderers.surfel_renderer import SurfelRendererConfig
 from .renderers.tile_renderer import TileRendererConfig
 from .training.density import VanillaDensityControllerConfig
+from .training.depth_trainer import DepthMetricsConfig, DepthTrainer
 from .training.fit import FitConfig, _round_capacity, fit, validate
 from .training.gs2d import GS2DMetricsConfig, GS2DTrainer
 from .training.mcmc import MCMCDensityControllerConfig
 from .training.metrics import MCMCMetricsConfig, VanillaMetricsConfig
+from .training.plugins import PLUGIN_REGISTRY
 from .training.trainer import Trainer, TrainerConfig
 from .utils.checkpoint import find_latest_checkpoint, load_checkpoint
 from .utils.device import resolve_device
@@ -52,14 +56,15 @@ _REGISTRY = {
     "VanillaMetrics": VanillaMetricsConfig,
     "MCMCMetrics": MCMCMetricsConfig,
     "GS2DMetrics": GS2DMetricsConfig,
+    "DepthMetrics": DepthMetricsConfig,
     "Colmap": ColmapDataParserConfig,
+    "EstimatedDepthColmap": EstimatedDepthColmapDataParserConfig,
     "Blender": BlenderDataParserConfig,
 }
 
 # components of gsl_tpu's registry (or class paths into gsl_tpu, which the
 # port never imports) that the port has not yet -> ROADMAP item
 _UNPORTED_COMPONENTS = {
-    "DepthMetrics": 9, "EstimatedDepthColmap": 9,
     "NSVF": 12, "PhotoTourism": 12, "MatrixCity": 12, "Nerfies": 12,
     "SegAnyColmap": 12, "NGP": 12, "AppearanceFeatureGaussian": 12,
     "SpotLessColmap": 12, "SpotLessMetrics": 12,
@@ -86,7 +91,7 @@ _UNPORTED_FIT_FIELDS = {"viewer": 14, "viewer_port": 14,
 # top-level / model keys gsl_tpu's build_components reads for variants
 _UNPORTED_KEYS = {"distributed": 13, "opt_strategy": 12,
                   "output_processor": 12, "glossy": 12, "deform": 12,
-                  "plugins": 12, "swag": 12, "similarity_reg": 12,
+                  "swag": 12, "similarity_reg": 12,
                   "visibility_map": 12, "n_appearances": 12}
 
 
@@ -190,11 +195,31 @@ def build_components(cfg: Dict):
     trainer_cfg = _build(TrainerConfig, cfg.get("trainer"))
     fit_cfg = _build(FitConfig, cfg.get("fit"))
 
-    trainer_cls = (GS2DTrainer if isinstance(metrics, GS2DMetricsConfig)
-                   else Trainer)
+    # variant trainers selected by the metrics' type
+    trainer_cls = Trainer
+    if isinstance(metrics, GS2DMetricsConfig):
+        trainer_cls = GS2DTrainer
+    elif isinstance(metrics, DepthMetricsConfig):
+        trainer_cls = DepthTrainer
     trainer = trainer_cls(model=model, renderer=renderer, density=density,
-                          metrics=metrics, config=trainer_cfg)
+                          metrics=metrics, config=trainer_cfg,
+                          plugins=build_plugins(
+                              cfg.get("plugins") or model_spec.get("plugins")
+                              or []))
     return trainer, dataparser_cfg, fit_cfg
+
+
+def build_plugins(specs) -> tuple:
+    """Plugins from a list of registry names or {class_path, init_args}."""
+    plugins = []
+    for spec in specs:
+        if isinstance(spec, str):
+            spec = {"class_path": spec}
+        name = spec.get("class_path")
+        pcfg_cls = PLUGIN_REGISTRY.get(name) or _resolve_class(name)
+        plugins.append(_build(pcfg_cls, spec.get("init_args", {})
+                              ).instantiate())
+    return tuple(plugins)
 
 
 def main(argv=None):

@@ -7,7 +7,9 @@ per-epoch shuffling from ``RandomState(seed)``, a ``skip`` that
 fast-forwards the index stream on resume, and a one-element lookahead
 thread. The image comes out as the cached uint8 tensor: the fit loop
 uploads it and converts it on the device (`image_to_float`), so one step
-moves a quarter of the bytes a float32 image would.
+moves a quarter of the bytes a float32 image would. An image set with
+estimated depth (``extra_data["depth"]``) also serves each image's scaled
+inverse-depth map by name (`get_depth`), cached as float32.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from .cameras import Cameras
 from .dataparsers.dataparser import ImageSet, PointCloud
+from .dataparsers.estimated_depth_colmap import load_depth
 
 
 def load_image(path: str, background: Optional[np.ndarray] = None
@@ -75,6 +78,8 @@ class CachedDataset:
         self.background = background
         self._cache = {}
         self._mask_cache = {}
+        self._depth_cache = {}
+        self._index = {n: i for i, n in enumerate(image_set.image_names)}
 
     def __len__(self):
         return len(self.image_set)
@@ -116,6 +121,24 @@ class CachedDataset:
                 img = _undistort(img, K, dist, path)
             self._cache[i] = (img * 255.0 + 0.5).astype(np.uint8)
         return self._cache[i]
+
+    def get_depth(self, name: str, image_hw: Tuple[int, int]
+                  ) -> Optional[torch.Tensor]:
+        """The scaled inverse-depth map [H, W] float32 (on the host) of the
+        image `name`, whose size is `image_hw`; None where the parser gave
+        it no map. A map of another size raises, naming its file."""
+        if name not in self._depth_cache:
+            entries = (self.image_set.extra_data or {}).get("depth")
+            entry = None if entries is None else entries[self._index[name]]
+            d = load_depth(entry)
+            if d is not None:
+                if d.shape != tuple(image_hw):
+                    raise ValueError(
+                        f"{entry['path']}: depth map of shape {d.shape} "
+                        f"for the {image_hw[0]}x{image_hw[1]} image {name}")
+                d = torch.from_numpy(d)
+            self._depth_cache[name] = d
+        return self._depth_cache[name]
 
     def get(self, i: int) -> Tuple[Cameras, str, torch.Tensor,
                                    Optional[torch.Tensor]]:

@@ -1,7 +1,9 @@
 """Quaternion math for 3D Gaussians (wxyz quaternions).
 
 Port of ``gsl_tpu/ops/transforms.py``: Sigma = R S S^T R^T with
-S = diag(scales) (`build_cov3d`, which MCMC's position noise takes).
+S = diag(scales) (`build_cov3d`, which MCMC's position noise takes), and
+world normals from an expected-depth map (`depth_to_normal`, which the
+normal regulariser takes).
 """
 from __future__ import annotations
 
@@ -45,3 +47,31 @@ def build_cov3d(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
     M = quat_to_rotmat(quats) * scales[..., None, :]  # R @ diag(s)
     # summed elementwise: a batched matmul could take TF32 on the card
     return (M[..., :, None, :] * M[..., None, :, :]).sum(-1)
+
+
+def depth_to_normal(depth: torch.Tensor, world_to_camera: torch.Tensor,
+                    fx, fy, cx, cy) -> torch.Tensor:
+    """World-space normals from an expected-depth map [H, W]: each pixel
+    unprojected to a camera-space point, rotated to world, and the
+    normalised cross product of central differences. The one-pixel
+    border is zero. `world_to_camera` [4, 4] maps p_world to
+    p_cam = R p_world + t. Returns [H, W, 3]."""
+    H, W = depth.shape
+    ys, xs = torch.meshgrid(
+        torch.arange(H, dtype=depth.dtype, device=depth.device),
+        torch.arange(W, dtype=depth.dtype, device=depth.device),
+        indexing="ij")
+    x = (xs + 0.5 - cx) / fx * depth
+    y = (ys + 0.5 - cy) / fy * depth
+    pts_cam = torch.stack([x, y, depth], dim=-1)
+    # rotate to world: R^T p_cam, as rows p_cam R; summed elementwise, as a
+    # matmul could take TF32 on the card
+    R = world_to_camera[:3, :3]
+    pts = (pts_cam[..., :, None] * R).sum(-2)
+    dx = pts[2:, 1:-1] - pts[:-2, 1:-1]
+    dy = pts[1:-1, 2:] - pts[1:-1, :-2]
+    n = torch.linalg.cross(dx, dy, dim=-1)
+    # rsqrt(max(n.n, eps)) has a finite gradient where dx = dy = 0
+    n2 = torch.sum(n * n, dim=-1, keepdim=True)
+    n = n * torch.rsqrt(torch.clamp(n2, min=1e-18))
+    return torch.nn.functional.pad(n, (0, 0, 1, 1, 1, 1))

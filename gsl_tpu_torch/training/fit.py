@@ -5,7 +5,8 @@ Port of ``gsl_tpu/training/fit.py``:
   with ``init_from``, optionally with a background sphere; camera-extent
   learning-rate scaling; Mip-Splatting's 3D filter over the train
   cameras, which on resume comes from the checkpoint),
-- the per-step order: step hook -> pre-density hooks -> density hook ->
+- the per-step order: step hook -> the plugins' `after_step` ->
+  pre-density hooks -> density hook ->
   post-density hooks -> a ``train_log.csv`` row every ``log_interval``
   steps -> a checkpoint (and PLY) at ``save_iterations`` and at the end,
 - resume from the newest checkpoint (``resume: auto``), bit-exact on the
@@ -221,6 +222,8 @@ def fit(trainer: Trainer, outputs: DataParserOutputs, cfg: FitConfig,
 
             state, scalars = step_hook(state, generator, step, sh_degree,
                                        cameras[name], name, img, mask, H, W)
+            for plugin in trainer.plugins:
+                state = plugin.after_step(state, step)
             for hook in pre_density:
                 state = hook.periodic(state, generator, step)
             timed = density_hook.densifies_at(step)

@@ -31,15 +31,19 @@ class GS2DTrainer(Trainer):
 
     def __init__(self, model: Gaussian2DConfig = None,
                  renderer: SurfelRendererConfig = None, density=None,
-                 metrics: GS2DMetricsConfig = None, config=None):
+                 metrics: GS2DMetricsConfig = None, config=None,
+                 plugins: tuple = ()):
         super().__init__(model=model or Gaussian2DConfig(),
                          renderer=renderer or SurfelRendererConfig(),
                          density=density,
                          metrics=metrics or GS2DMetricsConfig(),
-                         config=config)
+                         config=config, plugins=plugins)
 
     def render_losses(self, gstate, camera, img_height, img_width, bg_color,
-                      sh_degree, gt_image, mask, tap, abstap, step):
+                      sh_degree, gt_image, mask, tap, abstap, step,
+                      aux_inputs=None):
+        """As gsl_tpu's: the plugins act at setup only, and `aux_inputs`
+        is not read."""
         out = self.renderer.forward(
             gstate, camera, img_height, img_width, bg_color, sh_degree,
             means2d_tap=tap)

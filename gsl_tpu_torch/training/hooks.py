@@ -5,7 +5,8 @@ Port of ``gsl_tpu/training/hooks.py`` for the variants the port has.
 the objects the fit loop calls uniformly:
 
 - `StepHook(state, generator, step, ...) -> (state, scalars)`: which train
-  step runs;
+  step runs, and what it is fed (the depth trainer's step gets the view's
+  inverse-depth map);
 - `DensityHook(state, generator, step) -> state`: which density-control
   schedule runs after the step (vanilla adaptive density control, or
   MCMC's relocation and growth followed by its position noise);
@@ -14,7 +15,8 @@ the objects the fit loop calls uniformly:
   recompute).
 
 The port runs the vanilla 3DGS trainer (AbsGS and StopThePop are options
-of its density controller and renderer) and the 2DGS trainer. The JAX
+of its density controller and renderer, plugins an argument of it), the
+depth-regularised trainer and the 2DGS trainer. The JAX
 package's other variant hooks (Taming, GNS, SpotLess, gradient
 accumulation, the similarity regulariser, LightGaussian) come with their
 variants; until then `build_hooks` raises for them.
@@ -27,6 +29,7 @@ import torch
 
 from ..models.mip_splatting import MipSplattingConfig, compute_3d_filter
 from .density import VanillaDensityControllerConfig, densify_masks
+from .depth_trainer import DepthTrainer
 from .gs2d import GS2DTrainer
 from .mcmc import (MCMCDensityControllerConfig, dead_mask, grow_target,
                    mcmc_densify, mcmc_noise_step)
@@ -58,6 +61,22 @@ class StepHook:
 
     def periodic(self, state, generator, step):
         return state
+
+
+class DepthStepHook(StepHook):
+    """`DepthTrainer.train_step` fed the view's scaled inverse-depth map,
+    uploaded to the state's device, or None where the parser gave the
+    image none. (gsl_tpu's fit calls every train step without it, so its
+    depth term never acts in a fit.)"""
+
+    def __call__(self, state, generator, step, sh_degree, cam, name, img,
+                 mask, H, W):
+        depth = self.ctx.dataset.get_depth(name, (H, W))
+        if depth is not None:
+            depth = depth.to(state.alive.device)
+        return self.trainer.train_step(state, cam, img, H, W, sh_degree,
+                                       self.ctx.bg, mask=mask,
+                                       aux_inputs=depth)
 
 
 class DensityHook:
@@ -173,10 +192,10 @@ def build_hooks(ctx: FitContext):
     """Resolve the trainer's component configs into (step_hook,
     density_hook, pre_density_hooks, post_density_hooks)."""
     trainer = ctx.trainer
-    if type(trainer) not in (Trainer, GS2DTrainer):
+    if type(trainer) not in (Trainer, DepthTrainer, GS2DTrainer):
         raise NotImplementedError(
-            f"{type(trainer).__name__}: the fit runs Trainer and "
-            "GS2DTrainer; variant trainers come with their variants "
+            f"{type(trainer).__name__}: the fit runs Trainer, DepthTrainer "
+            "and GS2DTrainer; variant trainers come with their variants "
             "(ROADMAP item 12)")
     density_type = type(trainer.density_cfg)
     if density_type is VanillaDensityControllerConfig:
@@ -188,7 +207,8 @@ def build_hooks(ctx: FitContext):
             f"{density_type.__name__}: the fit runs the vanilla and MCMC "
             "density controllers; the others come with their variants "
             "(ROADMAP item 12)")
-    step_hook = StepHook(ctx)
+    step_hook = (DepthStepHook if isinstance(trainer, DepthTrainer)
+                 else StepHook)(ctx)
     post_density = []
     if isinstance(trainer.model, MipSplattingConfig):
         post_density.append(MipFilterHook(ctx))

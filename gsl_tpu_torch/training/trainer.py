@@ -1,13 +1,14 @@
 """Training orchestrator.
 
-Port of ``gsl_tpu/training/trainer.py`` (the vanilla trainer; plugins and
-output processors come with their variants), as plain functions on an
+Port of ``gsl_tpu/training/trainer.py`` (output processors and the
+per-image index come with their variants), as plain functions on an
 explicit `TrainState`, whose `extra` carries the non-trainable properties
 of a variant (Mip-Splatting's `filter_3d`) through every step:
 
-- `train_step`: render -> L1 + SSIM loss -> gradients (through the
-  rasterizer's backward kernels, with the means2d tap for the
-  densification statistics) -> per-property Adam update;
+- `train_step`: render -> L1 + SSIM loss, the plugins' terms and a
+  variant's per-image input (`aux_inputs`, the depth trainer's map) ->
+  gradients (through the rasterizer's backward kernels, with the means2d
+  tap for the densification statistics) -> per-property Adam update;
 - `density_step`: clone / split / prune; `opacity_reset_step`;
 - `maybe_density_ops`: both at the reference schedule, growing the
   capacity and redoing a densify that ran out of free slots.
@@ -68,7 +69,14 @@ class Trainer:
         density: VanillaDensityControllerConfig = None,
         metrics: VanillaMetricsConfig = None,
         config: TrainerConfig = None,
+        output_processor=None,
+        plugins: tuple = (),
     ):
+        if output_processor is not None:
+            raise NotImplementedError(
+                "output processors are not ported to gsl_tpu_torch yet "
+                "(ROADMAP item 12)")
+        self.plugins = tuple(plugins)
         self.model = model or VanillaGaussianConfig()
         self.renderer_cfg = renderer or TileRendererConfig()
         self.renderer = self.renderer_cfg.instantiate()
@@ -94,22 +102,30 @@ class Trainer:
             self.prune_extent = override
         self.tx = GaussianAdam(self.model.optimization,
                                spatial_lr_scale=self.cameras_extent)
-        return TrainState(
+        state = TrainState(
             params=gaussians.params,
             alive=gaussians.alive,
             opt_state=self.tx.init(gaussians.params),
             density=init_density_state(gaussians.capacity,
                                        gaussians.device),
             step=0, extra=gaussians.extra)
+        for plugin in self.plugins:
+            state = plugin.on_setup(state)
+        return state
 
     def render_losses(self, gstate: GaussianState, camera: Cameras,
                       img_height: int, img_width: int, bg_color, sh_degree,
-                      gt_image, mask, tap, abstap, step: int):
+                      gt_image, mask, tap, abstap, step: int,
+                      aux_inputs=None):
         """-> (loss, (scalars, radii, n_dropped)). `step`: the steps taken
-        before this one, for losses that start at an iteration."""
+        before this one, for losses that start at an iteration;
+        `aux_inputs`: a variant trainer's per-image input (this trainer
+        takes none)."""
+        render_types = frozenset({"rgb"}).union(
+            *[p.required_render_types for p in self.plugins])
         out = self.renderer.forward(
             gstate, camera, img_height, img_width, bg_color, sh_degree,
-            means2d_tap=tap, absgrad_tap=abstap)
+            render_types=render_types, means2d_tap=tap, absgrad_tap=abstap)
         loss, scalars = train_loss(
             out.render, gt_image, mask,
             lambda_dssim=self.metrics_cfg.lambda_dssim,
@@ -127,16 +143,28 @@ class Trainer:
                 loss = loss + m.scale_reg * torch.sum(
                     torch.exp(gstate.params.scales)
                     * alive[:, None]) / (3.0 * n_alive)
+        for plugin in self.plugins:
+            term, sc = plugin.extra_loss(out, gt_image, mask, gstate, step,
+                                         camera=camera)
+            loss = loss + term
+            scalars = dict(scalars, **sc)
         return loss, (scalars, out.radii, out.n_dropped)
 
     def train_step(self, state: TrainState, camera: Cameras,
                    gt_image: torch.Tensor, img_height: int, img_width: int,
                    sh_degree: int, bg_color: torch.Tensor,
-                   mask: Optional[torch.Tensor] = None):
+                   mask: Optional[torch.Tensor] = None, aux_inputs=None,
+                   image_idx=None):
         """One optimization step on one view. Returns (new state, scalars);
         the scalars are 0-d tensors on the state's device, so the step
         itself never waits for the device beyond the rasterizer's one
-        read that sizes its slot buffers."""
+        read that sizes its slot buffers. `aux_inputs` goes to
+        `render_losses`; `image_idx` feeds output processors, which are not
+        ported yet."""
+        if image_idx is not None:
+            raise NotImplementedError(
+                "image_idx feeds output processors, which are not ported "
+                "to gsl_tpu_torch yet (ROADMAP item 12)")
         dev = state.alive.device
         use_absgrad = (getattr(self.density_cfg, "absgrad", False)
                        and self.renderer.supports_absgrad())
@@ -153,7 +181,7 @@ class Trainer:
                 GaussianState(params=leaves, alive=state.alive,
                               extra=state.extra), camera,
                 img_height, img_width, bg_color, sh_degree, gt_image, mask,
-                tap, abstap, state.step)
+                tap, abstap, state.step, aux_inputs=aux_inputs)
             wrt = [getattr(leaves, k) for k in PARAM_FIELDS] + [tap]
             if use_absgrad:
                 wrt.append(abstap)

@@ -32,7 +32,9 @@ from torch_port_utils import (PARAM_FIELDS, jax_train_state_arrays,
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESETS = ("colmap.yaml", "blender.yaml", "stp.yaml", "gs2d.yaml",
-           "absgrad.yaml", "mip_splatting.yaml", "mcmc.yaml")
+           "absgrad.yaml", "mip_splatting.yaml", "mcmc.yaml",
+           "depth_regularization.yaml", "normal_reg.yaml", "ground_reg.yaml",
+           "scale_reg.yaml")
 OVERRIDES = ["data.path=/data/scene",
              "model.density.init_args.densify_from_iter=100",
              "model.density.init_args.densification_interval=50",
@@ -100,7 +102,7 @@ def test_unknown_field_raises():
 
 @pytest.mark.parametrize("preset,item", [
     ("taming.yaml", 12), ("gns.yaml", 12), ("light_gaussian.yaml", 12),
-    ("distributed.yaml", 13), ("depth_regularization.yaml", 9),
+    ("distributed.yaml", 13), ("bilagrid.yaml", 12),
     ("grad_acc.yaml", 12)])
 def test_unported_presets_raise_naming_their_item(preset, item):
     cfg = cli.load_config([os.path.join(REPO, "gsl_tpu", "configs", preset)],

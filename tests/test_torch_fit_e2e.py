@@ -1,7 +1,8 @@
 """End to end through gsl_tpu_torch's CLI on the CPU, the port alone: a
 small Blender-style scene rendered by the port is fitted with one densify,
-validated and resumed; the 2DGS, StopThePop, AbsGS, Mip-Splatting and MCMC
-presets take a few steps, and the last two resume bit for bit."""
+validated and resumed; the 2DGS, StopThePop, AbsGS, Mip-Splatting, MCMC,
+depth, normal, ground and scale regulariser presets take a few steps, and
+Mip-Splatting and MCMC resume bit for bit."""
 import csv
 import json
 import os
@@ -255,7 +256,12 @@ VARIANT_EXTRA = {"mip_splatting.yaml": (
 @pytest.mark.parametrize("preset,renderer", [
     ("gs2d.yaml", "SurfelRenderer"), ("stp.yaml", "TileRenderer"),
     ("absgrad.yaml", "TileRenderer"), ("mip_splatting.yaml", "TileRenderer"),
-    ("mcmc.yaml", "TileRenderer")])
+    ("mcmc.yaml", "TileRenderer"),
+    # the Blender scene has no depth maps: the depth trainer's term is
+    # absent (tests/test_torch_depth.py fits a scene with them)
+    ("depth_regularization.yaml", "TileRenderer"),
+    ("normal_reg.yaml", "TileRenderer"), ("ground_reg.yaml", "TileRenderer"),
+    ("scale_reg.yaml", "TileRenderer")])
 def test_variant_presets_fit_through_the_cli(scene, tmp_path, preset,
                                              renderer):
     extra = VARIANT_EXTRA.get(preset, ())

@@ -120,11 +120,15 @@ def _cases(*cases):
 # the cotangents in shared memory; 6 + C or 13 + C above 32 sums each row in
 # chunks of 32; tile size 8 is two warps a tile; cut lists end one past a
 # window (16) or batch (32), and a tile has one slot
+# C = 1, 4 and 7: the hard inverse depth alone, rgb + inverse depth, and
+# rgb + depth + normal, the widths the depth and normal regularisers train at
 KERNEL_CASES = {"k2": _cases((3, TS, False), (8, TS, False),
-                             (11, TS, False), (3, 8, False), (3, TS, True)),
+                             (11, TS, False), (3, 8, False), (3, TS, True),
+                             (1, TS, False), (4, TS, False), (7, TS, False)),
                 "k3": _cases((3, TS, False), (8, TS, False),
                              (11, TS, False), (27, TS, False),
-                             (3, 8, False), (3, TS, True)),
+                             (3, 8, False), (3, TS, True), (1, TS, False),
+                             (4, TS, False), (7, TS, False)),
                 "stp": _cases((3, TS, False), (8, TS, False),
                               (11, TS, False), (27, TS, False),
                               (3, 8, False), (3, TS, True)),

@@ -181,6 +181,18 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
     with pytest.raises(FileNotFoundError, match="no COLMAP sparse model"):
         cli.main(argv + ["--device", "cpu"])
 
+    from gsl_tpu_torch.tools import get_depth_scales, gs2d_mesh_extraction
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_depth_scales.main([str(tmp_path / "no_scene")])
+    with pytest.raises(SystemExit, match="no COLMAP sparse model"):
+        get_depth_scales.main([str(tmp_path / "no_scene"), "--device",
+                               "cpu"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gs2d_mesh_extraction.main([str(tmp_path / "no_run")])
+    with pytest.raises(FileNotFoundError, match="config.yaml"):
+        gs2d_mesh_extraction.main([str(tmp_path / "no_run"), "--device",
+                                   "cpu"])
+
 
 def _run_chip_smoke(cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
