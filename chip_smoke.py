@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port's render and training paths (3DGS, 2DGS,
 StopThePop, Mip-Splatting, MCMC, the depth, normal and ground
-regularisers), of its fit through the CLI and of 2DGS mesh extraction on
-one CUDA card.
+regularisers, the appearance slice), of its fit through the CLI and of
+2DGS mesh extraction on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -206,6 +206,35 @@ package is not beside this script. Phases, each fatal on failure:
    with vertices and faces, finite. Prints the ms per view of the render
    and of integrate, the ms of extract_mesh (marching tetrahedra), the
    counts, the share of edges two faces share, and the peak memory.
+11. appearance: (a) from phase 5's perturbed scene at capacity 1M with 64
+   appearance features a Gaussian (N(0, 0.02), seeded), warm-up 0, 1024
+   appearance ids, the three views given ids 0-2: 10 steps each of
+   AppearanceTrainer (embedding 32, 3 layers of 64), with the SWAG opacity
+   head, VisibilityMapAppearanceTrainer with dense grids and with the
+   hash grid (4 levels from 16, transient embedding 16, tables of 2^19),
+   Trainer with the bilateral-grid and the exposure processors (1024
+   images) and GradAccTrainer with k = 5 (it must apply on steps 5 and 10
+   only). Each step must launch K1-K4 once and nothing else; losses and
+   parameters finite; each network must have taken 10 updates and moved,
+   and a processor must have moved the three trained images' parameters
+   and no other's. Once, before the SWAG steps, K1-K4 are held against
+   their plain versions at the bench pose on the SWAG path's inputs (the
+   network's colours, opacities raised by its offset) as phase 10 holds
+   them. Prints ms per step beside phase 5's plain step, the loss at the
+   first and last step and the peak memory. (b) On phase 8's scene through
+   the CLI, each warm-up set to 100 in Python (no config key reaches it):
+   colmap.yaml + appearance_embedding.yaml over the PhotoTourism split of
+   a written scene.tsv (views 0, 8 and 16 to test, 21 to train) for 200
+   steps, whose checkpoint must bring back the network, its Adam and the
+   feature rows bit for bit and whose embedding rows of the test views
+   must stay untrained, resumed to 300 (must continue at 201, with 201
+   network updates at the end); appearance_visibility_map_hash.yaml for
+   150 steps at capacity 524,288 = 2^19, where every densify must leave
+   the hash tables and both networks' Adam states as they were; swag.yaml,
+   bilagrid.yaml, exposure.yaml and grad_acc.yaml for 150 steps each
+   (each above the initial cloud's val PSNR; a processor's parameters for
+   the 24 train images). Each launches K1-K4 and nothing else. Prints what
+   phase 9 (b) prints, beside phase 8's colmap.yaml of the same run.
 
 Bounds in the kernels line: the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM f32 without tensor cores). K1 moves 52
@@ -287,6 +316,7 @@ from gsl_tpu_torch.ops.transforms import normalize_quat, quat_to_rotmat
 from gsl_tpu_torch.models.gaussian import (PARAM_FIELDS, GaussianParams,
                                            GaussianState,
                                            VanillaGaussianConfig)
+from gsl_tpu_torch.models.appearance import AppearanceFeatureGaussianConfig
 from gsl_tpu_torch.models.gaussian_2d import Gaussian2DConfig
 from gsl_tpu_torch.models.mip_splatting import (MipSplattingConfig,
                                                 compute_3d_filter)
@@ -295,6 +325,8 @@ from gsl_tpu_torch.renderers.mip_splatting_renderer import \
 from gsl_tpu_torch.renderers.surfel_renderer import SurfelRendererConfig
 from gsl_tpu_torch.renderers.tile_renderer import TileRendererConfig
 from gsl_tpu_torch.tools import get_depth_scales, gs2d_mesh_extraction
+from gsl_tpu_torch.training.appearance_trainer import (
+    AppearanceOptimizationConfig, AppearanceTrainer)
 from gsl_tpu_torch.training.density import VanillaDensityControllerConfig
 from gsl_tpu_torch.training.depth_trainer import (DepthMetricsConfig,
                                                   DepthTrainer)
@@ -306,7 +338,14 @@ from gsl_tpu_torch.training.hooks import FitContext, MCMCDensityHook
 from gsl_tpu_torch.training.mcmc import (MCMCDensityControllerConfig,
                                          dead_mask, grow_target)
 from gsl_tpu_torch.training.metrics import MCMCMetricsConfig, train_loss
+from gsl_tpu_torch.training.opt_strategies import (GradAccConfig,
+                                                   GradAccTrainer)
+from gsl_tpu_torch.training.output_processors import (BilateralGridConfig,
+                                                      ExposureConfig)
 from gsl_tpu_torch.training.trainer import Trainer, TrainerConfig
+from gsl_tpu_torch.training.visibility_map_trainer import \
+    VisibilityMapAppearanceTrainer
+from gsl_tpu_torch.utils.checkpoint import load_checkpoint
 from gsl_tpu_torch.utils.convert import state_from_raw_arrays
 from gsl_tpu_torch.utils.gaussian_model_loader import GaussianModelLoader
 from gsl_tpu_torch.utils.ply import save_gaussian_ply
@@ -2026,6 +2065,11 @@ def phase_fit(arrays, tmp):
                              LOG_INTERVAL)
             if s not in (LOG_INTERVAL, FIT_STEPS + LOG_INTERVAL)]
     log_fit("fit colmap.yaml", [first, second], warm)
+    ms = {int(r[0]): 1e3 / float(r[3]) for r in second["rows"]}
+    colmap_fit = {"psnr0": psnr0, "psnr": first["results"]["psnr"],
+                  "ms": float(np.median([ms[s] for s in warm])),
+                  "loader_share": first["timing"]["loader_wait_s"]
+                  / first["timing"]["wall_s"]}
 
     for preset, kernels in (("gs2d.yaml", SURFEL_KERNELS),
                             ("stp.yaml", STP_KERNELS)):
@@ -2036,6 +2080,7 @@ def phase_fit(arrays, tmp):
         log(f"fit {preset}: val PSNR {f['results']['psnr']:.3f} dB at "
             f"step {VARIANT_STEPS}")
         log_fit(f"fit {preset}", [f])
+    return colmap_fit
 
 
 VARIANT_TRAIN_STEPS, FILTER_AT = 10, 5       # phase 9 (a): steps, recompute
@@ -2368,62 +2413,72 @@ def geometry_channels(state, renderer, cam, proj, C):
     return op.contiguous(), torch.cat([rgb, d, normals], 1).contiguous()
 
 
+def hold_raster_kernels(vname, proj, opac, ch, n, seed):
+    """K1-K4 at the bench pose on the opacities `opac` and channels `ch`
+    of a projection, held against their plain versions as phase 3 holds
+    them (K1 bit for bit, K2's stops and values at its shares, K3's
+    columns, K4's sums), K2 twice and built without contraction. Returns
+    the (K2, K3) ms of a CUDA graph replay."""
+    tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
+    C = ch.shape[1]
+    tag = f"{vname} C={C}"
+    m2d, con = proj.means2d.contiguous(), proj.conics.contiguous()
+    depths = proj.depths.contiguous()
+    isects = R.isect_encode(proj, H, W, TILE)
+    args = (isects, m2d, con, opac, depths, tiles_x, tiles_y, TILE, True)
+    keys, gids = R.expand(*args)
+    keys_p, gids_p = R.expand_plain(*args)
+    if not (torch.equal(keys, keys_p) and torch.equal(gids, gids_p)):
+        fail(f"K1 {tag}: kernel differs from expand_plain")
+    sk, gs, order = R.sort_slots(keys, gids)
+    n_valid = int((sk != R.INVALID_KEY).sum())
+    bounds = R.tile_bounds(sk, tiles_x * tiles_y)
+    gids = gs[:n_valid].contiguous()
+    fwd = (m2d, con, opac, ch, gids, bounds, H, W, TILE)
+    got = R.rasterize_fwd(*fwd)
+    want = R.rasterize_fwd_plain(*fwd)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, R.rasterize_fwd(
+            *fwd))):
+        fail(f"K2 {tag}: two runs gave different outputs")
+    err, share = compare_raster(f"K2 {tag}", got, want)
+    loose = R.rasterize_fwd(*fwd, contract=False)
+    ustop = float((loose[2] == want[2]).float().mean())
+    if ustop < UNCONTRACTED_SHARE:
+        fail(f"K2 {tag} built without contraction: i_stop agrees on "
+             f"{ustop:.6f} of pixels < {UNCONTRACTED_SHARE}")
+    off_share(f"K2 {tag} image, built without contraction", loose[0],
+              want[0], 1.0 - UNCONTRACTED_SHARE)
+    off_share(f"K2 {tag} alpha, built without contraction",
+              1 - loose[1], 1 - want[1], 1.0 - UNCONTRACTED_SHARE)
+    log(f"K2 bench {tag}: i_stop agrees on {share:.6f}, max abs err "
+        f"{err:.3e}; identical in two runs; built without contraction "
+        f"i_stop agrees on {ustop:.7f}; {n_valid} valid slots")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bwd = (m2d, con, opac, ch, gids, bounds,
+           torch.randn((H, W, C), generator=gen, device="cuda"),
+           torch.randn((H, W), generator=gen, device="cuda"), got[1],
+           got[2], TILE)
+    check_backward(vname, C, bwd, isects, order, n, False)
+    return (graph_ms(lambda: R.rasterize_fwd(*fwd), 20),
+            graph_ms(lambda: R.rasterize_bwd(*bwd), 20))
+
+
 def phase_geometry_kernels(state, renderer):
     """Phase 10 (a): K1-K4 against their plain versions at the bench pose
     at the widths the geometry losses train at, held as phase 3 holds them
     at C = 3. Returns {C: (K2 ms, K3 ms)}."""
     log("== phase 10 (a): K1-K4 against their plain versions at C = 1, 4 "
         f"and 7, full width; times on {CARD}")
-    tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
-    n = state.capacity
     cam = camera(np.eye(4))
     proj = project_gaussians(
         state.get_means(), state.get_scales(), state.get_rotations(),
         cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, W, H)
-    m2d, con = proj.means2d.contiguous(), proj.conics.contiguous()
-    depths = proj.depths.contiguous()
     times = {}
     for C in GEOMETRY_WIDTHS:
         opac, ch = geometry_channels(state, renderer, cam, proj, C)
-        isects = R.isect_encode(proj, H, W, TILE)
-        args = (isects, m2d, con, opac, depths, tiles_x, tiles_y, TILE, True)
-        keys, gids = R.expand(*args)
-        keys_p, gids_p = R.expand_plain(*args)
-        if not (torch.equal(keys, keys_p) and torch.equal(gids, gids_p)):
-            fail(f"K1 C={C}: kernel differs from expand_plain")
-        sk, gs, order = R.sort_slots(keys, gids)
-        n_valid = int((sk != R.INVALID_KEY).sum())
-        bounds = R.tile_bounds(sk, tiles_x * tiles_y)
-        gids = gs[:n_valid].contiguous()
-        fwd = (m2d, con, opac, ch, gids, bounds, H, W, TILE)
-        got = R.rasterize_fwd(*fwd)
-        want = R.rasterize_fwd_plain(*fwd)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, R.rasterize_fwd(
-                *fwd))):
-            fail(f"K2 C={C}: two runs gave different outputs")
-        err, share = compare_raster(f"K2 bench C={C}", got, want)
-        loose = R.rasterize_fwd(*fwd, contract=False)
-        ustop = float((loose[2] == want[2]).float().mean())
-        if ustop < UNCONTRACTED_SHARE:
-            fail(f"K2 C={C} built without contraction: i_stop agrees on "
-                 f"{ustop:.6f} of pixels < {UNCONTRACTED_SHARE}")
-        off_share(f"K2 C={C} image, built without contraction", loose[0],
-                  want[0], 1.0 - UNCONTRACTED_SHARE)
-        off_share(f"K2 C={C} alpha, built without contraction",
-                  1 - loose[1], 1 - want[1], 1.0 - UNCONTRACTED_SHARE)
-        log(f"K2 bench C={C}: i_stop agrees on {share:.6f}, max abs err "
-            f"{err:.3e}; identical in two runs; built without contraction "
-            f"i_stop agrees on {ustop:.7f}; {n_valid} valid slots")
-        gen = torch.Generator(device="cuda").manual_seed(10 + C)
-        bwd = (m2d, con, opac, ch, gids, bounds,
-               torch.randn((H, W, C), generator=gen, device="cuda"),
-               torch.randn((H, W), generator=gen, device="cuda"), got[1],
-               got[2], TILE)
-        check_backward("bench", C, bwd, isects, order, n, False)
-        times[C] = (graph_ms(lambda: R.rasterize_fwd(*fwd), 20),
-                    graph_ms(lambda: R.rasterize_bwd(*bwd), 20))
-        del keys, gids, keys_p, gids_p, sk, gs, order, got, want, loose
+        times[C] = hold_raster_kernels("bench", proj, opac, ch,
+                                       state.capacity, 10 + C)
     log("K2 and K3 ms at the bench pose (CUDA graph, mean of 20 replays) "
         + json.dumps({f"C={C}": {"K2": round(f, 4), "K3": round(b, 4)}
                       for C, (f, b) in times.items()}))
@@ -2706,6 +2761,354 @@ def phase_mesh(tmp):
         f"{peak:.3f} GiB; launches {launches}")
 
 
+# ---- phase 11: appearance ---------------------------------------------------
+
+APPEARANCE_STEPS = 10
+APPEARANCE_IMAGES = 1024     # gsl_tpu's visibility network's image count
+GRAD_ACC_K = 5
+APPEARANCE_WARM_UP = 100     # set in Python: no config key reaches it
+APPEARANCE_FIT_STEPS, APPEARANCE_RESUME_STEPS = 200, 300
+SLICE_FIT_STEPS = 150
+TEST_VIEWS = (0, 8, 16)      # colmap.yaml's own val views (eval_step 8)
+
+
+def appearance_state(arrays):
+    """Phase 5's perturbed scene at capacity 1M with the appearance
+    model's 64 features a Gaussian, N(0, 0.02) from a seeded generator on
+    the card (its "normal" init)."""
+    g = state_from_raw_arrays(perturbed(arrays), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    feats = 0.02 * torch.randn((g.capacity, 64), generator=gen,
+                               device="cuda")
+    return dataclasses.replace(g, params=dataclasses.replace(
+        g.params, appearance_features=feats))
+
+
+def appearance_inputs(trainer, state, cam):
+    """The SWAG path's inputs to the rasterizer at `cam`, as
+    TileRenderer.forward makes them: the network's colours, and the
+    opacities min(sigmoid(op) + offset, 1) times the compensations."""
+    gs = state.gaussians
+    rgbs, offset = trainer._rgbs(gs, cam, SH_DEGREE,
+                                 state.extra["__net__"]["params"], False)
+    proj = project_gaussians(
+        gs.get_means(), gs.get_scales(), gs.get_rotations(),
+        cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, W, H)
+    op = gs.get_opacities() + offset * gs.alive
+    op = torch.minimum(op, op.new_ones(())) * proj.compensations
+    return proj, op.contiguous(), rgbs.contiguous()
+
+
+def phase_appearance_training(arrays, plain_step_ms):
+    """Phase 11 (a): the appearance slice's steps at full width."""
+    log("== phase 11 (a): appearance, SWAG, visibility maps (dense, hash), "
+        "bilateral grids, exposure and gradient accumulation at 1088x1920, "
+        f"capacity 1M; times on {CARD}")
+    bg = torch.zeros(3, device="cuda")
+    cams = [dataclasses.replace(camera(c2w), appearance_id=torch.tensor(
+        i, dtype=torch.int32, device="cuda"))
+        for i, c2w in enumerate(views().values())]
+    truth = state_from_raw_arrays(arrays, device="cuda")
+    renderer = TileRendererConfig().instantiate()
+    with torch.no_grad():
+        targets = [renderer.forward(truth, c, H, W, bg, SH_DEGREE).render
+                   for c in cams]
+    del truth
+    appearance = AppearanceFeatureGaussianConfig(sh_degree=SH_DEGREE)
+    plain = VanillaGaussianConfig(sh_degree=SH_DEGREE)
+
+    def with_network(cls, **kw):
+        return lambda: cls(model=appearance, n_appearances=APPEARANCE_IMAGES,
+                           appearance_opt=AppearanceOptimizationConfig(
+                               warm_up=0), **kw)
+
+    runs = {
+        "appearance": with_network(AppearanceTrainer),
+        "SWAG opacity head": with_network(AppearanceTrainer,
+                                          with_opacity=True),
+        "visibility dense": with_network(VisibilityMapAppearanceTrainer,
+                                         n_images=APPEARANCE_IMAGES),
+        "visibility hash": with_network(VisibilityMapAppearanceTrainer,
+                                        n_images=APPEARANCE_IMAGES,
+                                        grid_type="hash"),
+        "bilagrid": lambda: Trainer(model=plain,
+                                    output_processor=BilateralGridConfig()),
+        "exposure": lambda: Trainer(model=plain,
+                                    output_processor=ExposureConfig()),
+        f"grad_acc k={GRAD_ACC_K}": lambda: GradAccTrainer(
+            model=plain, grad_acc=GradAccConfig(stages=((0, GRAD_ACC_K),))),
+    }
+    for what, build in runs.items():
+        trainer = build()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with_net = isinstance(trainer, AppearanceTrainer)
+        state = trainer.setup(
+            appearance_state(arrays) if with_net else state_from_raw_arrays(
+                perturbed(arrays), device="cuda"),
+            cameras_extent=TRAIN_EXTENT)
+        if trainer.output_processor is not None:
+            state = trainer.init_output_processor(state, APPEARANCE_IMAGES)
+        if what == "SWAG opacity head":
+            with torch.no_grad():
+                k2, k3 = hold_raster_kernels(
+                    "appearance", *appearance_inputs(trainer, state,
+                                                     cams[0]),
+                    state.params.capacity, 31)
+            log(f"K2 and K3 ms on the SWAG path's inputs at the bench pose "
+                f"(CUDA graph, mean of 20 replays): K2 {k2:.4f}, K3 "
+                f"{k3:.4f}")
+        first = state
+        buffer = (trainer.init_grad_buffer(state)
+                  if isinstance(trainer, GradAccTrainer) else None)
+        losses, step_ms, applied = [], [], []
+        for step in range(1, APPEARANCE_STEPS + 1):
+            view = step % len(cams)
+            args = (cams[view], targets[view], H, W, SH_DEGREE, bg)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            prev = state
+            if with_net:
+                state, sc = trainer.train_step_appearance(state, *args,
+                                                          warm_up=False)
+            elif buffer is not None:
+                state, buffer, sc = trainer.train_step_accumulate(
+                    state, buffer, *args, apply=step % GRAD_ACC_K == 0,
+                    inv_k=1.0 / GRAD_ACC_K)
+                applied.append(state.params is not prev.params)
+            else:
+                state, sc = trainer.train_step(state, *args,
+                                               image_idx=view)
+            losses.append(float(sc["loss"]))       # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check_step_launches(what, step)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"{what}: non-finite loss in {losses}")
+        for k in state.params.fields():
+            if not bool(torch.isfinite(getattr(state.params, k)).all()):
+                fail(f"{what}: non-finite {k}")
+        said = ""
+        for name in ("__net__", "__vis__"):
+            if name in (state.extra or {}):
+                net = state.extra[name]
+                moved = max(float((net["params"][k] - first.extra[name][
+                    "params"][k]).abs().max()) for k in net["params"])
+                if net["opt"]["count"] != APPEARANCE_STEPS or not (
+                        moved > 0.0 and all(
+                            bool(torch.isfinite(v).all())
+                            for v in net["params"].values())):
+                    fail(f"{what}: {name} took {net['opt']['count']} "
+                         f"updates, moved by up to {moved}")
+                said += f"; {name} moved by up to {moved:.3g}"
+        if trainer.output_processor is not None:
+            d = (state.extra["__outproc__"] - first.extra["__outproc__"]
+                 ).abs().flatten(1).max(1).values
+            if not (bool((d[:len(cams)] > 0).all())
+                    and float(d[len(cams):].max()) == 0.0):
+                fail(f"{what}: the processor moved images "
+                     f"{torch.nonzero(d).flatten().tolist()}, not the "
+                     f"{len(cams)} trained")
+            said += (f"; the {len(cams)} trained images' parameters moved "
+                     f"by up to {float(d.max()):.3g}, the other "
+                     f"{APPEARANCE_IMAGES - len(cams)} not at all")
+        if buffer is not None:
+            want = [s % GRAD_ACC_K == 0
+                    for s in range(1, APPEARANCE_STEPS + 1)]
+            if applied != want or state.opt_state.count != \
+                    APPEARANCE_STEPS // GRAD_ACC_K:
+                fail(f"{what}: applied at {applied}, Adam count "
+                     f"{state.opt_state.count}")
+            said += (f"; applied on steps "
+                     f"{[i + 1 for i, a in enumerate(applied) if a]}")
+        log(f"{what}: ms per step (host clock, synchronised) "
+            f"{[round(x, 2) for x in step_ms]}, median "
+            f"{float(np.median(step_ms[1:])):.2f} over steps 2-"
+            f"{APPEARANCE_STEPS} (phase 5's plain step in this run "
+            f"{plain_step_ms:.2f}); loss at step 1 {losses[0]:.6g}, at step "
+            f"{APPEARANCE_STEPS} {losses[-1]:.6g}; peak {peak:.3f} GiB; "
+            f"K1-K4 launched once a step, nothing else{said}")
+        del trainer, state, first, prev, buffer
+        torch.cuda.empty_cache()
+
+
+def write_phototourism_tsv(data):
+    """<scene>/scene.tsv: phase 8's 24 views, TEST_VIEWS to test and the
+    other 21 to train. Returns its path."""
+    path = os.path.join(data, "scene.tsv")
+    with open(path, "w") as f:
+        f.write("filename\tid\tsplit\tdataset\n")
+        for i in range(FIT_VIEWS):
+            split = "test" if i in TEST_VIEWS else "train"
+            f.write(f"view_{i:03d}.png\t{i}\t{split}\tscene\n")
+    return path
+
+
+def phase_appearance_fits(tmp, colmap_fit):
+    """Phase 11 (b): the seven appearance-slice presets through the CLI on
+    phase 8's scene."""
+    log("== phase 11 (b): appearance_embedding.yaml (PhotoTourism split, "
+        "resumed), appearance_visibility_map_hash.yaml, swag.yaml, "
+        "bilagrid.yaml, exposure.yaml and grad_acc.yaml through "
+        f"gsl_tpu_torch.cli on phase 8's scene; times on {CARD}")
+    data, runs = os.path.join(tmp, "scene"), os.path.join(tmp, "runs")
+    tsv = write_phototourism_tsv(data)
+    colmap = os.path.join(PRESETS, "colmap.yaml")
+    windows = (f"fit.log_interval={VARIANT_LOG_INTERVAL}",
+               "model.density.init_args.densify_from_iter=50",
+               "model.density.init_args.densification_interval=50")
+    build = cli.build_components
+
+    def with_warm_up(cfg):
+        trainer, dp_cfg, fit_cfg = build(cfg)
+        if isinstance(trainer, AppearanceTrainer):
+            trainer.appearance_opt = dataclasses.replace(
+                trainer.appearance_opt, warm_up=APPEARANCE_WARM_UP)
+        return trainer, dp_cfg, fit_cfg
+
+    def argv(name, preset, steps, extra=()):
+        return ["fit", "--config", colmap, "--config",
+                os.path.join(PRESETS, preset), "--data.path", data,
+                "--output", runs, "-n", name, "--max_steps", str(steps),
+                *windows, *extra]
+
+    densify_checks = []
+    density_step = Trainer.density_step
+
+    def held(self, state, *args, **kw):
+        # every densify must leave both networks and their Adam states as
+        # they were, at a capacity equal to the hash tables' rows
+        new, n_trunc = density_step(self, state, *args, **kw)
+        for name in ("__net__", "__vis__"):
+            if not all(torch.equal(a, b) for a, b in zip(
+                    tensors_of(state.extra[name]),
+                    tensors_of(new.extra[name]))):
+                fail(f"a densify at capacity {state.params.capacity} "
+                     f"changed {name}")
+        densify_checks.append((state.params.capacity, int(
+            state.alive.sum()), int(new.alive.sum())))
+        return new, n_trunc
+
+    cli.build_components = with_warm_up
+    try:
+        # appearance_embedding.yaml over the PhotoTourism split, resumed
+        pt = ("data.parser.class_path=PhotoTourism",)
+        first = run_cli(argv("appearance", "appearance_embedding.yaml",
+                             APPEARANCE_FIT_STEPS, pt), GAUSSIAN_KERNELS)
+        state = first.pop("state")
+        emb = state.extra["__net__"]["params"]["embedding.weight"]
+        moments = state.extra["__net__"]["opt"]["exp_avg"][
+            "embedding.weight"].abs().sum(1)
+        trained = [i for i in range(FIT_VIEWS) if i not in TEST_VIEWS]
+        if emb.shape[0] != FIT_VIEWS or float(moments[list(
+                TEST_VIEWS)].max()) != 0.0 or not bool(
+                (moments[trained] > 0).all()):
+            fail(f"PhotoTourism: embedding of {emb.shape[0]} rows, moments "
+                 f"{moments.tolist()}: the test views' ids must stay "
+                 "untrained, the train views' move")
+        ckpt = os.path.join(runs, "appearance", "checkpoints",
+                            f"step_{APPEARANCE_FIT_STEPS}")
+        back = load_checkpoint(ckpt, state)
+        if not (all(torch.equal(a, b) for a, b in zip(
+                tensors_of(back.extra), tensors_of(state.extra)))
+                and torch.equal(back.params.appearance_features,
+                                state.params.appearance_features)
+                and torch.equal(
+                    back.opt_state.exp_avg["appearance_features"],
+                    state.opt_state.exp_avg["appearance_features"])):
+            fail("the appearance checkpoint did not bring back the "
+                 "network, its Adam and the feature rows")
+        del state, back
+        second = run_cli(argv("appearance", "appearance_embedding.yaml",
+                              APPEARANCE_RESUME_STEPS, pt),
+                         GAUSSIAN_KERNELS)
+        count = second.pop("state").extra["__net__"]["opt"]["count"]
+        want = APPEARANCE_RESUME_STEPS - APPEARANCE_WARM_UP + 1
+        if f"-> continuing at {APPEARANCE_FIT_STEPS + 1}" not in \
+                second["said"] or count != want:
+            fail(f"the appearance resume: network count {count}, not "
+                 f"{want}")
+        log(f"fit appearance_embedding.yaml (PhotoTourism, {FIT_VIEWS - 3} "
+            f"train and 3 test views, warm-up {APPEARANCE_WARM_UP}): val "
+            f"PSNR at step {APPEARANCE_FIT_STEPS} "
+            f"{first['results']['psnr']:.4f}, at step "
+            f"{APPEARANCE_RESUME_STEPS} {second['results']['psnr']:.4f} "
+            f"dB; the checkpoint at {APPEARANCE_FIT_STEPS} brought back "
+            f"the network, its Adam and the feature rows bit for bit, the "
+            f"resume continued at {APPEARANCE_FIT_STEPS + 1} with "
+            f"{count} network updates at the end; the embedding rows of "
+            f"the test views {list(TEST_VIEWS)} untrained")
+        log_fit("fit appearance_embedding.yaml", [first, second],
+                [int(r[0]) for r in second["rows"][1:]
+                 if int(r[0]) != APPEARANCE_FIT_STEPS
+                 + VARIANT_LOG_INTERVAL])
+
+        Trainer.density_step = held
+        try:
+            f = run_cli(argv("visibility_hash",
+                             "appearance_visibility_map_hash.yaml",
+                             SLICE_FIT_STEPS), GAUSSIAN_KERNELS)
+        finally:
+            Trainer.density_step = density_step
+        tables = [v.shape[0] for k, v in f.pop("state").extra["__vis__"][
+            "params"].items() if k.startswith("encoding.table_")]
+        if not densify_checks or any(
+                cap != 1 << 19 for cap, _, _ in densify_checks) \
+                or tables != [17 ** 3] + [1 << 19] * 3:
+            fail(f"visibility hash: densifies {densify_checks}, tables "
+                 f"{tables}: not at a capacity equal to the table rows")
+        log(f"fit appearance_visibility_map_hash.yaml: val PSNR "
+            f"{f['results']['psnr']:.4f} dB at step {SLICE_FIT_STEPS}; "
+            f"{len(densify_checks)} densifies at capacity "
+            f"{densify_checks[0][0]} (alive before -> after "
+            f"{[(a, b) for _, a, b in densify_checks]}) left the hash "
+            f"tables ({tables} rows) and both networks' Adam states as "
+            "they were")
+        log_fit("fit appearance_visibility_map_hash.yaml", [f],
+                [int(r[0]) for r in f["rows"]][1:])
+        for preset in ("swag.yaml", "bilagrid.yaml", "exposure.yaml",
+                       "grad_acc.yaml"):
+            f = run_cli(argv(preset.split(".")[0], preset, SLICE_FIT_STEPS),
+                        GAUSSIAN_KERNELS)
+            state = f.pop("state")
+            psnr = f["results"]["psnr"]
+            if not psnr > colmap_fit["psnr0"]:
+                fail(f"fit {preset}: val PSNR {psnr:.3f} dB is not above "
+                     f"the initial cloud's {colmap_fit['psnr0']:.3f}")
+            said = ""
+            if preset in ("bilagrid.yaml", "exposure.yaml"):
+                ops = state.extra["__outproc__"]
+                if ops.shape[0] != FIT_VIEWS or \
+                        state.extra["__outproc_opt__"]["count"] != \
+                        SLICE_FIT_STEPS:
+                    fail(f"fit {preset}: {ops.shape[0]} images' parameters, "
+                         f"{state.extra['__outproc_opt__']['count']} steps")
+                said = f"; the processor's parameters for {FIT_VIEWS} images"
+            del state
+            log(f"fit {preset}: val PSNR {psnr:.4f} dB at step "
+                f"{SLICE_FIT_STEPS}{said}")
+            log_fit(f"fit {preset}", [f], [int(r[0]) for r in f["rows"]][1:])
+            torch.cuda.empty_cache()
+    finally:
+        cli.build_components = build
+        Trainer.density_step = density_step
+        os.remove(tsv)
+    log(f"phase 8's colmap.yaml in this run, for comparison: "
+        f"{colmap_fit['ms']:.2f} ms a step (median of its windows after "
+        f"each run's first), {100 * colmap_fit['loader_share']:.2f}% of "
+        f"its first 300-step loop waiting on the loader, val PSNR of the "
+        f"initial cloud {colmap_fit['psnr0']:.4f} dB, at step {FIT_STEPS} "
+        f"{colmap_fit['psnr']:.4f}")
+
+
+def tensors_of(x):
+    """The tensors and numbers of nested dicts, in key order."""
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in tensors_of(x[k])]
+    return [x] if isinstance(x, torch.Tensor) else [torch.tensor(x)]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2785,7 +3188,7 @@ def main():
                      "reduce_grads": trec["reduce_ms"]}, stp=True)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        phase_fit(arrays, tmp)
+        colmap_fit = phase_fit(arrays, tmp)
         torch.cuda.empty_cache()
         phase_mip(arrays)
         torch.cuda.empty_cache()
@@ -2804,6 +3207,11 @@ def main():
         phase_depth_fits(arrays, tmp)
         torch.cuda.empty_cache()
         phase_mesh(tmp)
+        torch.cuda.empty_cache()
+        phase_appearance_training(
+            arrays, float(np.median(training["step_ms"][5:TRAIN_STEPS])))
+        torch.cuda.empty_cache()
+        phase_appearance_fits(tmp, colmap_fit)
     # StopThePop beside plain 3DGS, phases 7 and 4/5 of this run
     log("StopThePop over plain 3DGS, this run: bench-pose rgb frame ms "
         f"{[round(x, 2) for x in stp_serving['rgb_frame_ms']]} vs "

@@ -11,7 +11,12 @@ The same YAML files drive both packages. Fields that exist only for the
 TPU (`TPU_ONLY_FIELDS`) are accepted and ignored with one printed line.
 Components, fields and keys of variants the port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP item; any other unknown field
-raises ``KeyError``.
+raises ``KeyError``. Two variants that gsl_tpu's CLI combines but whose
+step applies only one (an appearance model with an output processor,
+gradient accumulation, a depth or 2DGS metric or plugins; gradient
+accumulation with an output processor) raise ``ValueError`` naming both.
+Without ``model.n_appearances`` the appearance embedding is sized from the
+data at fit time.
 """
 from __future__ import annotations
 
@@ -27,20 +32,28 @@ from .data.dataparsers.blender import BlenderDataParserConfig
 from .data.dataparsers.colmap import ColmapDataParserConfig
 from .data.dataparsers.estimated_depth_colmap import \
     EstimatedDepthColmapDataParserConfig
+from .data.dataparsers.phototourism import PhotoTourismDataParserConfig
+from .models.appearance import AppearanceFeatureGaussianConfig
 from .models.gaussian import VanillaGaussianConfig
 from .models.gaussian_2d import Gaussian2DConfig
 from .models.mip_splatting import MipSplattingConfig
 from .renderers.mip_splatting_renderer import MipSplattingRendererConfig
 from .renderers.surfel_renderer import SurfelRendererConfig
 from .renderers.tile_renderer import TileRendererConfig
+from .training.appearance_trainer import AppearanceTrainer
 from .training.density import VanillaDensityControllerConfig
 from .training.depth_trainer import DepthMetricsConfig, DepthTrainer
-from .training.fit import FitConfig, _round_capacity, fit, validate
+from .training.fit import (FitConfig, _round_capacity, fit, setup_state,
+                           validate)
 from .training.gs2d import GS2DMetricsConfig, GS2DTrainer
 from .training.mcmc import MCMCDensityControllerConfig
 from .training.metrics import MCMCMetricsConfig, VanillaMetricsConfig
+from .training.opt_strategies import GradAccConfig, GradAccTrainer
+from .training.output_processors import BilateralGridConfig, ExposureConfig
 from .training.plugins import PLUGIN_REGISTRY
+from .training.similarity_reg import SimilarityRegConfig
 from .training.trainer import Trainer, TrainerConfig
+from .training.visibility_map_trainer import VisibilityMapAppearanceTrainer
 from .utils.checkpoint import find_latest_checkpoint, load_checkpoint
 from .utils.device import resolve_device
 
@@ -48,6 +61,7 @@ _REGISTRY = {
     "VanillaGaussian": VanillaGaussianConfig,
     "MipSplatting": MipSplattingConfig,
     "Gaussian2D": Gaussian2DConfig,
+    "AppearanceFeatureGaussian": AppearanceFeatureGaussianConfig,
     "TileRenderer": TileRendererConfig,
     "MipSplattingRenderer": MipSplattingRendererConfig,
     "SurfelRenderer": SurfelRendererConfig,
@@ -59,15 +73,18 @@ _REGISTRY = {
     "DepthMetrics": DepthMetricsConfig,
     "Colmap": ColmapDataParserConfig,
     "EstimatedDepthColmap": EstimatedDepthColmapDataParserConfig,
+    "PhotoTourism": PhotoTourismDataParserConfig,
     "Blender": BlenderDataParserConfig,
 }
+
+# output_processor shorthands
+_PROCESSORS = {"bilagrid": BilateralGridConfig, "exposure": ExposureConfig}
 
 # components of gsl_tpu's registry (or class paths into gsl_tpu, which the
 # port never imports) that the port has not yet -> ROADMAP item
 _UNPORTED_COMPONENTS = {
-    "NSVF": 12, "PhotoTourism": 12, "MatrixCity": 12, "Nerfies": 12,
-    "SegAnyColmap": 12, "NGP": 12, "AppearanceFeatureGaussian": 12,
-    "SpotLessColmap": 12, "SpotLessMetrics": 12,
+    "NSVF": 12, "MatrixCity": 12, "Nerfies": 12,
+    "SegAnyColmap": 12, "NGP": 12, "SpotLessColmap": 12, "SpotLessMetrics": 12,
     "StaticDensityController": 12, "RevisingDensityController": 12,
     "NoCullingBigScaleDC": 12, "H3DGSDensityController": 12,
     "AccurateVisibilityFilterDensityController": 12,
@@ -89,10 +106,7 @@ _UNPORTED_FIT_FIELDS = {"viewer": 14, "viewer_port": 14,
                         "lg_prune_decay": 12, "lg_n_cameras": 12}
 
 # top-level / model keys gsl_tpu's build_components reads for variants
-_UNPORTED_KEYS = {"distributed": 13, "opt_strategy": 12,
-                  "output_processor": 12, "glossy": 12, "deform": 12,
-                  "swag": 12, "similarity_reg": 12,
-                  "visibility_map": 12, "n_appearances": 12}
+_UNPORTED_KEYS = {"distributed": 13, "glossy": 12, "deform": 12}
 
 
 def _not_ported(what: str, item: int):
@@ -195,17 +209,64 @@ def build_components(cfg: Dict):
     trainer_cfg = _build(TrainerConfig, cfg.get("trainer"))
     fit_cfg = _build(FitConfig, cfg.get("fit"))
 
-    # variant trainers selected by the metrics' type
-    trainer_cls = Trainer
+    # variant trainers selected by the metrics' type, the opt strategy and
+    # the model, as gsl_tpu selects them; where gsl_tpu would drop one of
+    # two variants silently, the port raises naming both
+    trainer_cls, kwargs = Trainer, {}
     if isinstance(metrics, GS2DMetricsConfig):
         trainer_cls = GS2DTrainer
     elif isinstance(metrics, DepthMetricsConfig):
         trainer_cls = DepthTrainer
+    grad_acc = (model_spec.get("opt_strategy")
+                or cfg.get("opt_strategy")) == "grad_acc"
+    if grad_acc:
+        trainer_cls = GradAccTrainer
+        kwargs["grad_acc"] = GradAccConfig()
+    plugins = build_plugins(cfg.get("plugins") or model_spec.get("plugins")
+                            or [])
+    op_spec = model_spec.get("output_processor") or cfg.get(
+        "output_processor")
+    if isinstance(model, AppearanceFeatureGaussianConfig):
+        # (an output processor: the trainer raises, naming both)
+        dropped = [what for what, present in (
+            ("opt_strategy grad_acc", grad_acc),
+            (f"metrics {type(metrics).__name__}",
+             isinstance(metrics, (GS2DMetricsConfig, DepthMetricsConfig))),
+            ("plugins", bool(plugins))) if present]
+        if dropped:
+            raise ValueError(
+                f"appearance (AppearanceFeatureGaussian) with "
+                f"{dropped[0]}: gsl_tpu's appearance step would drop it "
+                "silently")
+        trainer_cls = AppearanceTrainer
+        kwargs["n_appearances"] = int(model_spec.get("n_appearances",
+                                                     0)) or None
+        if model_spec.get("swag") or cfg.get("swag"):
+            kwargs["with_opacity"] = True      # the SWAG opacity head
+        sim_spec = model_spec.get("similarity_reg")
+        if sim_spec:
+            kwargs["similarity_reg"] = _build(
+                SimilarityRegConfig,
+                sim_spec if isinstance(sim_spec, dict) else {})
+        vis_spec = model_spec.get("visibility_map") or cfg.get(
+            "visibility_map")
+        if vis_spec:
+            trainer_cls = VisibilityMapAppearanceTrainer
+            if isinstance(vis_spec, dict) and "grid_type" in vis_spec:
+                kwargs["grid_type"] = vis_spec["grid_type"]
+    if op_spec:
+        if isinstance(op_spec, str):
+            op_spec = {"class_path": op_spec}
+        name = op_spec.get("class_path", "bilagrid")
+        if name in _PROCESSORS:
+            kwargs["output_processor"] = _build(
+                _PROCESSORS[name], op_spec.get("init_args", {}))
+        else:
+            kwargs["output_processor"] = _build(BilateralGridConfig,
+                                                op_spec)
     trainer = trainer_cls(model=model, renderer=renderer, density=density,
                           metrics=metrics, config=trainer_cfg,
-                          plugins=build_plugins(
-                              cfg.get("plugins") or model_spec.get("plugins")
-                              or []))
+                          plugins=plugins, **kwargs)
     return trainer, dataparser_cfg, fit_cfg
 
 
@@ -283,9 +344,9 @@ def main(argv=None):
     capacity = _round_capacity(max(
         int(pc.xyz.shape[0] * fit_cfg.capacity_multiplier),
         fit_cfg.min_capacity))
-    template = trainer.setup(
-        trainer.model.init_from_pcd(pc.xyz, pc.rgb, capacity, device),
-        outputs.camera_extent)
+    template = setup_state(
+        trainer, outputs,
+        trainer.model.init_from_pcd(pc.xyz, pc.rgb, capacity, device))
     state = load_checkpoint(ckpt, template)
     split = "val" if args.subcommand == "validate" else "test"
     results = validate(trainer, state, outputs, fit_cfg, split=split,

@@ -8,9 +8,12 @@ state's: densification writes children into free slots (alive False) and
 pruning only clears `alive`. Dead slots get opacity 0, so they never
 rasterize. `extra` holds non-trainable properties, such as
 Mip-Splatting's `filter_3d`: a dict of tensors, where an entry whose first
-dimension is the capacity is per Gaussian and follows every row edit. The
-optional trainable properties of the other variant models (appearance
-features, the periodic-vibration fields) come with those variants.
+dimension is the capacity is per Gaussian and follows every row edit. An
+entry whose name starts with ``__`` is a variant's own state (a network, an
+output processor and their optimizers): no row edit touches it, whatever
+its shape. `GaussianParams.appearance_features` is the one optional
+trainable property ported (the appearance models'); the periodic-vibration
+fields come with their variant.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from ..utils.device import resolve_device
 
 PARAM_FIELDS = ("means", "scales", "rotations", "opacities", "shs_dc",
                 "shs_rest")
+OPTIONAL_FIELDS = ("appearance_features",)
 DEAD_LOG_SCALE = -10.0   # raw scale and opacity of a padding slot
 DEAD_LOGIT = -10.0
 
@@ -46,15 +50,22 @@ class GaussianParams:
     opacities: torch.Tensor   # [N, 1] logit-space
     shs_dc: torch.Tensor      # [N, 1, 3]
     shs_rest: torch.Tensor    # [N, K-1, 3]
+    appearance_features: Optional[torch.Tensor] = None   # [N, D] or None
 
     @property
     def capacity(self) -> int:
         return self.means.shape[0]
 
+    def fields(self) -> tuple:
+        """The names of the properties this state has: PARAM_FIELDS, then
+        the optional ones that are not None."""
+        return PARAM_FIELDS + tuple(k for k in OPTIONAL_FIELDS
+                                    if getattr(self, k) is not None)
+
     def map(self, fn) -> "GaussianParams":
         """A new GaussianParams with fn(name, tensor) for every property."""
         return GaussianParams(**{k: fn(k, getattr(self, k))
-                                 for k in PARAM_FIELDS})
+                                 for k in self.fields()})
 
 
 def is_per_gaussian(x, capacity: int) -> bool:
@@ -200,7 +211,9 @@ def grow_capacity(state: GaussianState, new_capacity: int) -> GaussianState:
 
 
 def map_extra(extra, fn):
-    """`extra` with fn applied to every entry (None stays None)."""
+    """`extra` with fn applied to every entry but the variants' own states,
+    which pass through as they are (None stays None)."""
     if extra is None:
         return None
-    return {k: fn(v) for k, v in extra.items()}
+    return {k: (v if k.startswith("__") else fn(v))
+            for k, v in extra.items()}

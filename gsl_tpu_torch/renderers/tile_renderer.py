@@ -8,7 +8,9 @@ f32 payload). The whole forward is differentiable in the Gaussian
 parameters; the two taps hand the screen-space mean gradients to density
 control. A variant renderer overrides the seams `get_means`,
 `get_scales` and `get_opacities`, each of which sees the camera (the
-Mip-Splatting renderer filters scales and opacities there).
+Mip-Splatting renderer filters scales and opacities there). The
+appearance trainers hand `forward` their colours (`rgbs_override`) and an
+opacity offset (`opacity_offset`).
 """
 from __future__ import annotations
 
@@ -101,10 +103,16 @@ class TileRenderer:
         scaling_modifier: float = 1.0,
         means2d_tap: Optional[torch.Tensor] = None,   # [N, 2] zeros
         absgrad_tap: Optional[torch.Tensor] = None,   # [N, 2] zeros
+        rgbs_override: Optional[torch.Tensor] = None,  # [N, 3]
+        opacity_offset: Optional[torch.Tensor] = None,  # [N]
     ) -> RenderOutputs:
         """`means2d_tap` is added to the projected means, so its gradient
         is dL/d(means2d); the gradient of `absgrad_tap` is the AbsGS
-        statistic (see `ops.rasterize.rasterize`)."""
+        statistic (see `ops.rasterize.rasterize`). `rgbs_override` takes
+        the place of the SH colours (an appearance network's); with an
+        `opacity_offset`, opacity = min(sigmoid(op) + offset * alive, 1),
+        times the compensations when anti-aliased, in place of
+        `get_opacities`."""
         cfg = self.config
         with float32_math():   # the camera transform's matrix product
             proj = project_gaussians(
@@ -115,8 +123,15 @@ class TileRenderer:
                 img_height, filter_2d=cfg.filter_2d_kernel_size)
         if means2d_tap is not None:
             proj = proj._replace(means2d=proj.means2d + means2d_tap)
-        opacities = self.get_opacities(gaussians, camera, proj)
-        rgbs = self.get_rgbs(gaussians, camera, sh_degree)
+        if opacity_offset is not None:
+            op = gaussians.get_opacities() + opacity_offset * gaussians.alive
+            op = torch.minimum(op, op.new_ones(()))  # jnp.minimum's ties
+            opacities = (op * proj.compensations if cfg.anti_aliased
+                         else op)
+        else:
+            opacities = self.get_opacities(gaussians, camera, proj)
+        rgbs = (rgbs_override if rgbs_override is not None
+                else self.get_rgbs(gaussians, camera, sh_degree))
 
         # extra composited channels next to rgb
         channels = [rgbs]

@@ -14,9 +14,11 @@ of touched rows are zeroed.
   reset, screen radius > 20 px or world scale > 0.1 * prune_extent;
 - all statistics restart at zero after every densify;
 - opacity reset to min(opacity, 0.01), zeroing the opacity moments;
-- the per-Gaussian `extra` entries (Mip-Splatting's `filter_3d`) of a new
-  slot are copied from its source row, and stay as they are until the
-  variant recomputes them.
+- a new slot copies every property of its source row (the appearance
+  features too), and the per-Gaussian `extra` entries (Mip-Splatting's
+  `filter_3d`), which stay as they are until the variant recomputes them;
+  a variant's own state in `extra` (``__net__`` and the like) is not a
+  per-Gaussian entry whatever its shape, and passes through.
 
 The functions build new tensors and leave their arguments as they were.
 Nothing here reads a value back to the host.
@@ -29,7 +31,7 @@ from typing import Tuple
 
 import torch
 
-from ..models.gaussian import (PARAM_FIELDS, GaussianParams, GaussianState,
+from ..models.gaussian import (GaussianParams, GaussianState,
                                inverse_sigmoid, is_per_gaussian, map_extra)
 from ..ops.transforms import normalize_quat, quat_to_rotmat
 from .optimizers import (AdamState, zero_opacity_opt_state,
@@ -169,7 +171,7 @@ def densify_and_prune(
     dest = torch.where(valid_new, free_slots, torch.full_like(j, cap))
 
     is_split_child = split_mask[src][:, None]
-    child = {k: getattr(p, k)[src] for k in PARAM_FIELDS}
+    child = {k: getattr(p, k)[src] for k in p.fields()}
     child["means"] = torch.where(is_split_child, p.means[src] + off2[src],
                                  p.means[src])
     child["scales"] = torch.where(is_split_child, p.scales[src] - log_div,

@@ -45,6 +45,9 @@ class DepthTrainer(Trainer):
     [H, W] of the view on the state's device; None leaves the depth term
     out."""
 
+    # gsl_tpu's depth step never applies an output processor
+    takes_output_processor = False
+
     def render_losses(self, gstate, camera, img_height, img_width, bg_color,
                       sh_degree, gt_image, mask, tap, abstap, step,
                       aux_inputs=None):

@@ -4,7 +4,9 @@ Port of ``gsl_tpu/training/fit.py``:
 - setup from DataParserOutputs (point-cloud init, or a trained artifact
   with ``init_from``, optionally with a background sphere; camera-extent
   learning-rate scaling; Mip-Splatting's 3D filter over the train
-  cameras, which on resume comes from the checkpoint),
+  cameras, which on resume comes from the checkpoint; the appearance
+  networks sized from the data; an output processor's parameters, one
+  set per train image; the step hook's `init_state`),
 - the per-step order: step hook -> the plugins' `after_step` ->
   pre-density hooks -> density hook ->
   post-density hooks -> a ``train_log.csv`` row every ``log_interval``
@@ -139,6 +141,19 @@ def _init_rows(trainer: Trainer, outputs: DataParserOutputs,
     return grow_capacity(loaded, capacity)
 
 
+def setup_state(trainer: Trainer, outputs: DataParserOutputs,
+                gaussians: GaussianState) -> TrainState:
+    """`trainer.setup` with what the data sizes first (the appearance
+    networks) and, after it, the output processor of every train image."""
+    trainer.size_from_data(outputs)
+    state = trainer.setup(gaussians, outputs.camera_extent,
+                          outputs.prune_extent)
+    if trainer.output_processor is not None:
+        state = trainer.init_output_processor(state,
+                                              len(outputs.train_set))
+    return state
+
+
 def _sync(dev: torch.device):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -157,16 +172,19 @@ def fit(trainer: Trainer, outputs: DataParserOutputs, cfg: FitConfig,
     generator = torch.Generator(device=dev)
     generator.manual_seed(cfg.seed)
 
-    state = trainer.setup(_init_gaussians(trainer, outputs, cfg, dev),
-                          outputs.camera_extent, outputs.prune_extent)
+    state = setup_state(trainer, outputs,
+                        _init_gaussians(trainer, outputs, cfg, dev))
     template_capacity = state.params.capacity
 
     background = np.asarray(trainer.config.background_color, np.float32)
     bg = torch.from_numpy(background).to(dev)
     dataset = CachedDataset(outputs.train_set, background=background)
     ctx = FitContext(trainer=trainer, outputs=outputs, dataset=dataset,
-                     cfg=cfg, bg=bg)
+                     cfg=cfg, bg=bg, name_to_idx={
+                         n: i for i, n in
+                         enumerate(outputs.train_set.image_names)})
     step_hook, density_hook, pre_density, post_density = build_hooks(ctx)
+    state = step_hook.init_state(state, generator)
 
     start_step = 1
     resume_path = None
@@ -180,6 +198,7 @@ def fit(trainer: Trainer, outputs: DataParserOutputs, cfg: FitConfig,
         if state.params.capacity < template_capacity:
             # the checkpoint predates a raised min_capacity
             state = trainer.grow_state(state, template_capacity)
+            state = step_hook.init_state(state, generator)
         start_step = state.step + 1
         print(f"[fit] resumed {resume_path} -> continuing at {start_step}")
     if start_step > cfg.max_steps:
@@ -293,7 +312,9 @@ def validate(trainer: Trainer, state: TrainState,
     """Per-image PSNR / SSIM and ``metrics/<split>.csv`` with a MEAN row,
     on the state's device. With `save_images`, GT|render PNGs go to
     ``<output_dir>/<split>/``; with an `exp_logger`, the first
-    `cfg.log_val_images` of them are logged. LPIPS is not ported (ROADMAP
+    `cfg.log_val_images` of them are logged. The renders are the
+    trainer's `eval_step`: SH colours, without an appearance network or an
+    output processor, as gsl_tpu validates. LPIPS is not ported (ROADMAP
     item 14): its column is written empty, as the JAX package writes it
     when its weights are missing."""
     image_set = outputs.val_set if split == "val" else outputs.test_set

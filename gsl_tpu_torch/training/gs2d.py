@@ -29,15 +29,19 @@ class GS2DMetricsConfig(VanillaMetricsConfig):
 class GS2DTrainer(Trainer):
     """Trainer over a `SurfelRenderer` and a `GS2DMetricsConfig`."""
 
+    # gsl_tpu's 2DGS losses never apply an output processor
+    takes_output_processor = False
+
     def __init__(self, model: Gaussian2DConfig = None,
                  renderer: SurfelRendererConfig = None, density=None,
                  metrics: GS2DMetricsConfig = None, config=None,
-                 plugins: tuple = ()):
+                 plugins: tuple = (), output_processor=None):
         super().__init__(model=model or Gaussian2DConfig(),
                          renderer=renderer or SurfelRendererConfig(),
                          density=density,
                          metrics=metrics or GS2DMetricsConfig(),
-                         config=config, plugins=plugins)
+                         config=config, plugins=plugins,
+                         output_processor=output_processor)
 
     def render_losses(self, gstate, camera, img_height, img_width, bg_color,
                       sh_degree, gt_image, mask, tap, abstap, step,

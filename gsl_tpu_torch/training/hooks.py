@@ -5,21 +5,25 @@ Port of ``gsl_tpu/training/hooks.py`` for the variants the port has.
 the objects the fit loop calls uniformly:
 
 - `StepHook(state, generator, step, ...) -> (state, scalars)`: which train
-  step runs, and what it is fed (the depth trainer's step gets the view's
-  inverse-depth map);
+  step runs, and what it is fed (the view's index in the train set for an
+  output processor, the depth trainer's inverse-depth map, the
+  appearance trainers' warm-up flag, gradient accumulation's buffer);
+  its `init_state(state, generator)` runs before a resume and sets up
+  what the step keeps outside the state (the accumulation buffer);
 - `DensityHook(state, generator, step) -> state`: which density-control
   schedule runs after the step (vanilla adaptive density control, or
   MCMC's relocation and growth followed by its position noise);
 - lists of hooks whose `periodic(state, generator, step) -> state` runs
-  before and after the density hook (the Mip-Splatting 3D-filter
-  recompute).
+  before and after the density hook (the similarity regulariser before,
+  the Mip-Splatting 3D-filter recompute after).
 
 The port runs the vanilla 3DGS trainer (AbsGS and StopThePop are options
-of its density controller and renderer, plugins an argument of it), the
-depth-regularised trainer and the 2DGS trainer. The JAX
-package's other variant hooks (Taming, GNS, SpotLess, gradient
-accumulation, the similarity regulariser, LightGaussian) come with their
-variants; until then `build_hooks` raises for them.
+of its density controller and renderer, plugins and output processors
+arguments of it), the depth-regularised trainer, the 2DGS trainer, the
+appearance trainers (with visibility maps and the similarity regulariser)
+and gradient accumulation. The JAX package's other variant hooks (Taming,
+GNS, SpotLess, LightGaussian, deform, glossy) come with their variants;
+until then `build_hooks` raises for them.
 """
 from __future__ import annotations
 
@@ -28,13 +32,17 @@ import dataclasses
 import torch
 
 from ..models.mip_splatting import MipSplattingConfig, compute_3d_filter
+from .appearance_trainer import AppearanceTrainer
 from .density import VanillaDensityControllerConfig, densify_masks
 from .depth_trainer import DepthTrainer
 from .gs2d import GS2DTrainer
 from .mcmc import (MCMCDensityControllerConfig, dead_mask, grow_target,
                    mcmc_densify, mcmc_noise_step)
+from .opt_strategies import GradAccTrainer
 from .schedulers import exponential_decay
+from .similarity_reg import draw_sample, similarity_reg_step
 from .trainer import Trainer
+from .visibility_map_trainer import VisibilityMapAppearanceTrainer
 
 
 @dataclasses.dataclass
@@ -45,19 +53,31 @@ class FitContext:
     dataset: "CachedDataset"
     cfg: "FitConfig"
     bg: torch.Tensor
+    # image name -> its index in the train set
+    name_to_idx: dict = dataclasses.field(default_factory=dict)
 
 
 class StepHook:
-    """Vanilla: `Trainer.train_step` on the view."""
+    """Vanilla: `Trainer.train_step` on the view, with the view's index in
+    the train set (for an output processor)."""
 
     def __init__(self, ctx: FitContext):
         self.ctx = ctx
         self.trainer = ctx.trainer
 
+    def init_state(self, state, generator):
+        """What the step needs before the first one, or a resume; returns
+        the state."""
+        return state
+
+    def image_idx(self, name) -> int:
+        return self.ctx.name_to_idx.get(name, 0)
+
     def __call__(self, state, generator, step, sh_degree, cam, name, img,
                  mask, H, W):
         return self.trainer.train_step(state, cam, img, H, W, sh_degree,
-                                       self.ctx.bg, mask=mask)
+                                       self.ctx.bg, mask=mask,
+                                       image_idx=self.image_idx(name))
 
     def periodic(self, state, generator, step):
         return state
@@ -76,7 +96,47 @@ class DepthStepHook(StepHook):
             depth = depth.to(state.alive.device)
         return self.trainer.train_step(state, cam, img, H, W, sh_degree,
                                        self.ctx.bg, mask=mask,
-                                       aux_inputs=depth)
+                                       aux_inputs=depth,
+                                       image_idx=self.image_idx(name))
+
+
+class AppearanceStepHook(StepHook):
+    """`train_step_appearance`, in its warm-up before
+    `appearance_opt.warm_up`. The network takes the camera's appearance
+    id."""
+
+    def __call__(self, state, generator, step, sh_degree, cam, name, img,
+                 mask, H, W):
+        return self.trainer.train_step_appearance(
+            state, cam, img, H, W, sh_degree, self.ctx.bg,
+            warm_up=step < self.trainer.appearance_opt.warm_up, mask=mask)
+
+
+class GradAccStepHook(StepHook):
+    """Gradient accumulation. The buffer rides on the hook; it starts at
+    zero again when the capacity has changed under it (a densify that
+    grew the state)."""
+
+    def __init__(self, ctx: FitContext):
+        super().__init__(ctx)
+        self.grad_buffer = None
+
+    def init_state(self, state, generator):
+        self.grad_buffer = self.trainer.init_grad_buffer(state)
+        return state
+
+    def __call__(self, state, generator, step, sh_degree, cam, name, img,
+                 mask, H, W):
+        if (self.grad_buffer is None
+                or self.grad_buffer.capacity != state.params.capacity):
+            self.grad_buffer = self.trainer.init_grad_buffer(state)
+        k = self.trainer.grad_acc.accumulation_at(step)
+        state, self.grad_buffer, scalars = \
+            self.trainer.train_step_accumulate(
+                state, self.grad_buffer, cam, img, H, W, sh_degree,
+                self.ctx.bg, apply=(step % k == 0), inv_k=1.0 / k,
+                mask=mask)
+        return state, scalars
 
 
 class DensityHook:
@@ -188,15 +248,39 @@ class MipFilterHook:
         return state
 
 
+class SimilarityRegHook:
+    """The appearance-feature similarity step every
+    `similarity_reg_interval` steps from `similarity_reg_from`, on rows
+    drawn from the fit's generator."""
+
+    def __init__(self, ctx: FitContext):
+        self.ctx = ctx
+        self.cfg = ctx.trainer.similarity_reg
+
+    def periodic(self, state, generator, step):
+        c = self.cfg
+        if step >= c.similarity_reg_from \
+                and step % c.similarity_reg_interval == 0:
+            sample = draw_sample(c, state.params.capacity, generator,
+                                 state.alive.device)
+            state, _ = similarity_reg_step(c, self.ctx.trainer.tx, state,
+                                           sample)
+        return state
+
+
+TRAINERS = (Trainer, DepthTrainer, GS2DTrainer, AppearanceTrainer,
+            VisibilityMapAppearanceTrainer, GradAccTrainer)
+
+
 def build_hooks(ctx: FitContext):
     """Resolve the trainer's component configs into (step_hook,
     density_hook, pre_density_hooks, post_density_hooks)."""
     trainer = ctx.trainer
-    if type(trainer) not in (Trainer, DepthTrainer, GS2DTrainer):
+    if type(trainer) not in TRAINERS:
         raise NotImplementedError(
-            f"{type(trainer).__name__}: the fit runs Trainer, DepthTrainer "
-            "and GS2DTrainer; variant trainers come with their variants "
-            "(ROADMAP item 12)")
+            f"{type(trainer).__name__}: the fit runs "
+            f"{', '.join(t.__name__ for t in TRAINERS)}; variant trainers "
+            "come with their variants (ROADMAP item 12)")
     density_type = type(trainer.density_cfg)
     if density_type is VanillaDensityControllerConfig:
         density_hook = DensityHook(ctx)
@@ -207,9 +291,18 @@ def build_hooks(ctx: FitContext):
             f"{density_type.__name__}: the fit runs the vanilla and MCMC "
             "density controllers; the others come with their variants "
             "(ROADMAP item 12)")
-    step_hook = (DepthStepHook if isinstance(trainer, DepthTrainer)
-                 else StepHook)(ctx)
+    if isinstance(trainer, AppearanceTrainer):
+        step_hook = AppearanceStepHook(ctx)
+    elif isinstance(trainer, GradAccTrainer):
+        step_hook = GradAccStepHook(ctx)
+    elif isinstance(trainer, DepthTrainer):
+        step_hook = DepthStepHook(ctx)
+    else:
+        step_hook = StepHook(ctx)
+    pre_density = [step_hook]
+    if getattr(trainer, "similarity_reg", None) is not None:
+        pre_density.append(SimilarityRegHook(ctx))
     post_density = []
     if isinstance(trainer.model, MipSplattingConfig):
         post_density.append(MipFilterHook(ctx))
-    return step_hook, density_hook, [step_hook], post_density
+    return step_hook, density_hook, pre_density, post_density

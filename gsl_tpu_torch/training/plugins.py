@@ -11,8 +11,7 @@ Port of ``gsl_tpu/training/plugins.py``. A plugin is a config
 - `after_step(state, step)` runs in the fit loop after each step.
 
 `step` in `extra_loss` is the count of steps taken before this one, as in
-the trainer's other losses. The bilateral-grid freeze needs the output
-processors of ROADMAP item 12 and raises until they are ported.
+the trainer's other losses.
 """
 from __future__ import annotations
 
@@ -68,12 +67,31 @@ class BackgroundRemovalPlugin(Plugin):
 
 @dataclasses.dataclass
 class FreezeBilagridPluginConfig:
+    """From `freeze_from` on, the output processor's parameters are held
+    at their value after that step; its Adam state is left alone."""
     freeze_from: int = 15_000
 
-    def instantiate(self):
-        raise NotImplementedError(
-            "freeze_bilagrid freezes the bilateral-grid output processor, "
-            "which is not ported to gsl_tpu_torch yet (ROADMAP item 12)")
+    def instantiate(self) -> "FreezeBilagridPlugin":
+        return FreezeBilagridPlugin(self)
+
+
+class FreezeBilagridPlugin(Plugin):
+    """The frozen value rides in ``extra["__outproc_frozen__"]``, so a run
+    resumed past `freeze_from` holds the value the first run froze.
+    (gsl_tpu keeps it on the plugin, so its resumed run freezes the grid
+    one step later, at that step's value.)"""
+
+    def __init__(self, config: FreezeBilagridPluginConfig):
+        self.config = config
+
+    def after_step(self, state, step):
+        extra = state.extra
+        if step < self.config.freeze_from or not extra \
+                or "__outproc__" not in extra:
+            return state
+        frozen = extra.get("__outproc_frozen__", extra["__outproc__"])
+        return dataclasses.replace(state, extra=dict(
+            extra, __outproc__=frozen, __outproc_frozen__=frozen))
 
 
 @dataclasses.dataclass

@@ -1,14 +1,17 @@
 """Training orchestrator.
 
-Port of ``gsl_tpu/training/trainer.py`` (output processors and the
-per-image index come with their variants), as plain functions on an
+Port of ``gsl_tpu/training/trainer.py``, as plain functions on an
 explicit `TrainState`, whose `extra` carries the non-trainable properties
-of a variant (Mip-Splatting's `filter_3d`) through every step:
+of a variant (Mip-Splatting's `filter_3d`) and the variants' own states
+(``__outproc__``: an output processor's parameters, ``__outproc_opt__``:
+their Adam; the appearance trainers' networks) through every step:
 
-- `train_step`: render -> L1 + SSIM loss, the plugins' terms and a
-  variant's per-image input (`aux_inputs`, the depth trainer's map) ->
-  gradients (through the rasterizer's backward kernels, with the means2d
-  tap for the densification statistics) -> per-property Adam update;
+- `train_step`: render -> the output processor of the image
+  (`image_idx`), if any -> L1 + SSIM loss, the processor's regulariser,
+  the plugins' terms and a variant's per-image input (`aux_inputs`, the
+  depth trainer's map) -> gradients (through the rasterizer's backward
+  kernels, with the means2d tap for the densification statistics) ->
+  per-property Adam update, and the processor's own Adam;
 - `density_step`: clone / split / prune; `opacity_reset_step`;
 - `maybe_density_ops`: both at the reference schedule, growing the
   capacity and redoing a densify that ran out of free slots.
@@ -24,7 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..data.cameras import Cameras
-from ..models.gaussian import (PARAM_FIELDS, GaussianParams, GaussianState,
+from ..models.gaussian import (GaussianParams, GaussianState,
                                VanillaGaussianConfig, grow_capacity)
 from ..renderers.tile_renderer import (TileRendererConfig,
                                        viewspace_grad_scale)
@@ -33,7 +36,8 @@ from .density import (DensityControlState, VanillaDensityControllerConfig,
                       densify_and_prune, init_density_state, reset_opacities,
                       update_stats)
 from .metrics import VanillaMetricsConfig, psnr, train_loss
-from .optimizers import AdamState, GaussianAdam, grow_opt_state
+from .optimizers import AdamState, GaussianAdam, TensorAdam, grow_opt_state
+from .output_processors import apply_processor, init_processor
 
 
 @dataclasses.dataclass
@@ -62,6 +66,10 @@ class Trainer:
     """Composes the model, renderer, density and metrics configs into the
     step functions."""
 
+    # whether this trainer's step applies an output processor (gsl_tpu's
+    # other trainers take one and drop it unapplied)
+    takes_output_processor = True
+
     def __init__(
         self,
         model: VanillaGaussianConfig = None,
@@ -72,10 +80,11 @@ class Trainer:
         output_processor=None,
         plugins: tuple = (),
     ):
-        if output_processor is not None:
-            raise NotImplementedError(
-                "output processors are not ported to gsl_tpu_torch yet "
-                "(ROADMAP item 12)")
+        if output_processor is not None and not self.takes_output_processor:
+            raise ValueError(
+                f"{type(self).__name__} with an output processor "
+                f"({type(output_processor).__name__}): its step would not "
+                "apply it (gsl_tpu drops it silently)")
         self.plugins = tuple(plugins)
         self.model = model or VanillaGaussianConfig()
         self.renderer_cfg = renderer or TileRendererConfig()
@@ -83,9 +92,30 @@ class Trainer:
         self.density_cfg = density or VanillaDensityControllerConfig()
         self.metrics_cfg = metrics or VanillaMetricsConfig()
         self.config = config or TrainerConfig()
+        self.output_processor = output_processor
+        # the processor's own Adam (optax.adam's eps)
+        self.op_tx = (None if output_processor is None
+                      else TensorAdam(output_processor.lr, eps=1e-8))
         self.cameras_extent: float = 1.0
         self.prune_extent: float = 1.0
         self.tx: Optional[GaussianAdam] = None
+
+    def size_from_data(self, outputs) -> None:
+        """Size what depends on the scene's images before `setup` (the
+        appearance trainers' embeddings); this trainer has nothing to
+        size."""
+
+    def init_output_processor(self, state: "TrainState",
+                              n_images: int) -> "TrainState":
+        """The processor's parameters for `n_images` images and their Adam
+        state, in ``state.extra``, so they checkpoint and resume with the
+        run."""
+        cfg = dataclasses.replace(self.output_processor, n_images=n_images)
+        self.output_processor = cfg
+        params = init_processor(cfg, state.alive.device)
+        return dataclasses.replace(state, extra=dict(
+            state.extra or {}, __outproc__=params,
+            __outproc_opt__=TensorAdam.init({"__outproc__": params})))
 
     def setup(self, gaussians: GaussianState, cameras_extent: float,
               prune_extent: Optional[float] = None) -> TrainState:
@@ -116,20 +146,26 @@ class Trainer:
     def render_losses(self, gstate: GaussianState, camera: Cameras,
                       img_height: int, img_width: int, bg_color, sh_degree,
                       gt_image, mask, tap, abstap, step: int,
-                      aux_inputs=None):
+                      aux_inputs=None, op_params=None, image_idx=None):
         """-> (loss, (scalars, radii, n_dropped)). `step`: the steps taken
         before this one, for losses that start at an iteration;
         `aux_inputs`: a variant trainer's per-image input (this trainer
-        takes none)."""
+        takes none); `op_params`: the output processor's parameters, of
+        which image `image_idx`'s process the render."""
         render_types = frozenset({"rgb"}).union(
             *[p.required_render_types for p in self.plugins])
         out = self.renderer.forward(
             gstate, camera, img_height, img_width, bg_color, sh_degree,
             render_types=render_types, means2d_tap=tap, absgrad_tap=abstap)
+        render, op_reg = out.render, 0.0
+        if op_params is not None:
+            render, op_reg = apply_processor(self.output_processor,
+                                             op_params, image_idx, render)
         loss, scalars = train_loss(
-            out.render, gt_image, mask,
+            render, gt_image, mask,
             lambda_dssim=self.metrics_cfg.lambda_dssim,
             rgb_diff_loss=self.metrics_cfg.rgb_diff_loss)
+        loss = loss + op_reg
         # MCMC opacity / scale L1 regularizers
         m = self.metrics_cfg
         if m.opacity_reg > 0.0 or m.scale_reg > 0.0:
@@ -150,24 +186,15 @@ class Trainer:
             scalars = dict(scalars, **sc)
         return loss, (scalars, out.radii, out.n_dropped)
 
-    def train_step(self, state: TrainState, camera: Cameras,
-                   gt_image: torch.Tensor, img_height: int, img_width: int,
-                   sh_degree: int, bg_color: torch.Tensor,
-                   mask: Optional[torch.Tensor] = None, aux_inputs=None,
-                   image_idx=None):
-        """One optimization step on one view. Returns (new state, scalars);
-        the scalars are 0-d tensors on the state's device, so the step
-        itself never waits for the device beyond the rasterizer's one
-        read that sizes its slot buffers. `aux_inputs` goes to
-        `render_losses`; `image_idx` feeds output processors, which are not
-        ported yet."""
-        if image_idx is not None:
-            raise NotImplementedError(
-                "image_idx feeds output processors, which are not ported "
-                "to gsl_tpu_torch yet (ROADMAP item 12)")
+    def gradients(self, state: TrainState, loss_of, others=(),
+                  use_absgrad: bool = False):
+        """Differentiate ``loss_of(gstate, tap, abstap) -> (loss, aux)``
+        with respect to the Gaussian parameters, the statistic's tap (the
+        means2d tap, or with `use_absgrad` the AbsGS tap) and the leaf
+        tensors `others` that `loss_of` reads. A tensor the loss does not
+        reach gets a zero gradient, as jax.grad gives it. Returns (the
+        parameters' gradients, the tap's, [the others'], loss, aux)."""
         dev = state.alive.device
-        use_absgrad = (getattr(self.density_cfg, "absgrad", False)
-                       and self.renderer.supports_absgrad())
         leaves = state.params.map(
             lambda _, x: x.detach().requires_grad_(True))
         tap = torch.zeros((state.params.capacity, 2), dtype=torch.float32,
@@ -177,30 +204,93 @@ class Trainer:
         # full float32 for the projection's matrix product, the SSIM
         # convolutions and their gradients
         with float32_math():
-            loss, (scalars, radii, n_dropped) = self.render_losses(
-                GaussianState(params=leaves, alive=state.alive,
-                              extra=state.extra), camera,
-                img_height, img_width, bg_color, sh_degree, gt_image, mask,
-                tap, abstap, state.step, aux_inputs=aux_inputs)
-            wrt = [getattr(leaves, k) for k in PARAM_FIELDS] + [tap]
-            if use_absgrad:
-                wrt.append(abstap)
-            grads = torch.autograd.grad(loss, wrt)
-        with torch.no_grad():
-            pgrads = GaussianParams(**dict(zip(PARAM_FIELDS, grads)))
-            stat_grad = grads[-1]   # the abs tap when configured
-            gscale = viewspace_grad_scale(
-                img_width, img_height,
-                self.renderer_cfg.max_viewspace_grad_scale, dev)
-            density = update_stats(state.density, stat_grad, radii, gscale)
-            updates, opt_state = self.tx.update(pgrads, state.opt_state)
-            params = state.params.map(
-                lambda k, x: x + getattr(updates, k))
+            loss, aux = loss_of(GaussianState(params=leaves,
+                                              alive=state.alive,
+                                              extra=state.extra),
+                                tap, abstap)
+            fields = leaves.fields()
+            wrt = ([getattr(leaves, k) for k in fields]
+                   + [abstap if use_absgrad else tap] + list(others))
+            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+        grads = [torch.zeros_like(w) if g is None else g
+                 for g, w in zip(grads, wrt)]
+        n = len(fields)
+        return (GaussianParams(**dict(zip(fields, grads[:n]))), grads[n],
+                grads[n + 1:], loss, aux)
+
+    @torch.no_grad()
+    def density_stats(self, state: TrainState, stat_grad, radii,
+                      img_width: int, img_height: int):
+        """The density statistics after a step whose tap gradient is
+        `stat_grad`."""
+        gscale = viewspace_grad_scale(
+            img_width, img_height,
+            self.renderer_cfg.max_viewspace_grad_scale, state.alive.device)
+        return update_stats(state.density, stat_grad, radii, gscale)
+
+    @torch.no_grad()
+    def adam_step(self, state: TrainState, pgrads: GaussianParams):
+        """-> (parameters, Adam state) after one step with `pgrads`."""
+        updates, opt_state = self.tx.update(pgrads, state.opt_state)
+        return state.params.map(lambda k, x: x + getattr(updates, k)), \
+            opt_state
+
+    def apply_gradients(self, state: TrainState, pgrads: GaussianParams,
+                        stat_grad, radii, img_width: int, img_height: int):
+        """-> (parameters, Adam state, density statistics) after one
+        step."""
+        density = self.density_stats(state, stat_grad, radii, img_width,
+                                     img_height)
+        return (*self.adam_step(state, pgrads), density)
+
+    def train_step(self, state: TrainState, camera: Cameras,
+                   gt_image: torch.Tensor, img_height: int, img_width: int,
+                   sh_degree: int, bg_color: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None, aux_inputs=None,
+                   image_idx=None):
+        """One optimization step on one view. Returns (new state, scalars);
+        the scalars are 0-d tensors on the state's device, so the step
+        itself never waits for the device beyond the rasterizer's one
+        read that sizes its slot buffers. `aux_inputs` goes to
+        `render_losses`; `image_idx` (the view's index in the train set)
+        picks the output processor's parameters when the state has
+        them."""
+        use_absgrad = (getattr(self.density_cfg, "absgrad", False)
+                       and self.renderer.supports_absgrad())
+        has_op = (self.output_processor is not None
+                  and state.extra is not None
+                  and "__outproc__" in state.extra)
+        others, op_kwargs = [], {}
+        if has_op:
+            others = [state.extra["__outproc__"].detach().requires_grad_(
+                True)]
+            op_kwargs = dict(op_params=others[0],
+                             image_idx=0 if image_idx is None else image_idx)
+
+        def loss_of(gstate, tap, abstap):
+            return self.render_losses(
+                gstate, camera, img_height, img_width, bg_color, sh_degree,
+                gt_image, mask, tap, abstap, state.step,
+                aux_inputs=aux_inputs, **op_kwargs)
+
+        pgrads, stat_grad, op_grads, _, (scalars, radii, n_dropped) = \
+            self.gradients(state, loss_of, others, use_absgrad)
+        params, opt_state, density = self.apply_gradients(
+            state, pgrads, stat_grad, radii, img_width, img_height)
+        extra = state.extra
+        if has_op:
+            with torch.no_grad():
+                new, op_opt = self.op_tx.update(
+                    {"__outproc__": state.extra["__outproc__"]},
+                    {"__outproc__": op_grads[0]},
+                    state.extra["__outproc_opt__"])
+            extra = dict(state.extra, __outproc__=new["__outproc__"],
+                         __outproc_opt__=op_opt)
         scalars = {k: v.detach() for k, v in scalars.items()}
         scalars["n_dropped_isects"] = n_dropped
         return TrainState(params=params, alive=state.alive,
                           opt_state=opt_state, density=density,
-                          step=state.step + 1, extra=state.extra), scalars
+                          step=state.step + 1, extra=extra), scalars
 
     @torch.no_grad()
     def density_step(self, state: TrainState, noise, use_size_prune):
@@ -235,7 +325,7 @@ class Trainer:
     def grow_state(self, state: TrainState, new_capacity: int) -> TrainState:
         """Grow the capacity, carrying the Adam moments, the schedule count,
         the density statistics and the per-Gaussian extras of the existing
-        rows."""
+        rows; the variants' own states in `extra` stay as they are."""
         n_new = new_capacity - state.params.capacity
         gstate = grow_capacity(state.gaussians, new_capacity)
 

@@ -3,10 +3,11 @@
 Port of ``gsl_tpu/utils/checkpoint.py``. Layout, as the JAX package's:
 
     <ckpt_dir>/step_N/state.pt        the TrainState: params, alive, Adam
-                                      moments and count, density statistics,
-                                      step, the variant's `extra` tensors
-                                      (or None), and the fit's generator
-                                      state
+                                      moments and counts, density
+                                      statistics, step, the variant's
+                                      `extra` (tensors, and the networks'
+                                      and processors' dicts of them; or
+                                      None), and the fit's generator state
     <ckpt_dir>/step_N/fit_meta.json   {"capacity": ..., "step": N, ...}
 
 ``state.pt`` holds only tensors, numbers, strings and dicts of them, so it
@@ -22,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from ..models.gaussian import PARAM_FIELDS, GaussianParams
+from ..models.gaussian import GaussianParams
 from ..training.density import DensityControlState
 from ..training.optimizers import AdamState
 from ..training.trainer import TrainState
@@ -31,22 +32,28 @@ STATE_FILE = "state.pt"
 _DENSITY_FIELDS = ("grad_accum", "denom", "max_radii")
 
 
-def _state_dict(state: TrainState, generator: Optional[torch.Generator]):
-    def cpu(t):
-        return t.detach().cpu()
+def to_cpu(x):
+    """Tensors, and dicts of them, on the CPU; numbers as they are."""
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    return x.detach().cpu() if isinstance(x, torch.Tensor) else x
 
+
+def _state_dict(state: TrainState, generator: Optional[torch.Generator]):
+    cpu = to_cpu
     return {
-        "params": {k: cpu(getattr(state.params, k)) for k in PARAM_FIELDS},
+        "params": {k: cpu(getattr(state.params, k))
+                   for k in state.params.fields()},
         "alive": cpu(state.alive),
         "exp_avg": {k: cpu(v) for k, v in state.opt_state.exp_avg.items()},
         "exp_avg_sq": {k: cpu(v)
                        for k, v in state.opt_state.exp_avg_sq.items()},
         "count": int(state.opt_state.count),
+        "solo_counts": dict(state.opt_state.solo_counts),
         "density": {k: cpu(getattr(state.density, k))
                     for k in _DENSITY_FIELDS},
         "step": int(state.step),
-        "extra": (None if state.extra is None
-                  else {k: cpu(v) for k, v in state.extra.items()}),
+        "extra": cpu(state.extra),
         "generator": None if generator is None else generator.get_state(),
     }
 
@@ -122,7 +129,10 @@ def load_checkpoint(path: str, target: TrainState,
     dev = target.alive.device
     raw = read_state_dict(path, dev)
     params = GaussianParams(**raw["params"])
-    for k in PARAM_FIELDS:
+    if params.fields() != target.params.fields():
+        raise ValueError(f"{path} holds the properties {params.fields()}, "
+                         f"the target {target.params.fields()}")
+    for k in params.fields():
         got = tuple(getattr(params, k).shape[1:])
         want = tuple(getattr(target.params, k).shape[1:])
         if got != want:
@@ -138,7 +148,8 @@ def load_checkpoint(path: str, target: TrainState,
     else:
         opt_state = AdamState(exp_avg=raw["exp_avg"],
                               exp_avg_sq=raw["exp_avg_sq"],
-                              count=int(raw["count"]))
+                              count=int(raw["count"]),
+                              solo_counts=raw.get("solo_counts", {}))
     if generator is not None and raw["generator"] is not None:
         generator.set_state(raw["generator"].cpu())
     return TrainState(params=params, alive=raw["alive"], opt_state=opt_state,

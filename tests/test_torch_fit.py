@@ -34,7 +34,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESETS = ("colmap.yaml", "blender.yaml", "stp.yaml", "gs2d.yaml",
            "absgrad.yaml", "mip_splatting.yaml", "mcmc.yaml",
            "depth_regularization.yaml", "normal_reg.yaml", "ground_reg.yaml",
-           "scale_reg.yaml")
+           "scale_reg.yaml", "appearance_embedding.yaml",
+           "appearance_visibility_map.yaml",
+           "appearance_visibility_map_hash.yaml", "swag.yaml",
+           "bilagrid.yaml", "exposure.yaml", "grad_acc.yaml")
 OVERRIDES = ["data.path=/data/scene",
              "model.density.init_args.densify_from_iter=100",
              "model.density.init_args.densification_interval=50",
@@ -102,8 +105,8 @@ def test_unknown_field_raises():
 
 @pytest.mark.parametrize("preset,item", [
     ("taming.yaml", 12), ("gns.yaml", 12), ("light_gaussian.yaml", 12),
-    ("distributed.yaml", 13), ("bilagrid.yaml", 12),
-    ("grad_acc.yaml", 12)])
+    ("distributed.yaml", 13), ("glossy.yaml", 12),
+    ("revising.yaml", 12)])
 def test_unported_presets_raise_naming_their_item(preset, item):
     cfg = cli.load_config([os.path.join(REPO, "gsl_tpu", "configs", preset)],
                           {})

@@ -1,8 +1,9 @@
 """End to end through gsl_tpu_torch's CLI on the CPU, the port alone: a
 small Blender-style scene rendered by the port is fitted with one densify,
 validated and resumed; the 2DGS, StopThePop, AbsGS, Mip-Splatting, MCMC,
-depth, normal, ground and scale regulariser presets take a few steps, and
-Mip-Splatting and MCMC resume bit for bit."""
+depth, normal, ground and scale regulariser presets and the seven
+appearance-slice presets take a few steps, and Mip-Splatting, MCMC, an
+appearance run and a bilateral-grid run resume bit for bit."""
 import csv
 import json
 import os
@@ -248,6 +249,12 @@ def test_resume_from_a_missing_path_fails_fast(scene, tmp_path):
 # or the MCMC relocation round, at step 3 comes from the common ones)
 VARIANT_EXTRA = {"mip_splatting.yaml": (
     "model.gaussian.init_args.filter_3d_update_interval=2",)}
+APPEARANCE_PRESETS = ("appearance_embedding.yaml",
+                      "appearance_visibility_map.yaml",
+                      "appearance_visibility_map_hash.yaml", "swag.yaml")
+for _p in APPEARANCE_PRESETS:
+    # the preset names the model's class, so its fields go in init_args
+    VARIANT_EXTRA[_p] = ("model.gaussian.init_args.sh_degree=1",)
 
 
 # the renderer is the one the loader serves the run with: gsl_tpu's
@@ -261,7 +268,14 @@ VARIANT_EXTRA = {"mip_splatting.yaml": (
     # absent (tests/test_torch_depth.py fits a scene with them)
     ("depth_regularization.yaml", "TileRenderer"),
     ("normal_reg.yaml", "TileRenderer"), ("ground_reg.yaml", "TileRenderer"),
-    ("scale_reg.yaml", "TileRenderer")])
+    ("scale_reg.yaml", "TileRenderer"),
+    # validation and the loader render SH colours, without the appearance
+    # network or the output processor, as gsl_tpu's do
+    ("appearance_embedding.yaml", "TileRenderer"),
+    ("appearance_visibility_map.yaml", "TileRenderer"),
+    ("appearance_visibility_map_hash.yaml", "TileRenderer"),
+    ("swag.yaml", "TileRenderer"), ("bilagrid.yaml", "TileRenderer"),
+    ("exposure.yaml", "TileRenderer"), ("grad_acc.yaml", "TileRenderer")])
 def test_variant_presets_fit_through_the_cli(scene, tmp_path, preset,
                                              renderer):
     extra = VARIANT_EXTRA.get(preset, ())
@@ -300,6 +314,21 @@ def test_variant_presets_fit_through_the_cli(scene, tmp_path, preset,
         f3d = state.extra["filter_3d"]
         assert f3d.shape == (state.params.capacity, 1)
         assert bool((f3d[state.alive] > 0).all())
+    elif preset in APPEARANCE_PRESETS:
+        # the networks sized from the data: the Blender parser gives every
+        # image appearance id 0; the features followed the densify
+        n_vis = "visibility" in preset
+        assert sorted(state.extra) == ["__net__"] + ["__vis__"] * n_vis
+        emb = state.extra["__net__"]["params"]["embedding.weight"]
+        assert emb.shape == (1, 32)
+        assert state.params.appearance_features.shape == (
+            state.params.capacity, 64)
+        assert state.opt_state.exp_avg["appearance_features"].shape == (
+            state.params.capacity, 64)
+    elif preset in ("bilagrid.yaml", "exposure.yaml"):
+        assert sorted(state.extra) == ["__outproc__", "__outproc_opt__"]
+        assert state.extra["__outproc__"].shape[0] == N_VIEWS
+        assert state.extra["__outproc_opt__"]["count"] == 4
     else:
         assert state.extra is None
 
@@ -347,6 +376,84 @@ def test_variant_resume_is_bit_exact(scene, tmp_path, capsys, preset):
     else:
         assert saved["extra"] is None and res.extra is None
         assert ref.gaussians.n_alive > 400      # the rounds grew it
+
+
+@pytest.mark.parametrize("preset", ["appearance_embedding.yaml",
+                                    "bilagrid.yaml"])
+def test_appearance_and_processor_resume_is_bit_exact(scene, tmp_path,
+                                                      capsys, monkeypatch,
+                                                      preset):
+    """As above for an appearance run (its warm-up cut to 3 steps, so the
+    network trains from step 3; the similarity step every 5 steps) and a
+    bilateral-grid run: the Gaussians with their appearance features, the
+    network's weights and Adam state, the grids and their Adam state,
+    and the features' own Adam count all come back from step 8."""
+    build = cli.build_components
+
+    def build_short_warm_up(cfg):
+        trainer, dp, fit_cfg = build(cfg)
+        if hasattr(trainer, "appearance_opt"):
+            trainer.appearance_opt.warm_up = 3
+        return trainer, dp, fit_cfg
+
+    monkeypatch.setattr(cli, "build_components", build_short_warm_up)
+    sim = ("model.similarity_reg.similarity_reg_interval=5",
+           "model.similarity_reg.n_appearance_samples=64",
+           "model.gaussian.init_args.sh_degree=1") \
+        if preset == "appearance_embedding.yaml" else ()
+
+    def argv(name, resume):
+        return _argv("fit", scene, out, name, 16, preset=preset, extra=(
+            "model.gaussian.sh_degree=1", "fit.log_interval=2",
+            "fit.save_iterations=[8]", "fit.save_ply=false",
+            f"fit.resume={resume}",
+            "model.density.init_args.densify_from_iter=1",
+            "model.density.init_args.densification_interval=4", *sim))
+
+    out = str(tmp_path)
+    ref, _ = cli.main(argv("ref", "never"))
+    step_8 = os.path.join(out, "ref", "checkpoints", "step_8")
+    capsys.readouterr()
+    res, _ = cli.main(argv("res", step_8))
+    assert "-> continuing at 9" in capsys.readouterr().out
+    assert res.params.fields() == ref.params.fields()
+    for k in ref.params.fields():
+        assert torch.equal(getattr(res.params, k), getattr(ref.params, k)), k
+        assert torch.equal(res.opt_state.exp_avg[k],
+                           ref.opt_state.exp_avg[k]), k
+        assert torch.equal(res.opt_state.exp_avg_sq[k],
+                           ref.opt_state.exp_avg_sq[k]), k
+        assert res.opt_state.count_of(k) == ref.opt_state.count_of(k), k
+    assert torch.equal(res.alive, ref.alive)
+    assert ref.gaussians.n_alive != 400               # the densifies ran
+
+    def flat(x, prefix=""):
+        if isinstance(x, dict):
+            return {k2: v2 for k, v in x.items()
+                    for k2, v2 in flat(v, f"{prefix}{k}/").items()}
+        return {prefix: x}
+
+    got, want = flat(res.extra), flat(ref.extra)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert (torch.equal(got[k], want[k])
+                if isinstance(want[k], torch.Tensor)
+                else got[k] == want[k]), k
+    if preset == "appearance_embedding.yaml":
+        # 14 network updates (steps 3-16) and 3 similarity steps (5, 10,
+        # 15) of the features alone
+        assert want["__net__/opt/count/"] == 14
+        assert ref.opt_state.solo_counts == {"appearance_features": 3}
+    else:
+        assert want["__outproc_opt__/count/"] == 16
+        assert not torch.equal(want["__outproc__/"],
+                               _identity_grids(N_VIEWS))
+
+
+def _identity_grids(n):
+    from gsl_tpu_torch.training.output_processors import (
+        BilateralGridConfig, init_bilateral_grids)
+    return init_bilateral_grids(BilateralGridConfig(n_images=n))
 
 
 @pytest.mark.parametrize("preset,extra", [

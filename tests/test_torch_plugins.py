@@ -288,7 +288,8 @@ def test_registry_and_the_cli_plugin_list():
     assert plugins[1].config.ground_alt == -1.5
     trainer, _, _ = cli.build_components({"plugins": ["ground_reg"]})
     assert type(trainer.plugins[0]).__name__ == "GroundRegPlugin"
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 12\b"):
-        cli.build_plugins(["freeze_bilagrid"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 12\b"):
-        Trainer(output_processor=object())
+    (freeze,) = cli.build_plugins(["freeze_bilagrid"])
+    assert type(freeze).__name__ == "FreezeBilagridPlugin"
+    assert freeze.config.freeze_from == 15_000
+    bilagrid = cli._PROCESSORS["bilagrid"]()
+    assert Trainer(output_processor=bilagrid).output_processor is bilagrid
