@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port's render and training paths (3DGS, 2DGS,
 StopThePop, Mip-Splatting, MCMC, the depth, normal and ground
-regularisers, the appearance slice), of its fit through the CLI and of
-2DGS mesh extraction on one CUDA card.
+regularisers, the appearance slice, the density variants and Glossy), of
+its fit through the CLI and of 2DGS mesh extraction on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -235,6 +235,39 @@ package is not beside this script. Phases, each fatal on failure:
    (each above the initial cloud's val PSNR; a processor's parameters for
    the 24 train images). Each launches K1-K4 and nothing else. Prints what
    phase 9 (b) prints, beside phase 8's colmap.yaml of the same run.
+12. density variants: (a) phase 5's perturbed scene at capacity 1M, its
+   three views, statistics from 3 vanilla steps: accumulate_blend_weights
+   at the bench pose (K1-K4 once; Sum_i of it / 3 must equal the rendered
+   alpha's sum within rtol 1e-4), K1-K4 held against their plain versions
+   on Taming's pixel-weight cotangent as phase 10 holds them; at capacity
+   2M, Taming's scores over the three views (K1, K2 once a view, K3, K4
+   twice) and one round under a budget of the alive count + 50,000 (it
+   must add rows and stay under it); one densify each of the static
+   (its hook must return the state as it was), Revising (each clone and
+   its copy at 1 - sqrt(1 - alpha)), no-culling-big-scale, H3DGS (its
+   selection must be its score's), accurate-visibility and
+   background-removal controllers (the rows outside phase 8's cameras'
+   sphere must sit at raw opacity -15 and be pruned); 10 GNS steps in its
+   regularisation phase through GNSHooks, a GNS densify (at most 50,000
+   more) on the edge-weighted blend over the three views and a final
+   prune that must leave exactly 900,000; a LightGaussian prune over the
+   three views that must remove floor(0.6 n); 10 GlossyTrainer steps
+   whose env map and metalness must move. Each step launches K1-K4 once
+   and nothing else; losses and parameters finite. Prints the ms of each
+   step beside phase 5's plain step, and of each score, densify and prune
+   pass. (b) On phase 8's scene through the CLI (short schedules by
+   overrides): revising.yaml and, by class_path, H3DGS, no-culling-big-
+   scale, static (whose count must not change), background removal (from
+   step 50) and accurate visibility, 100 steps each with one densify at
+   100; taming.yaml with rounds at 200, 300 and 400, each at or under its
+   point on the count curve; gns.yaml with a budget of 60,000, densifying
+   at 200 and regularising from 300 to 500, fitted to 400 (over the
+   budget) and resumed to 500 (must continue at 401 and end at or under
+   the budget); light_gaussian.yaml pruning at 200 and 300 (floor(0.6 n)
+   and floor(0.36 n) of the rows alive after the densify there);
+   glossy.yaml for 150 steps (the env map's Adam at 150 steps). Each fit
+   launches K1-K4 and nothing else and must end above the initial cloud's
+   val PSNR. Prints what phase 9 (b) prints.
 
 Bounds in the kernels line: the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM f32 without tensor cores). K1 moves 52
@@ -290,6 +323,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -315,7 +349,8 @@ from gsl_tpu_torch.ops.surfel import project_surfels
 from gsl_tpu_torch.ops.transforms import normalize_quat, quat_to_rotmat
 from gsl_tpu_torch.models.gaussian import (PARAM_FIELDS, GaussianParams,
                                            GaussianState,
-                                           VanillaGaussianConfig)
+                                           VanillaGaussianConfig,
+                                           inverse_sigmoid)
 from gsl_tpu_torch.models.appearance import AppearanceFeatureGaussianConfig
 from gsl_tpu_torch.models.gaussian_2d import Gaussian2DConfig
 from gsl_tpu_torch.models.mip_splatting import (MipSplattingConfig,
@@ -327,14 +362,29 @@ from gsl_tpu_torch.renderers.tile_renderer import TileRendererConfig
 from gsl_tpu_torch.tools import get_depth_scales, gs2d_mesh_extraction
 from gsl_tpu_torch.training.appearance_trainer import (
     AppearanceOptimizationConfig, AppearanceTrainer)
-from gsl_tpu_torch.training.density import VanillaDensityControllerConfig
+from gsl_tpu_torch.training.density import (
+    AccurateVisibilityFilterDensityControllerConfig,
+    BackgroundRemovalDensityControllerConfig, H3DGSDensityControllerConfig,
+    NoCullingBigScaleDensityControllerConfig,
+    RevisingDensityControllerConfig, StaticDensityControllerConfig,
+    VanillaDensityControllerConfig, background_removal_step,
+    densify_and_prune, densify_masks, mean_grads)
 from gsl_tpu_torch.training.depth_trainer import (DepthMetricsConfig,
                                                   DepthTrainer)
 from gsl_tpu_torch.training.plugins import (GroundRegPluginConfig,
                                             NormalRegPluginConfig)
 from gsl_tpu_torch.training.fit import FitConfig, _init_gaussians, validate
+from gsl_tpu_torch.training.glossy_trainer import GlossyTrainer
+from gsl_tpu_torch.training.gns import (GNSController,
+                                        GNSDensityControllerConfig,
+                                        edge_weighted_blend_scores,
+                                        final_budget_prune, gns_densify)
 from gsl_tpu_torch.training.gs2d import GS2DMetricsConfig, GS2DTrainer
-from gsl_tpu_torch.training.hooks import FitContext, MCMCDensityHook
+from gsl_tpu_torch.training.hooks import (FitContext, GNSHooks,
+                                          MCMCDensityHook, StaticDensityHook)
+from gsl_tpu_torch.training.light_gaussian import (accumulate_blend_weights,
+                                                   bias_render,
+                                                   prune_by_importance)
 from gsl_tpu_torch.training.mcmc import (MCMCDensityControllerConfig,
                                          dead_mask, grow_target)
 from gsl_tpu_torch.training.metrics import MCMCMetricsConfig, train_loss
@@ -342,6 +392,9 @@ from gsl_tpu_torch.training.opt_strategies import (GradAccConfig,
                                                    GradAccTrainer)
 from gsl_tpu_torch.training.output_processors import (BilateralGridConfig,
                                                       ExposureConfig)
+from gsl_tpu_torch.training.taming import (
+    ScoreCoefficients, Taming3DGSDensityControllerConfig,
+    compute_gaussian_scores, get_edges, pixel_weights, taming_densify)
 from gsl_tpu_torch.training.trainer import Trainer, TrainerConfig
 from gsl_tpu_torch.training.visibility_map_trainer import \
     VisibilityMapAppearanceTrainer
@@ -1984,9 +2037,15 @@ def log_fit(tag, fits, warm=()):
                     f"alive, {d['dead']} dead relocated, {d['added']} added "
                     f"-> {d['after']}")
                 continue
+            if "net" in d:      # a GNS round: its split and opacity prune
+                log(f"{tag}: densify at step {d['step']}: {d['before']} "
+                    f"alive, budget {d['budget']}, net change {d['net']} "
+                    f"-> {d['after']}")
+                continue
+            budget = f" (budget {d['budget']})" if "budget" in d else ""
             log(f"{tag}: densify at step {d['step']}: {d['before']} alive, "
                 f"{d['clone']} cloned, {d['split']} split, {d['pruned']} "
-                f"pruned -> {d['after']}")
+                f"pruned -> {d['after']}{budget}")
 
 
 def phase_fit(arrays, tmp):
@@ -2413,12 +2472,13 @@ def geometry_channels(state, renderer, cam, proj, C):
     return op.contiguous(), torch.cat([rgb, d, normals], 1).contiguous()
 
 
-def hold_raster_kernels(vname, proj, opac, ch, n, seed):
+def hold_raster_kernels(vname, proj, opac, ch, n, seed, cotangents=None):
     """K1-K4 at the bench pose on the opacities `opac` and channels `ch`
     of a projection, held against their plain versions as phase 3 holds
     them (K1 bit for bit, K2's stops and values at its shares, K3's
-    columns, K4's sums), K2 twice and built without contraction. Returns
-    the (K2, K3) ms of a CUDA graph replay."""
+    columns, K4's sums), K2 twice and built without contraction. K3 takes
+    the (image [H, W, C], alpha [H, W]) `cotangents`, or random ones drawn
+    from `seed`. Returns the (K2, K3) ms of a CUDA graph replay."""
     tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
     C = ch.shape[1]
     tag = f"{vname} C={C}"
@@ -2454,11 +2514,12 @@ def hold_raster_kernels(vname, proj, opac, ch, n, seed):
     log(f"K2 bench {tag}: i_stop agrees on {share:.6f}, max abs err "
         f"{err:.3e}; identical in two runs; built without contraction "
         f"i_stop agrees on {ustop:.7f}; {n_valid} valid slots")
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    bwd = (m2d, con, opac, ch, gids, bounds,
-           torch.randn((H, W, C), generator=gen, device="cuda"),
-           torch.randn((H, W), generator=gen, device="cuda"), got[1],
-           got[2], TILE)
+    if cotangents is None:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        cotangents = (torch.randn((H, W, C), generator=gen, device="cuda"),
+                      torch.randn((H, W), generator=gen, device="cuda"))
+    bwd = (m2d, con, opac, ch, gids, bounds, *cotangents, got[1], got[2],
+           TILE)
     check_backward(vname, C, bwd, isects, order, n, False)
     return (graph_ms(lambda: R.rasterize_fwd(*fwd), 20),
             graph_ms(lambda: R.rasterize_bwd(*bwd), 20))
@@ -3102,6 +3163,466 @@ def phase_appearance_fits(tmp, colmap_fit):
         f"{colmap_fit['psnr']:.4f}")
 
 
+# ---- phase 12: density variants --------------------------------------------
+
+DENSITY_STEPS = 3            # vanilla steps whose statistics phase 12 uses
+DENSITY_CAPACITY = 1 << 21   # the densify passes' capacity (2x the rows)
+DENSITY_ROOM = 50_000        # rows a Taming round and a GNS densify may add
+GNS_STEPS, GNS_BUDGET = 10, 900_000
+GLOSSY_STEPS = 10
+BLEND_RTOL = 1e-4            # Sum_i blend_i / 3 against Sum_pixels alpha
+SHORT_FIT_STEPS = 100
+TAMING_FIT_STEPS, GNS_FIT_STEPS, GNS_RESUME_STEPS = 400, 400, 500
+GNS_FIT_BUDGET = 60_000
+LG_FIT_STEPS, LG_FIT_PRUNES, GLOSSY_FIT_STEPS = 300, (200, 300), 150
+
+
+def expect_launches(what, want):
+    """Fails unless the launches since the counters were zeroed are `want`
+    (kernel -> count) and nothing else."""
+    counts = read_launches()
+    full = {k: want.get(k, 0) for k in counts}
+    if counts != full:
+        fail(f"{what}: launches {counts}, not {want}")
+
+
+def timed(fn):
+    """(fn(), ms by host clock around it, synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_density_variants(arrays, plain_step_ms):
+    """Phase 12 (a): the blend weights and their kernels, Taming, the six
+    density controllers, GNS, LightGaussian and Glossy at full width."""
+    log("== phase 12 (a): blend weights, Taming, the six density "
+        "controllers, GNS, LightGaussian and Glossy at 1088x1920, capacity "
+        f"1M; times on {CARD}")
+    bg = torch.zeros(3, device="cuda")
+    cams = [camera(c2w) for c2w in views().values()]
+    renderer = TileRendererConfig().instantiate()
+    truth = state_from_raw_arrays(arrays, device="cuda")
+    with torch.no_grad():
+        targets = [renderer.forward(truth, c, H, W, bg, SH_DEGREE).render
+                   for c in cams]
+    del truth
+    model = VanillaGaussianConfig(sh_degree=SH_DEGREE)
+    trainer = Trainer(model=model)
+    state = trainer.setup(state_from_raw_arrays(perturbed(arrays),
+                                                device="cuda"),
+                          cameras_extent=TRAIN_EXTENT)
+    state, _, step_ms, _ = variant_steps("statistics", trainer, state, cams,
+                                         targets, bg, 1, DENSITY_STEPS)
+    gs = state.gaussians
+    n = gs.n_alive
+
+    # the blend weights at the bench pose, and the identity they obey
+    render = bias_render(renderer, SH_DEGREE, bg)
+    reset_launches()
+    blend, blend_ms = timed(lambda: accumulate_blend_weights(
+        render, gs, [cams[0]]))
+    expect_launches("blend weights", {k: 1 for k in GAUSSIAN_KERNELS})
+    with torch.no_grad():
+        alpha = renderer.forward(gs, cams[0], H, W, bg, SH_DEGREE,
+                                 render_types=frozenset({"rgb", "alpha"})
+                                 ).alpha
+    got, want = float(blend.double().sum()) / 3.0, \
+        float(alpha.double().sum())
+    if not abs(got - want) <= BLEND_RTOL * want:
+        fail(f"blend weights: Sum_i blend_i / 3 = {got}, Sum alpha = {want}")
+    log(f"blend weights at the bench pose: Sum_i blend_i / 3 = {got:.6f}, "
+        f"Sum_pixels alpha = {want:.6f} (relative difference "
+        f"{abs(got - want) / want:.3e}); {blend_ms:.2f} ms, K1-K4 once")
+
+    # K1-K4 on Taming's pixel-weight cotangent at the bench pose
+    coeffs = ScoreCoefficients()
+    cam = cams[0]
+    with torch.no_grad():
+        proj = project_gaussians(
+            gs.get_means(), gs.get_scales(), gs.get_rotations(),
+            cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, W, H)
+        img = renderer.forward(gs, cam, H, W, bg, SH_DEGREE).render
+        weights = pixel_weights(img, targets[0], coeffs)
+        k2, k3 = hold_raster_kernels(
+            "taming pixel weights", proj,
+            renderer.get_opacities(gs, cam, proj).contiguous(),
+            renderer.get_rgbs(gs, cam, SH_DEGREE).contiguous(),
+            gs.capacity, 0, cotangents=(
+                weights[..., None].expand(H, W, 3).contiguous(),
+                torch.zeros((H, W), device="cuda")))
+    log(f"K2 and K3 ms on Taming's pixel weights at the bench pose (CUDA "
+        f"graph, mean of 20 replays): K2 {k2:.4f}, K3 {k3:.4f}")
+    del proj, img, weights
+
+    # Taming: the scores over the three views and one budgeted round
+    grown = trainer.grow_state(state, DENSITY_CAPACITY)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    def score():
+        return compute_gaussian_scores(
+            renderer, grown.gaussians, cams, targets,
+            mean_grads(grown.density), bg, SH_DEGREE, coeffs)
+
+    reset_launches()
+    _, first_score_ms = timed(score)
+    expect_launches("Taming scores", {
+        "expand": 3, "rasterize_fwd": 3, "rasterize_bwd": 6,
+        "reduce_grads": 6})
+    scores, score_ms = timed(score)
+    budget = n + DENSITY_ROOM
+    taming = Taming3DGSDensityControllerConfig()
+    clone, split = densify_masks(grown.gaussians, grown.density, taming,
+                                 TRAIN_EXTENT)
+    (tstate, _, _, n_trunc), taming_ms = timed(lambda: taming_densify(
+        gen, grown.gaussians, grown.opt_state, grown.density, taming,
+        scores, budget, TRAIN_EXTENT, TRAIN_EXTENT, False))
+    n_taming = tstate.n_alive
+    if int(n_trunc) or not n < n_taming <= budget:
+        fail(f"Taming: {n} -> {n_taming} alive under a budget of {budget}")
+    log(f"Taming: scores over {len(cams)} views {score_ms:.2f} ms (the "
+        f"first call {first_score_ms:.2f}; K1, K2 once a view, K3, K4 "
+        f"twice), positive in {int((scores > 0).sum())}"
+        f" rows; a round under the budget {budget} from {n} alive "
+        f"({int(clone.sum())} clone and {int(split.sum())} split "
+        f"candidates) {taming_ms:.2f} ms -> {n_taming} alive")
+    del tstate, scores
+
+    # the six controllers, one densify each from the same statistics
+    d = grown.density
+    gs2 = grown.gaussians
+    ms = {}
+    static = StaticDensityControllerConfig(densify_from_iter=0,
+                                           densification_interval=1)
+    hook = StaticDensityHook(FitContext(
+        trainer=Trainer(density=static), outputs=None, dataset=None,
+        cfg=FitConfig(), bg=bg))
+    if hook(grown, gen, 100) is not grown or hook.densifies_at(100):
+        fail("the static hook changed the state")
+    ms["static"] = 0.0
+    said = []
+    for name, cfg in (
+            ("Revising", RevisingDensityControllerConfig()),
+            ("no-culling-big-scale",
+             NoCullingBigScaleDensityControllerConfig()),
+            ("H3DGS", H3DGSDensityControllerConfig()),
+            ("accurate visibility",
+             AccurateVisibilityFilterDensityControllerConfig()),
+            ("background removal",
+             BackgroundRemovalDensityControllerConfig())):
+        src_state = gs2
+        if name == "background removal":
+            centers = np.stack([c2w[:3, 3] for c2w in fit_poses()])
+            center = centers.mean(0)
+            radius = float(np.linalg.norm(centers - center, axis=-1).max())
+            src_state = background_removal_step(gs2, center, radius)
+            dist = torch.linalg.norm(gs2.params.means - torch.tensor(
+                center, dtype=torch.float32, device="cuda"), dim=-1)
+            outside = (dist > radius) & gs2.alive
+            op = src_state.params.opacities[:, 0]
+            if not (bool((op[outside] == -15.0).all()) and torch.equal(
+                    op[~outside], gs2.params.opacities[~outside, 0])):
+                fail("background removal: the rows outside the sphere are "
+                     "not the ones at raw opacity -15")
+        clone, split = densify_masks(src_state, d, cfg, TRAIN_EXTENT)
+        (out, _, _, n_trunc), ms[name] = timed(lambda: densify_and_prune(
+            gen, src_state, grown.opt_state, d, cfg, TRAIN_EXTENT,
+            TRAIN_EXTENT, True))
+        n_sel = int(clone.sum() + split.sum())
+        if int(n_trunc):
+            fail(f"{name}: truncated {int(n_trunc)}")
+        line = (f"{name}: {int(clone.sum())} cloned, {int(split.sum())} "
+                f"split, {n} -> {out.n_alive} alive, {ms[name]:.2f} ms")
+        if name == "Revising":
+            # the children fill the first free slots in their sources'
+            # order, each a copy of its source as the pass left it
+            free = torch.nonzero(~gs2.alive).flatten()[:n_sel]
+            src = torch.nonzero(clone | split).flatten()
+            new = out.params.opacities[:, 0]
+            alpha_now = torch.sigmoid(gs2.params.opacities[:, 0])
+            raw_hat = inverse_sigmoid(torch.clamp(1.0 - torch.sqrt(
+                torch.clamp(1.0 - alpha_now, min=1e-8)), 1e-6, 1.0 - 1e-6))
+            if not (torch.equal(new[clone], raw_hat[clone])
+                    and torch.equal(new[free], new[src])):
+                fail("Revising: a clone and its copy do not both hold "
+                     "1 - sqrt(1 - alpha)")
+            line += "; each clone and its copy at 1 - sqrt(1 - alpha)"
+        elif name == "H3DGS":
+            op = torch.sigmoid(gs2.params.opacities[:, 0])
+            score = (d.grad_accum * d.max_radii
+                     * torch.pow(torch.clamp(op, min=1e-8), 0.2))
+            want = ((score >= cfg.densify_grad_threshold)
+                    & (op > cfg.clone_min_opacity) & gs2.alive)
+            if not torch.equal(clone | split, want) or n_sel == 0:
+                fail(f"H3DGS: selected {n_sel} rows, not its score's "
+                     f"{int(want.sum())}")
+            vc, vs = densify_masks(gs2, d, VanillaDensityControllerConfig(),
+                                   TRAIN_EXTENT)
+            line += (f"; selected by its score, {n_sel} rows where the "
+                     f"vanilla gate selects {int((vc | vs).sum())}")
+        elif name == "background removal":
+            if bool((out.alive & outside).any()):
+                fail("background removal: rows outside the sphere survived")
+            line += (f"; the {int(outside.sum())} rows outside the cameras' "
+                     f"sphere (radius {radius:.3f}) pruned")
+        said.append(line)
+        del out
+    for line in ["static: the state unchanged"] + said:
+        log(f"densify {line}")
+    del grown, gs2, d
+
+    # GNS: steps in the regularisation phase through its hook, a densify
+    # and the final prune
+    gns_cfg = GNSDensityControllerConfig(
+        budget=GNS_BUDGET, opacity_reg_from=1, opacity_reg_until=10_000)
+    gtrainer = Trainer(model=model, density=gns_cfg)
+    gstate = gtrainer.setup(state_from_raw_arrays(perturbed(arrays),
+                                                  device="cuda"),
+                            cameras_extent=TRAIN_EXTENT)
+    ghooks = GNSHooks(FitContext(trainer=gtrainer, outputs=None,
+                                 dataset=None, cfg=FitConfig(), bg=bg))
+    gstate = ghooks.init_state(gstate, None)
+    gns_ms, losses = [], []
+    for step in range(1, GNS_STEPS + 1):
+        view = step % len(cams)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        gstate, sc = ghooks(gstate, gen, step, SH_DEGREE, cams[view], "v",
+                            targets[view], None, H, W)
+        losses.append(float(sc["loss"]))
+        gns_ms.append((time.perf_counter() - t0) * 1e3)
+        check_step_launches("GNS", step)
+    ctl = GNSController.from_extra(gns_cfg, gstate.extra["__gns__"])
+    if not (all(math.isfinite(x) for x in losses)
+            and ctl.opacity_min is not None
+            and ctl.opacity_update_factor(GNS_STEPS, n) == 4.0):
+        fail(f"GNS steps: losses {losses}, controller {ctl}")
+    ggrown = gtrainer.grow_state(gstate, DENSITY_CAPACITY)
+    reset_launches()
+    importance, edge_ms = timed(lambda: edge_weighted_blend_scores(
+        renderer, ggrown.gaussians, cams, [get_edges(t) for t in targets],
+        bg, SH_DEGREE))
+    expect_launches("GNS edge-weighted blend", {
+        k: len(cams) for k in GAUSSIAN_KERNELS})
+    (dense, opt2, _, n_trunc), gdensify_ms = timed(lambda: gns_densify(
+        gen, ggrown.gaussians, ggrown.opt_state, ggrown.density, gns_cfg,
+        importance, n + DENSITY_ROOM))
+    n_dense = dense.n_alive
+    (pruned, _), prune_ms = timed(lambda: final_budget_prune(
+        gen, dense, opt2, GNS_BUDGET))
+    if int(n_trunc) or n_dense > n + DENSITY_ROOM \
+            or pruned.n_alive != GNS_BUDGET:
+        fail(f"GNS: densify {n} -> {n_dense} (budget {n + DENSITY_ROOM}), "
+             f"final prune -> {pruned.n_alive}, not {GNS_BUDGET}")
+    log(f"GNS: ms per step (regulariser in the loss, opacity update x4) "
+        f"{[round(x, 2) for x in gns_ms]}, median "
+        f"{float(np.median(gns_ms[1:])):.2f} (phase 5's plain step in this "
+        f"run {plain_step_ms:.2f}); reg weight {ctl.reg_weight:.3g}, "
+        f"opacity goal start {ctl.opacity_min:.4f}; edge-weighted blend "
+        f"over {len(cams)} views {edge_ms:.2f} ms; densify {n} -> "
+        f"{n_dense} in {gdensify_ms:.2f} ms; final prune -> "
+        f"{pruned.n_alive} in {prune_ms:.2f} ms")
+    del gstate, ggrown, dense, opt2, pruned, importance, ghooks
+
+    # LightGaussian: one prune over the three views
+    reset_launches()
+    imp, lg_imp_ms = timed(lambda: accumulate_blend_weights(render, gs,
+                                                            cams))
+    expect_launches("LightGaussian importance",
+                    {k: len(cams) for k in GAUSSIAN_KERNELS})
+    (lstate, _, n_pruned), lg_ms = timed(lambda: prune_by_importance(
+        gs, state.opt_state, imp, 0.6))
+    want = int(np.float32(n) * np.float32(0.6))
+    if int(n_pruned) != want or want != math.floor(n * 0.6) \
+            or lstate.n_alive != n - want:
+        fail(f"LightGaussian: pruned {int(n_pruned)} of {n}, not {want}")
+    log(f"LightGaussian: importance over {len(cams)} views "
+        f"{lg_imp_ms:.2f} ms, prune {lg_ms:.2f} ms: {want} of {n} rows "
+        f"(floor(0.6 n))")
+    del lstate, imp, state, gs
+
+    # Glossy
+    glossy = GlossyTrainer(model=model)
+    gl = glossy.setup(state_from_raw_arrays(perturbed(arrays), device="cuda"),
+                      cameras_extent=TRAIN_EXTENT)
+    first = gl
+    gl_ms, losses = [], []
+    for step in range(1, GLOSSY_STEPS + 1):
+        view = step % len(cams)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        gl, sc = glossy.train_step_glossy(gl, cams[view], targets[view], H,
+                                          W, SH_DEGREE, bg)
+        losses.append(float(sc["loss"]))
+        gl_ms.append((time.perf_counter() - t0) * 1e3)
+        check_step_launches("Glossy", step)
+    env_moved = float((gl.extra["__glossy__"]["envmap"]
+                       - first.extra["__glossy__"]["envmap"]).abs().max())
+    metal_moved = float((gl.params.metalness
+                         - first.params.metalness).abs().max())
+    if not (all(math.isfinite(x) for x in losses) and env_moved > 0
+            and metal_moved > 0 and all(
+                bool(torch.isfinite(getattr(gl.params, k)).all())
+                for k in gl.params.fields())):
+        fail(f"Glossy: losses {losses}, env map moved {env_moved}, "
+             f"metalness {metal_moved}")
+    log(f"Glossy: ms per step {[round(x, 2) for x in gl_ms]}, median "
+        f"{float(np.median(gl_ms[1:])):.2f} (phase 5's plain step in this "
+        f"run {plain_step_ms:.2f}); loss {losses[0]:.6g} -> "
+        f"{losses[-1]:.6g}; env map moved by up to {env_moved:.3g}, "
+        f"metalness by up to {metal_moved:.3g}; K1-K4 once a step")
+    log(f"statistics steps (vanilla) ms {[round(x, 2) for x in step_ms]}")
+
+
+def phase_density_fits(tmp, colmap_fit):
+    """Phase 12 (b): the density variants and Glossy through the CLI on
+    phase 8's scene."""
+    log("== phase 12 (b): revising.yaml, taming.yaml, gns.yaml (resumed), "
+        "light_gaussian.yaml, glossy.yaml and five controllers by "
+        f"class_path through gsl_tpu_torch.cli on phase 8's scene; times on "
+        f"{CARD}")
+    data, runs = os.path.join(tmp, "scene"), os.path.join(tmp, "runs")
+    colmap = os.path.join(PRESETS, "colmap.yaml")
+    windows = (f"fit.log_interval={VARIANT_LOG_INTERVAL}",)
+    short = windows + ("model.density.init_args.densify_from_iter=50",
+                       "model.density.init_args.densification_interval=50")
+    every_100 = windows + (
+        "model.density.init_args.densify_from_iter=100",
+        "model.density.init_args.densification_interval=100")
+    psnr0 = colmap_fit["psnr0"]
+
+    def argv(name, steps, presets=(), extra=()):
+        configs = [a for p in presets for a in (
+            "--config", os.path.join(PRESETS, p))]
+        return ["fit", "--config", colmap, *configs, "--data.path", data,
+                "--output", runs, "-n", name, "--max_steps", str(steps),
+                *extra]
+
+    def fitted(name, f, steps, said=""):
+        psnr = f["results"]["psnr"]
+        if not psnr > psnr0:
+            fail(f"fit {name}: val PSNR {psnr:.3f} dB at step {steps} is "
+                 f"not above the initial cloud's {psnr0:.3f}")
+        log(f"fit {name}: val PSNR {psnr:.4f} dB at step {steps}{said}")
+
+    runs_by = {}
+    for name, class_path, extra in (
+            ("revising.yaml", None, ()),
+            ("H3DGS", "H3DGSDensityController", ()),
+            ("NoCullingBigScale", "NoCullingBigScaleDC", ()),
+            ("Static", "StaticDensityController", ()),
+            ("BackgroundRemoval", "BackgroundRemoval",
+             ("model.density.init_args.background_removal_from=50",)),
+            ("AccurateVisibility",
+             "AccurateVisibilityFilterDensityController", ())):
+        presets = (name,) if class_path is None else ()
+        over = short + extra + ((f"model.density.class_path={class_path}",)
+                                if class_path else ())
+        f = run_cli(argv(name.split(".")[0], SHORT_FIT_STEPS, presets, over),
+                    GAUSSIAN_KERNELS)
+        counts = [int(r[2]) for r in f["rows"]]
+        rounds = f["timing"]["densify"]
+        if name == "Static":
+            if rounds or set(counts) != {SFM_POINTS}:
+                fail(f"fit Static: densify rounds {rounds}, counts {counts}")
+        elif len(rounds) != 1:
+            fail(f"fit {name}: {len(rounds)} densify rounds")
+        state = f.pop("state")
+        fitted(name, f, SHORT_FIT_STEPS,
+               f"; the count stayed at {SFM_POINTS}" if name == "Static"
+               else "")
+        del state
+        log_fit(f"fit {name}", [f])
+        runs_by[name] = f
+        torch.cuda.empty_cache()
+
+    # Taming: rounds at 200, 300 and 400, each at or under its point
+    f = run_cli(argv("taming", TAMING_FIT_STEPS, ("taming.yaml",),
+                     every_100 + ("model.density.init_args."
+                                  "densify_until_iter=401",)),
+                GAUSSIAN_KERNELS)
+    f.pop("state")
+    rounds = f["timing"]["densify"]
+    if [r["step"] for r in rounds] != [200, 300, 400] or any(
+            r["after"] > r["budget"] for r in rounds):
+        fail(f"fit taming.yaml: rounds {rounds}")
+    fitted("taming.yaml", f, TAMING_FIT_STEPS, "; rounds (step, budget, "
+           "alive after) " + str([(r["step"], r["budget"], r["after"])
+                                  for r in rounds]))
+    log_fit("fit taming.yaml", [f])
+    torch.cuda.empty_cache()
+
+    # GNS: to 400, resumed to 500 across its regularisation phase
+    gns = every_100 + (
+        f"model.density.init_args.budget={GNS_FIT_BUDGET}",
+        "model.density.init_args.densify_until_iter=300",
+        "model.density.init_args.opacity_reg_from=300",
+        "model.density.init_args.opacity_reg_until=500")
+    first = run_cli(argv("gns", GNS_FIT_STEPS, ("gns.yaml",), gns),
+                    GAUSSIAN_KERNELS)
+    n_first = first.pop("state").gaussians.n_alive
+    second = run_cli(argv("gns", GNS_RESUME_STEPS, ("gns.yaml",), gns),
+                     GAUSSIAN_KERNELS)
+    end = second.pop("state")
+    if f"-> continuing at {GNS_FIT_STEPS + 1}" not in second["said"] \
+            or not n_first > GNS_FIT_BUDGET \
+            or end.gaussians.n_alive > GNS_FIT_BUDGET:
+        fail(f"fit gns.yaml: {n_first} alive at {GNS_FIT_STEPS}, "
+             f"{end.gaussians.n_alive} at {GNS_RESUME_STEPS} after the "
+             "resume")
+    fitted("gns.yaml", second, GNS_RESUME_STEPS,
+           f"; {n_first} alive at step {GNS_FIT_STEPS}, resumed at "
+           f"{GNS_FIT_STEPS + 1}, {end.gaussians.n_alive} alive at the end "
+           f"(budget {GNS_FIT_BUDGET}); controller {end.extra['__gns__']}")
+    del end
+    log_fit("fit gns.yaml", [first, second])
+    torch.cuda.empty_cache()
+
+    # LightGaussian: prunes at 200 and 300, after the densify there
+    f = run_cli(argv("light_gaussian", LG_FIT_STEPS, ("light_gaussian.yaml",),
+                     every_100 + ("fit.lg_prune_steps="
+                                  f"{list(LG_FIT_PRUNES)}",)),
+                GAUSSIAN_KERNELS)
+    f.pop("state")
+    after = {r["step"]: r["after"] for r in f["timing"]["densify"]}
+    pruned = {int(m[1]): int(m[0]) for m in re.findall(
+        r"\[fit\] LightGaussian pruned (\d+) at (\d+)", f["said"])}
+    want = {s: int(np.float32(after[s]) * np.float32(0.6 * 0.6 ** i))
+            for i, s in enumerate(LG_FIT_PRUNES)}
+    if pruned != want:
+        fail(f"fit light_gaussian.yaml: pruned {pruned}, not {want} of "
+             f"{after}")
+    fitted("light_gaussian.yaml", f, LG_FIT_STEPS,
+           f"; pruned (step: rows of the alive after the densify there) "
+           f"{ {s: (pruned[s], after[s]) for s in LG_FIT_PRUNES} }")
+    log_fit("fit light_gaussian.yaml", [f])
+    torch.cuda.empty_cache()
+
+    # Glossy
+    f = run_cli(argv("glossy", GLOSSY_FIT_STEPS, ("glossy.yaml",), short),
+                GAUSSIAN_KERNELS)
+    state = f.pop("state")
+    env = state.extra["__glossy__"]
+    metal = state.params.metalness[state.alive]
+    if env["opt"]["count"] != GLOSSY_FIT_STEPS or not float(
+            metal.std()) > 0:
+        fail(f"fit glossy.yaml: env Adam count {env['opt']['count']}")
+    fitted("glossy.yaml", f, GLOSSY_FIT_STEPS,
+           f" (SH colours, no specular term, as gsl_tpu validates); "
+           f"metalness mean {float(torch.sigmoid(metal).mean()):.4f}, "
+           f"env map in [{float(env['envmap'].min()):.3f}, "
+           f"{float(env['envmap'].max()):.3f}]")
+    del state, env, metal
+    log_fit("fit glossy.yaml", [f])
+    log(f"phase 8's colmap.yaml in this run, for comparison: "
+        f"{colmap_fit['ms']:.2f} ms a step (median of its windows after "
+        f"each run's first), val PSNR of the initial cloud "
+        f"{colmap_fit['psnr0']:.4f} dB")
+
+
 def tensors_of(x):
     """The tensors and numbers of nested dicts, in key order."""
     if isinstance(x, dict):
@@ -3212,6 +3733,11 @@ def main():
             arrays, float(np.median(training["step_ms"][5:TRAIN_STEPS])))
         torch.cuda.empty_cache()
         phase_appearance_fits(tmp, colmap_fit)
+        torch.cuda.empty_cache()
+        phase_density_variants(
+            arrays, float(np.median(training["step_ms"][5:TRAIN_STEPS])))
+        torch.cuda.empty_cache()
+        phase_density_fits(tmp, colmap_fit)
     # StopThePop beside plain 3DGS, phases 7 and 4/5 of this run
     log("StopThePop over plain 3DGS, this run: bench-pose rgb frame ms "
         f"{[round(x, 2) for x in stp_serving['rgb_frame_ms']]} vs "

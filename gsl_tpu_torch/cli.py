@@ -11,10 +11,14 @@ The same YAML files drive both packages. Fields that exist only for the
 TPU (`TPU_ONLY_FIELDS`) are accepted and ignored with one printed line.
 Components, fields and keys of variants the port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP item; any other unknown field
-raises ``KeyError``. Two variants that gsl_tpu's CLI combines but whose
-step applies only one (an appearance model with an output processor,
-gradient accumulation, a depth or 2DGS metric or plugins; gradient
-accumulation with an output processor) raise ``ValueError`` naming both.
+raises ``KeyError``. A ``class_path`` into gsl_tpu (``taming.yaml``
+names one) resolves through the registry, or raises
+``NotImplementedError``: it is never imported. Two variants that
+gsl_tpu's CLI combines but whose step applies only one (an appearance
+model with an output processor, gradient accumulation, a depth or 2DGS
+metric or plugins; gradient accumulation or Glossy with an output
+processor; Glossy with another variant trainer; GNS with a trainer whose
+step is not the plain one) raise ``ValueError`` naming both.
 Without ``model.n_appearances`` the appearance embedding is sized from the
 data at fit time.
 """
@@ -42,9 +46,16 @@ from .renderers.surfel_renderer import SurfelRendererConfig
 from .renderers.tile_renderer import TileRendererConfig
 from .training.appearance_trainer import AppearanceTrainer
 from .training.density import VanillaDensityControllerConfig
+from .training.density import (
+    AccurateVisibilityFilterDensityControllerConfig,
+    BackgroundRemovalDensityControllerConfig, H3DGSDensityControllerConfig,
+    NoCullingBigScaleDensityControllerConfig,
+    RevisingDensityControllerConfig, StaticDensityControllerConfig)
 from .training.depth_trainer import DepthMetricsConfig, DepthTrainer
 from .training.fit import (FitConfig, _round_capacity, fit, setup_state,
                            validate)
+from .training.glossy_trainer import GlossyTrainer
+from .training.gns import GNSDensityControllerConfig
 from .training.gs2d import GS2DMetricsConfig, GS2DTrainer
 from .training.mcmc import MCMCDensityControllerConfig
 from .training.metrics import MCMCMetricsConfig, VanillaMetricsConfig
@@ -52,6 +63,7 @@ from .training.opt_strategies import GradAccConfig, GradAccTrainer
 from .training.output_processors import BilateralGridConfig, ExposureConfig
 from .training.plugins import PLUGIN_REGISTRY
 from .training.similarity_reg import SimilarityRegConfig
+from .training.taming import Taming3DGSDensityControllerConfig
 from .training.trainer import Trainer, TrainerConfig
 from .training.visibility_map_trainer import VisibilityMapAppearanceTrainer
 from .utils.checkpoint import find_latest_checkpoint, load_checkpoint
@@ -67,6 +79,18 @@ _REGISTRY = {
     "SurfelRenderer": SurfelRendererConfig,
     "VanillaDensityController": VanillaDensityControllerConfig,
     "MCMCDensityController": MCMCDensityControllerConfig,
+    "StaticDensityController": StaticDensityControllerConfig,
+    "RevisingDensityController": RevisingDensityControllerConfig,
+    "NoCullingBigScaleDC": NoCullingBigScaleDensityControllerConfig,
+    "H3DGSDensityController": H3DGSDensityControllerConfig,
+    "AccurateVisibilityFilterDensityController":
+        AccurateVisibilityFilterDensityControllerConfig,
+    "BackgroundRemoval": BackgroundRemovalDensityControllerConfig,
+    "GNS": GNSDensityControllerConfig,
+    # taming.yaml names its class by gsl_tpu's module path; the port
+    # resolves that name here and never imports gsl_tpu
+    "gsl_tpu.training.taming.Taming3DGSDensityControllerConfig":
+        Taming3DGSDensityControllerConfig,
     "VanillaMetrics": VanillaMetricsConfig,
     "MCMCMetrics": MCMCMetricsConfig,
     "GS2DMetrics": GS2DMetricsConfig,
@@ -80,17 +104,12 @@ _REGISTRY = {
 # output_processor shorthands
 _PROCESSORS = {"bilagrid": BilateralGridConfig, "exposure": ExposureConfig}
 
-# components of gsl_tpu's registry (or class paths into gsl_tpu, which the
-# port never imports) that the port has not yet -> ROADMAP item
+# components of gsl_tpu's registry that the port has not yet -> ROADMAP
+# item
 _UNPORTED_COMPONENTS = {
     "NSVF": 12, "MatrixCity": 12, "Nerfies": 12,
     "SegAnyColmap": 12, "NGP": 12, "SpotLessColmap": 12, "SpotLessMetrics": 12,
-    "StaticDensityController": 12, "RevisingDensityController": 12,
-    "NoCullingBigScaleDC": 12, "H3DGSDensityController": 12,
-    "AccurateVisibilityFilterDensityController": 12,
-    "BackgroundRemoval": 12, "GNS": 12, "Feature3DGSColmap": 12,
-    "SILVR": 12, "PVG": 12, "PVGRenderer": 12,
-    "gsl_tpu.training.taming.Taming3DGSDensityControllerConfig": 12,
+    "Feature3DGSColmap": 12, "SILVR": 12, "PVG": 12, "PVGRenderer": 12,
 }
 
 # fields of gsl_tpu's configs that exist for the TPU's static shapes, its
@@ -101,12 +120,10 @@ TPU_ONLY_FIELDS = ("backend", "chunk", "pallas_chunk", "max_per_tile",
                    "size_bucket")
 
 # fields of gsl_tpu's FitConfig for features not ported yet -> ROADMAP item
-_UNPORTED_FIT_FIELDS = {"viewer": 14, "viewer_port": 14,
-                        "lg_prune_steps": 12, "lg_prune_percent": 12,
-                        "lg_prune_decay": 12, "lg_n_cameras": 12}
+_UNPORTED_FIT_FIELDS = {"viewer": 14, "viewer_port": 14}
 
 # top-level / model keys gsl_tpu's build_components reads for variants
-_UNPORTED_KEYS = {"distributed": 13, "glossy": 12, "deform": 12}
+_UNPORTED_KEYS = {"distributed": 13, "deform": 12}
 
 
 def _not_ported(what: str, item: int):
@@ -115,10 +132,18 @@ def _not_ported(what: str, item: int):
 
 
 def _resolve_class(path: str):
+    """A registry name, or a dotted path to import. A path into gsl_tpu
+    resolves only through the registry: the port never imports the JAX
+    package."""
     if path in _REGISTRY:
         return _REGISTRY[path]
     if path in _UNPORTED_COMPONENTS:
         raise _not_ported(path, _UNPORTED_COMPONENTS[path])
+    if path.split(".", 1)[0] == "gsl_tpu":
+        raise NotImplementedError(
+            f"{path} names a class of gsl_tpu, which gsl_tpu_torch never "
+            "imports, and the port has no counterpart registered for it; "
+            f"known: {list(_REGISTRY)}")
     if "." in path:
         mod, name = path.rsplit(".", 1)
         return getattr(importlib.import_module(mod), name)
@@ -254,6 +279,12 @@ def build_components(cfg: Dict):
             trainer_cls = VisibilityMapAppearanceTrainer
             if isinstance(vis_spec, dict) and "grid_type" in vis_spec:
                 kwargs["grid_type"] = vis_spec["grid_type"]
+    if model_spec.get("glossy") or cfg.get("glossy"):
+        if trainer_cls is not Trainer:
+            raise ValueError(
+                f"glossy with {trainer_cls.__name__}: gsl_tpu's glossy "
+                "step would drop the other trainer's step silently")
+        trainer_cls = GlossyTrainer       # (a processor: the trainer raises)
     if op_spec:
         if isinstance(op_spec, str):
             op_spec = {"class_path": op_spec}

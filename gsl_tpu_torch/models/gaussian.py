@@ -11,9 +11,10 @@ Mip-Splatting's `filter_3d`: a dict of tensors, where an entry whose first
 dimension is the capacity is per Gaussian and follows every row edit. An
 entry whose name starts with ``__`` is a variant's own state (a network, an
 output processor and their optimizers): no row edit touches it, whatever
-its shape. `GaussianParams.appearance_features` is the one optional
-trainable property ported (the appearance models'); the periodic-vibration
-fields come with their variant.
+its shape. `GaussianParams.appearance_features` (the appearance models')
+and `GaussianParams.metalness` (Glossy's) are the optional trainable
+properties ported; the periodic-vibration fields come with their
+variant.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from ..utils.device import resolve_device
 
 PARAM_FIELDS = ("means", "scales", "rotations", "opacities", "shs_dc",
                 "shs_rest")
-OPTIONAL_FIELDS = ("appearance_features",)
+OPTIONAL_FIELDS = ("appearance_features", "metalness")
 DEAD_LOG_SCALE = -10.0   # raw scale and opacity of a padding slot
 DEAD_LOGIT = -10.0
 
@@ -51,6 +52,7 @@ class GaussianParams:
     shs_dc: torch.Tensor      # [N, 1, 3]
     shs_rest: torch.Tensor    # [N, K-1, 3]
     appearance_features: Optional[torch.Tensor] = None   # [N, D] or None
+    metalness: Optional[torch.Tensor] = None   # [N] logit-space, or None
 
     @property
     def capacity(self) -> int:

@@ -1,8 +1,9 @@
 """Vanilla adaptive density control on the capacity-padded state.
 
-Port of ``gsl_tpu/training/density.py`` (vanilla controller): clone and
-split write into free slots, pruning clears `alive`, and the Adam moments
-of touched rows are zeroed.
+Port of ``gsl_tpu/training/density.py``: the vanilla controller and its
+variants (static, Revising, no-culling-big-scale, H3DGS, accurate
+visibility, background removal). Clone and split write into free slots,
+pruning clears `alive`, and the Adam moments of touched rows are zeroed.
 
 - accumulate ||dL/dmeans2d * 0.5 [W, H]|| and a visit counter over visible
   Gaussians; track the largest screen radius in pixels;
@@ -21,6 +22,23 @@ of touched rows are zeroed.
   per-Gaussian entry whatever its shape, and passes through.
 
 The functions build new tensors and leave their arguments as they were.
+The variants, each a branch of the same pass:
+
+- Revising (arXiv 2404.06109) gives a clone and its copy the opacity
+  1 - sqrt(1 - alpha), so the pair composites to the original's. (gsl_tpu
+  writes it into the original only: its copy comes from the unmodified
+  row and keeps the old opacity.)
+- no-culling-big-scale prunes by opacity and, after the first reset, by
+  screen size, never by world scale;
+- H3DGS selects by accumulated gradient * largest screen radius *
+  opacity^(1/5) >= 0.015 among rows above 0.15 opacity, and prunes by
+  opacity and world scale always, never by screen size;
+- accurate visibility counts a Gaussian in the statistics only where its
+  tap gradient is nonzero (it reached a pixel);
+- background removal pushes the opacity of rows outside the train
+  cameras' sphere to ~0 before a densify (`background_removal_step`);
+- static does nothing; its hook skips the whole schedule.
+
 Nothing here reads a value back to the host.
 """
 from __future__ import annotations
@@ -71,12 +89,75 @@ class VanillaDensityControllerConfig:
         return self
 
 
+@dataclasses.dataclass
+class StaticDensityControllerConfig(VanillaDensityControllerConfig):
+    """No densify, prune or opacity reset at all (`StaticDensityHook`)."""
+
+
+@dataclasses.dataclass
+class RevisingDensityControllerConfig(VanillaDensityControllerConfig):
+    """A clone and its copy both get alpha_hat = 1 - sqrt(1 - alpha)."""
+
+
+@dataclasses.dataclass
+class NoCullingBigScaleDensityControllerConfig(
+        VanillaDensityControllerConfig):
+    """Never prunes by world scale (large scenes, big background
+    splats)."""
+
+
+@dataclasses.dataclass
+class H3DGSDensityControllerConfig(VanillaDensityControllerConfig):
+    """Hierarchical-3DGS selection by accumulated gradient * max radius *
+    opacity^(1/5), with an opacity floor for candidates."""
+    densification_interval: int = 300
+    densify_grad_threshold: float = 0.015
+    clone_min_opacity: float = 0.15
+
+
+@dataclasses.dataclass
+class AccurateVisibilityFilterDensityControllerConfig(
+        VanillaDensityControllerConfig):
+    """Statistics over the Gaussians that reached a pixel (nonzero tap
+    gradient) rather than those with a screen radius."""
+
+
+@dataclasses.dataclass
+class BackgroundRemovalDensityControllerConfig(
+        VanillaDensityControllerConfig):
+    """Opacity ~0 outside the train cameras' bounding sphere every
+    densify interval after `background_removal_from`, so the next prune
+    removes those rows."""
+    background_removal_from: int = 7_000
+    foreground_radius_scaling: float = 1.0
+
+
+def background_removal_step(gstate: GaussianState, scene_center,
+                            foreground_radius: float) -> GaussianState:
+    """Raw opacity -15 for the alive rows farther than `foreground_radius`
+    from `scene_center` [3]."""
+    center = torch.as_tensor(scene_center, dtype=torch.float32,
+                             device=gstate.device)
+    dist = torch.linalg.norm(gstate.params.means - center[None, :], dim=-1)
+    outside = (dist > foreground_radius) & gstate.alive
+    op = torch.where(outside[:, None],
+                     torch.full_like(gstate.params.opacities, -15.0),
+                     gstate.params.opacities)
+    return GaussianState(
+        params=dataclasses.replace(gstate.params, opacities=op),
+        alive=gstate.alive, extra=gstate.extra)
+
+
 def update_stats(dstate: DensityControlState, m2d_grad: torch.Tensor,
-                 radii: torch.Tensor, grad_scale: torch.Tensor
-                 ) -> DensityControlState:
+                 radii: torch.Tensor, grad_scale: torch.Tensor,
+                 accurate_visibility: bool = False) -> DensityControlState:
     """m2d_grad [CAP, 2] = dL/dmeans2d in pixels (or the AbsGS statistic);
-    radii [CAP] int; grad_scale [2] = 0.5 * [W, H]."""
+    radii [CAP] int; grad_scale [2] = 0.5 * [W, H]. With
+    `accurate_visibility` a row counts only where its gradient is
+    nonzero."""
     visible = radii > 0
+    if accurate_visibility:
+        visible = visible & torch.any(m2d_grad != 0.0, dim=-1)
     g = torch.linalg.norm(m2d_grad * grad_scale[None, :], dim=-1)
     zero = torch.zeros_like(g)
     return DensityControlState(
@@ -96,17 +177,30 @@ def _scatter_rows(dst: torch.Tensor, dest: torch.Tensor,
     return ext[:-1]
 
 
+def mean_grads(dstate: DensityControlState) -> torch.Tensor:
+    """[CAP] the accumulated gradient norm over the visits, 0 unvisited."""
+    return torch.where(dstate.denom > 0.0,
+                       dstate.grad_accum / torch.clamp(dstate.denom,
+                                                       min=1.0),
+                       torch.zeros_like(dstate.denom))
+
+
 def densify_masks(gstate: GaussianState, dstate: DensityControlState,
                   cfg: VanillaDensityControllerConfig, cameras_extent: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (clone_mask, split_mask): the alive rows whose mean view-space
-    gradient reaches the threshold, small ones cloned, large ones split."""
-    grads = torch.where(dstate.denom > 0.0,
-                        dstate.grad_accum / torch.clamp(dstate.denom,
-                                                        min=1.0),
-                        torch.zeros_like(dstate.denom))
+    gradient (H3DGS: its score) reaches the threshold, small ones cloned,
+    large ones split."""
     max_scale = torch.exp(gstate.params.scales).max(dim=-1).values
-    high_grad = (grads >= cfg.densify_grad_threshold) & gstate.alive
+    if isinstance(cfg, H3DGSDensityControllerConfig):
+        op = torch.sigmoid(gstate.params.opacities[:, 0])
+        score = (dstate.grad_accum * dstate.max_radii
+                 * torch.pow(torch.clamp(op, min=1e-8), 0.2))
+        high_grad = ((score >= cfg.densify_grad_threshold)
+                     & (op > cfg.clone_min_opacity) & gstate.alive)
+    else:
+        high_grad = (mean_grads(dstate) >= cfg.densify_grad_threshold) \
+            & gstate.alive
     small = max_scale <= cfg.percent_dense * cameras_extent
     return high_grad & small, high_grad & ~small
 
@@ -152,9 +246,17 @@ def densify_and_prune(
 
     # a split original becomes the first child in place
     sm = split_mask[:, None]
+    opacities = p.opacities
+    if isinstance(cfg, RevisingDensityControllerConfig):
+        alpha = torch.sigmoid(p.opacities[:, 0])
+        alpha_hat = 1.0 - torch.sqrt(torch.clamp(1.0 - alpha, min=1e-8))
+        raw_hat = inverse_sigmoid(torch.clamp(alpha_hat, 1e-6, 1.0 - 1e-6))
+        opacities = torch.where(clone_mask[:, None], raw_hat[:, None],
+                                p.opacities)
     params = dataclasses.replace(
         p, means=torch.where(sm, p.means + off1, p.means),
-        scales=torch.where(sm, p.scales - log_div, p.scales))
+        scales=torch.where(sm, p.scales - log_div, p.scales),
+        opacities=opacities)
 
     # free slots for the clones and the second split children: dead slots
     # first, in slot order
@@ -170,8 +272,10 @@ def densify_and_prune(
     valid_new = (j < total_new) & (j < n_free)
     dest = torch.where(valid_new, free_slots, torch.full_like(j, cap))
 
+    # a child copies its source row as the pass left it (a Revising
+    # clone's copy takes the corrected opacity), but the split offsets
     is_split_child = split_mask[src][:, None]
-    child = {k: getattr(p, k)[src] for k in p.fields()}
+    child = {k: getattr(params, k)[src] for k in p.fields()}
     child["means"] = torch.where(is_split_child, p.means[src] + off2[src],
                                  p.means[src])
     child["scales"] = torch.where(is_split_child, p.scales[src] - log_div,
@@ -191,8 +295,15 @@ def densify_and_prune(
                    > cfg.cull_scale_factor * prune_extent)
     use_size_prune = torch.as_tensor(use_size_prune, dtype=torch.bool,
                                      device=dev)
+    if isinstance(cfg, NoCullingBigScaleDensityControllerConfig):
+        size_prune = screen_prune
+    elif isinstance(cfg, H3DGSDensityControllerConfig):
+        prune = prune | world_prune
+        size_prune = torch.zeros_like(screen_prune)
+    else:
+        size_prune = screen_prune | world_prune
     # fresh slots have zero statistics, so the screen prune cannot hit them
-    prune = prune | (use_size_prune & (screen_prune | world_prune))
+    prune = prune | (use_size_prune & size_prune)
     alive = alive & ~prune
 
     # Adam moments start over for new slots, split originals and pruned

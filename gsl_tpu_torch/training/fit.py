@@ -60,8 +60,8 @@ class FitConfig:
     """The JAX package's FitConfig without its TPU-only fields
     (``min_isect_capacity``, ``matmul_precision``: the port computes in
     float32 always; ``size_bucket``: no padding). ``viewer`` /
-    ``viewer_port`` (ROADMAP item 14) and the LightGaussian ``lg_*``
-    fields (item 12) are not ported; the CLI raises for them."""
+    ``viewer_port`` (ROADMAP item 14) are not ported; the CLI raises for
+    them."""
 
     max_steps: int = 30_000
     save_iterations: Sequence[int] = (7_000, 30_000)
@@ -89,6 +89,12 @@ class FitConfig:
     """initialize the Gaussians from a trained artifact (run dir, PLY or
     checkpoint of this package) instead of the point cloud; the optimizer
     state starts fresh."""
+    lg_prune_steps: Sequence[int] = ()
+    """LightGaussian importance pruning at these steps (after the density
+    hook)"""
+    lg_prune_percent: float = 0.6
+    lg_prune_decay: float = 0.6
+    lg_n_cameras: int = 8
 
 
 def _round_capacity(n: int) -> int:
@@ -183,7 +189,8 @@ def fit(trainer: Trainer, outputs: DataParserOutputs, cfg: FitConfig,
                      cfg=cfg, bg=bg, name_to_idx={
                          n: i for i, n in
                          enumerate(outputs.train_set.image_names)})
-    step_hook, density_hook, pre_density, post_density = build_hooks(ctx)
+    step_hook, density_hook, pre_density, post_density = build_hooks(
+        ctx, state.gaussians.n_alive)
     state = step_hook.init_state(state, generator)
 
     start_step = 1

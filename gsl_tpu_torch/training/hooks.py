@@ -1,46 +1,67 @@
 """Variant dispatch for the fit loop, as trainer-owned hooks.
 
-Port of ``gsl_tpu/training/hooks.py`` for the variants the port has.
-`build_hooks` inspects the trainer's component configs once and returns
-the objects the fit loop calls uniformly:
+Port of ``gsl_tpu/training/hooks.py``. `build_hooks` inspects the
+trainer's component configs once and returns the objects the fit loop
+calls uniformly:
 
 - `StepHook(state, generator, step, ...) -> (state, scalars)`: which train
   step runs, and what it is fed (the view's index in the train set for an
   output processor, the depth trainer's inverse-depth map, the
-  appearance trainers' warm-up flag, gradient accumulation's buffer);
+  appearance trainers' warm-up flag, gradient accumulation's buffer,
+  GNS's opacity regulariser and update factor);
   its `init_state(state, generator)` runs before a resume and sets up
-  what the step keeps outside the state (the accumulation buffer);
+  what the step keeps outside the state (the accumulation buffer) or in
+  its `extra` (GNS's schedule);
 - `DensityHook(state, generator, step) -> state`: which density-control
-  schedule runs after the step (vanilla adaptive density control, or
-  MCMC's relocation and growth followed by its position noise);
+  schedule runs after the step (vanilla adaptive density control and its
+  variants, with background removal before a densify; none for the
+  static controller; MCMC's relocation and growth followed by its
+  position noise; Taming's and GNS's budgeted rounds and GNS's prunes);
 - lists of hooks whose `periodic(state, generator, step) -> state` runs
   before and after the density hook (the similarity regulariser before,
-  the Mip-Splatting 3D-filter recompute after).
+  the Mip-Splatting 3D-filter recompute and LightGaussian's pruning
+  after).
 
-The port runs the vanilla 3DGS trainer (AbsGS and StopThePop are options
-of its density controller and renderer, plugins and output processors
-arguments of it), the depth-regularised trainer, the 2DGS trainer, the
-appearance trainers (with visibility maps and the similarity regulariser)
-and gradient accumulation. The JAX package's other variant hooks (Taming,
-GNS, SpotLess, LightGaussian, deform, glossy) come with their variants;
-until then `build_hooks` raises for them.
+The JAX package's other variant hooks (SpotLess, deform) come with their
+variants; until then `build_hooks` raises for them.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from ..data.dataparsers.dataparser import camera_centers
+from ..data.dataset import image_to_float
 from ..models.mip_splatting import MipSplattingConfig, compute_3d_filter
 from .appearance_trainer import AppearanceTrainer
-from .density import VanillaDensityControllerConfig, densify_masks
+from .density import (AccurateVisibilityFilterDensityControllerConfig,
+                      BackgroundRemovalDensityControllerConfig,
+                      H3DGSDensityControllerConfig,
+                      NoCullingBigScaleDensityControllerConfig,
+                      RevisingDensityControllerConfig,
+                      StaticDensityControllerConfig,
+                      VanillaDensityControllerConfig,
+                      background_removal_step, densify_masks, mean_grads)
 from .depth_trainer import DepthTrainer
+from .glossy_trainer import GlossyTrainer
+from .gns import (GNSController, GNSDensityControllerConfig,
+                  edge_weighted_blend_scores, final_budget_prune,
+                  gns_budget_at, gns_densify, gns_opacity_reg_loss,
+                  prune_by_opacity)
 from .gs2d import GS2DTrainer
+from .light_gaussian import (accumulate_blend_weights, bias_render,
+                             prune_by_importance)
 from .mcmc import (MCMCDensityControllerConfig, dead_mask, grow_target,
                    mcmc_densify, mcmc_noise_step)
 from .opt_strategies import GradAccTrainer
 from .schedulers import exponential_decay
 from .similarity_reg import draw_sample, similarity_reg_step
+from .taming import (Taming3DGSDensityControllerConfig,
+                     compute_gaussian_scores, densify_selected,
+                     draw_uniforms, get_count_array, get_edges,
+                     taming_masks)
 from .trainer import Trainer
 from .visibility_map_trainer import VisibilityMapAppearanceTrainer
 
@@ -139,13 +160,37 @@ class GradAccStepHook(StepHook):
         return state, scalars
 
 
+class GlossyStepHook(StepHook):
+    """`train_step_glossy`: SH albedo plus the environment light's
+    specular term, with the env map and metalness trained alongside."""
+
+    def __call__(self, state, generator, step, sh_degree, cam, name, img,
+                 mask, H, W):
+        return self.trainer.train_step_glossy(state, cam, img, H, W,
+                                              sh_degree, self.ctx.bg,
+                                              mask=mask)
+
+
 class DensityHook:
-    """Vanilla adaptive density control via `Trainer.maybe_density_ops`;
-    the generator draws the split offsets."""
+    """Vanilla adaptive density control via `Trainer.maybe_density_ops`
+    (its variants are branches of the same pass); the generator draws the
+    split offsets. With the background-removal controller, the rows
+    outside the sphere around the train cameras' centres (radius: the
+    farthest camera, times `foreground_radius_scaling`) lose their opacity
+    before each densify after `background_removal_from`."""
 
     def __init__(self, ctx: FitContext):
         self.ctx = ctx
         self.trainer = ctx.trainer
+        d = ctx.trainer.density_cfg
+        self.bg_removal = d if isinstance(
+            d, BackgroundRemovalDensityControllerConfig) else None
+        if self.bg_removal is not None:
+            centers = camera_centers(ctx.outputs.train_set.cameras)
+            self.br_center = centers.mean(0)
+            self.br_radius = float(
+                np.linalg.norm(centers - self.br_center, axis=-1).max()
+                * d.foreground_radius_scaling)
 
     def densifies_at(self, step: int) -> bool:
         return self.trainer.densifies_at(step)
@@ -163,8 +208,129 @@ class DensityHook:
                             + counts["split"] - counts["after"])
         return counts
 
+    @torch.no_grad()
     def __call__(self, state, generator, step):
+        d = self.bg_removal
+        if (d is not None
+                and d.background_removal_from < step < d.densify_until_iter
+                and step % d.densification_interval == 0):
+            gstate = background_removal_step(state.gaussians, self.br_center,
+                                             self.br_radius)
+            state = dataclasses.replace(state, params=gstate.params)
         return self.trainer.maybe_density_ops(state, generator, step)
+
+
+class StaticDensityHook(DensityHook):
+    """The static controller: no densify, prune or opacity reset."""
+
+    def densifies_at(self, step: int) -> bool:
+        return False
+
+    def __call__(self, state, generator, step):
+        return state
+
+
+def _grown(trainer, state, redo, pads):
+    """`redo(state, *pads) -> (result, n_truncated)` on `state`, and
+    again from `state` grown 2x (with each [CAP] tensor of `pads` padded
+    with zeros) while the pass runs out of free slots, at most 3 times.
+    Returns the last result."""
+    result, n_trunc = redo(state, *pads)
+    tries = 0
+    while int(n_trunc) > 0 and tries < 3:
+        state = trainer.grow_state(state, 2 * state.params.capacity)
+        pads = [torch.cat([x, x.new_zeros(state.params.capacity
+                                          - x.shape[0])]) for x in pads]
+        result, n_trunc = redo(state, *pads)
+        tries += 1
+    if int(n_trunc) > 0:
+        print(f"[fit] densify still truncating {int(n_trunc)} after "
+              f"{tries} capacity growths")
+    return result
+
+
+def _score_views(ctx: FitContext, indices, device):
+    """The train views `indices` as (one-camera Cameras, float image
+    [H, W, 3]) on `device`."""
+    cams, images = [], []
+    for i in indices:
+        cam, _, img_u8, _ = ctx.dataset.get(int(i))
+        cams.append(cam.to(device))
+        images.append(image_to_float(img_u8.to(device)))
+    return cams, images
+
+
+class TamingDensityHook(DensityHook):
+    """Taming 3DGS: every `densification_interval` steps in
+    (densify_from_iter, densify_until_iter) a budgeted round over the
+    scores of `n_score_cameras` evenly spaced train views; opacity resets
+    as the vanilla schedule has them (without the white-background one).
+    The count curve starts from the initial count, as gsl_tpu's does. A
+    round that runs out of free slots grows the capacity and is redone
+    (its scores padded with zeros)."""
+
+    def __init__(self, ctx: FitContext, initial_n_alive: int):
+        super().__init__(ctx)
+        d = self.d = ctx.trainer.density_cfg
+        self.budgets = get_count_array(
+            initial_n_alive, d.budget, d.densify_until_iter,
+            d.densify_from_iter, d.densification_interval, d.mode)
+        self.counts = {}
+
+    def budget_at(self, step: int) -> int:
+        d = self.d
+        i = (step - d.densify_from_iter) // d.densification_interval
+        return self.budgets[min(max(i, 0), len(self.budgets) - 1)]
+
+    def counts_before(self, state) -> dict:
+        return {}
+
+    def counts_after(self, counts: dict) -> dict:
+        """The round's budget and the rows it drew to clone and split."""
+        counts.update(self.counts)
+        return super().counts_after(counts)
+
+    def density_round(self, state, generator, step):
+        d, ctx, trainer = self.d, self.ctx, self.trainer
+        dev = state.alive.device
+        n = len(ctx.outputs.train_set)
+        cams, gts = _score_views(ctx, np.linspace(
+            0, n - 1, min(d.n_score_cameras, n)).astype(int), dev)
+        scores = compute_gaussian_scores(
+            trainer.renderer, state.gaussians, cams, gts,
+            mean_grads(state.density), ctx.bg, trainer.sh_degree_at(step),
+            d.score_coeffs, lambda_dssim=trainer.metrics_cfg.lambda_dssim)
+        budget = self.budget_at(step)
+        use_size_prune = step > d.opacity_reset_interval
+
+        def one_pass(st, sc):
+            cap = st.params.capacity
+            clone, split = taming_masks(
+                (draw_uniforms(generator, cap, dev),
+                 draw_uniforms(generator, cap, dev)), st.gaussians,
+                st.density, d, sc, budget, trainer.cameras_extent)
+            gstate, opt_state, dstate, n_trunc = densify_selected(
+                generator, st.gaussians, st.opt_state, st.density, d,
+                clone, split, trainer.cameras_extent, trainer.prune_extent,
+                use_size_prune)
+            self.counts = {"budget": budget, "clone": int(clone.sum()),
+                           "split": int(split.sum())}
+            return dataclasses.replace(
+                st, params=gstate.params, alive=gstate.alive,
+                opt_state=opt_state, density=dstate,
+                extra=gstate.extra), n_trunc
+
+        return _grown(trainer, state, one_pass, [scores])
+
+    @torch.no_grad()
+    def __call__(self, state, generator, step):
+        d = self.d
+        if self.densifies_at(step):
+            state = self.density_round(state, generator, step)
+        if (step < d.densify_until_iter
+                and step % d.opacity_reset_interval == 0):
+            state = self.trainer.opacity_reset_step(state)
+        return state
 
 
 class MCMCDensityHook(DensityHook):
@@ -268,13 +434,194 @@ class SimilarityRegHook:
         return state
 
 
+class GNSHooks(StepHook):
+    """GNS couples the step (the opacity regulariser's schedule and update
+    factor) with its density schedule: one object serves as the step hook
+    and, through `density_hook`, as the density hook. The controller's
+    state rides in ``state.extra["__gns__"]``; the alive count is read from
+    the state at the first step (after a resume, the resumed state's) and
+    after each densify or prune, never on other steps."""
+
+    def __init__(self, ctx: FitContext):
+        super().__init__(ctx)
+        self.d = ctx.trainer.density_cfg
+        GNSController(self.d)          # the budget must be set
+        self.n_alive = None
+        self.counts = {}
+
+    def init_state(self, state, generator):
+        if "__gns__" in (state.extra or {}):
+            return state
+        return self._with(state, GNSController(self.d))
+
+    @staticmethod
+    def _with(state, ctl: GNSController):
+        return dataclasses.replace(
+            state, extra=dict(state.extra or {}, __gns__=ctl.as_extra()))
+
+    def controller(self, state) -> GNSController:
+        if self.n_alive is None:
+            self.n_alive = state.gaussians.n_alive
+        return GNSController.from_extra(self.d, state.extra["__gns__"])
+
+    def __call__(self, state, generator, step, sh_degree, cam, name, img,
+                 mask, H, W):
+        d = self.d
+        ctl = self.controller(state)
+        in_phase = ctl.in_reg_phase(step, self.n_alive)
+        if in_phase and (step - 1) % 100 == 0:
+            with torch.no_grad():
+                ops = torch.sigmoid(state.params.opacities[:, 0])
+                ops_sorted = torch.sort(ops[state.alive]).values.cpu()
+            ctl.update_reg_weight(step, ops_sorted.numpy(), self.n_alive)
+            state = self._with(state, ctl)
+        weight = ctl.reg_weight if in_phase else 0.0
+        prior = step < d.opacity_reg_from + d.opacity_reg_prior_free_steps
+        factor = ctl.opacity_update_factor(step, self.n_alive)
+        return self.trainer.train_step(
+            state, cam, img, H, W, sh_degree, self.ctx.bg, mask=mask,
+            image_idx=self.image_idx(name),
+            extra_loss=(None if weight == 0.0 else lambda gs: (
+                gns_opacity_reg_loss(gs.params, gs.alive, weight, prior))),
+            update_scale=(None if factor == 1.0
+                          else {"opacities": factor}))
+
+    def densifies_at(self, step: int) -> bool:
+        return self.trainer.densifies_at(step)
+
+    def densify(self, state, generator, step):
+        d, ctx, trainer = self.d, self.ctx, self.trainer
+        dev = state.alive.device
+        if d.edge_aware:
+            n = len(ctx.outputs.train_set)
+            cams, images = _score_views(
+                ctx, np.random.RandomState(step).permutation(n)[
+                    :min(d.n_sample_cameras, n)], dev)
+            importance = edge_weighted_blend_scores(
+                trainer.renderer, state.gaussians, cams,
+                [get_edges(im) for im in images], ctx.bg,
+                trainer.sh_degree_at(step))
+        else:
+            importance = mean_grads(state.density)
+        budget = gns_budget_at(d, step)
+
+        def one_pass(st, imp):
+            gstate, opt_state, dstate, n_trunc = gns_densify(
+                generator, st.gaussians, st.opt_state, st.density, d, imp,
+                budget)
+            return dataclasses.replace(
+                st, params=gstate.params, alive=gstate.alive,
+                opt_state=opt_state, density=dstate,
+                extra=gstate.extra), n_trunc
+
+        before = state.gaussians.n_alive
+        state = _grown(trainer, state, one_pass, [importance])
+        self.n_alive = state.gaussians.n_alive
+        self.counts = {"budget": budget, "net": self.n_alive - before}
+        return state
+
+    @torch.no_grad()
+    def density(self, state, generator, step):
+        d = self.d
+        ctl = self.controller(state)
+        if self.densifies_at(step):
+            state = self.densify(state, generator, step)
+        if ctl.in_reg_phase(step, self.n_alive):
+            near_budget = (step != d.opacity_reg_from
+                           and self.n_alive < d.budget * 1.05)
+            if near_budget or step == d.opacity_reg_until:
+                gstate, opt_state = final_budget_prune(
+                    generator, state.gaussians, state.opt_state, d.budget)
+                state = dataclasses.replace(state, alive=gstate.alive,
+                                            opt_state=opt_state)
+                self.n_alive = state.gaussians.n_alive
+                ctl.final_pruned, ctl.prune_step = True, step
+                state = self._with(state, ctl)
+                print(f"[fit] GNS final prune at {step} -> {self.n_alive}")
+            elif (step % d.opacity_reg_interval == 0
+                  and step >= d.opacity_reg_from + 1000):
+                gstate, opt_state, _ = prune_by_opacity(
+                    state.gaussians, state.opt_state,
+                    d.natural_selection_min_opacity)
+                state = dataclasses.replace(state, alive=gstate.alive,
+                                            opt_state=opt_state)
+                self.n_alive = state.gaussians.n_alive
+        return state
+
+    @property
+    def density_hook(self) -> "DensityHook":
+        return _GNSDensity(self)
+
+
+class _GNSDensity(DensityHook):
+    """GNS's density schedule as the fit's density hook."""
+
+    def __init__(self, gns: GNSHooks):
+        self.gns = gns
+
+    def densifies_at(self, step: int) -> bool:
+        return self.gns.densifies_at(step)
+
+    def counts_before(self, state) -> dict:
+        return {}
+
+    def counts_after(self, counts: dict) -> dict:
+        """The round's budget and its net change of the alive count (the
+        split's new rows less its opacity prune)."""
+        counts.update(self.gns.counts)
+        return counts
+
+    def __call__(self, state, generator, step):
+        return self.gns.density(state, generator, step)
+
+
+class LightGaussianPruneHook:
+    """LightGaussian's importance pruning at the fit's `lg_prune_steps`:
+    the lowest lg_prune_percent * lg_prune_decay^(prunes before) of the
+    alive rows by blend weight over `lg_n_cameras` evenly spaced train
+    views (the colours the renderer computes, no variant's)."""
+
+    def __init__(self, ctx: FitContext):
+        self.ctx = ctx
+
+    def periodic(self, state, generator, step):
+        cfg, ctx = self.ctx.cfg, self.ctx
+        if step not in cfg.lg_prune_steps:
+            return state
+        trainer = ctx.trainer
+        n_done = sum(1 for s in cfg.lg_prune_steps if s < step)
+        pct = cfg.lg_prune_percent * (cfg.lg_prune_decay ** n_done)
+        n = len(ctx.outputs.train_set)
+        dev = state.alive.device
+        cams = [ctx.outputs.train_set.cameras[int(i)].to(dev)
+                for i in np.linspace(0, n - 1, min(cfg.lg_n_cameras, n)
+                                     ).astype(int)]
+        imp = accumulate_blend_weights(
+            bias_render(trainer.renderer, trainer.sh_degree_at(step),
+                        ctx.bg), state.gaussians, cams)
+        gstate, opt_state, n_pruned = prune_by_importance(
+            state.gaussians, state.opt_state, imp, pct)
+        print(f"[fit] LightGaussian pruned {int(n_pruned)} at {step}")
+        return dataclasses.replace(state, alive=gstate.alive,
+                                   opt_state=opt_state)
+
+
 TRAINERS = (Trainer, DepthTrainer, GS2DTrainer, AppearanceTrainer,
-            VisibilityMapAppearanceTrainer, GradAccTrainer)
+            VisibilityMapAppearanceTrainer, GradAccTrainer, GlossyTrainer)
+# the controllers whose schedule is Trainer.maybe_density_ops
+VANILLA_FAMILY = (VanillaDensityControllerConfig,
+                  RevisingDensityControllerConfig,
+                  NoCullingBigScaleDensityControllerConfig,
+                  H3DGSDensityControllerConfig,
+                  AccurateVisibilityFilterDensityControllerConfig,
+                  BackgroundRemovalDensityControllerConfig)
 
 
-def build_hooks(ctx: FitContext):
+def build_hooks(ctx: FitContext, initial_n_alive: int):
     """Resolve the trainer's component configs into (step_hook,
-    density_hook, pre_density_hooks, post_density_hooks)."""
+    density_hook, pre_density_hooks, post_density_hooks).
+    `initial_n_alive`: the alive count before any step or resume, where
+    Taming's count curve starts."""
     trainer = ctx.trainer
     if type(trainer) not in TRAINERS:
         raise NotImplementedError(
@@ -282,16 +629,35 @@ def build_hooks(ctx: FitContext):
             f"{', '.join(t.__name__ for t in TRAINERS)}; variant trainers "
             "come with their variants (ROADMAP item 12)")
     density_type = type(trainer.density_cfg)
-    if density_type is VanillaDensityControllerConfig:
+    gns = None
+    if density_type in VANILLA_FAMILY:
         density_hook = DensityHook(ctx)
+    elif density_type is StaticDensityControllerConfig:
+        density_hook = StaticDensityHook(ctx)
     elif density_type is MCMCDensityControllerConfig:
         density_hook = MCMCDensityHook(ctx)
+    elif density_type is Taming3DGSDensityControllerConfig:
+        density_hook = TamingDensityHook(ctx, initial_n_alive)
+    elif density_type is GNSDensityControllerConfig:
+        if type(trainer) not in (Trainer, GS2DTrainer):
+            # their steps are not train_step: gsl_tpu's GNS step replaces
+            # them and drops what they add
+            raise ValueError(
+                f"GNS with {type(trainer).__name__}: gsl_tpu's GNS step "
+                "would drop the trainer's own step silently")
+        gns = GNSHooks(ctx)
+        density_hook = gns.density_hook
     else:
         raise NotImplementedError(
-            f"{density_type.__name__}: the fit runs the vanilla and MCMC "
-            "density controllers; the others come with their variants "
-            "(ROADMAP item 12)")
-    if isinstance(trainer, AppearanceTrainer):
+            f"{density_type.__name__}: the fit runs the vanilla, static, "
+            "Revising, no-culling-big-scale, H3DGS, accurate-visibility, "
+            "background-removal, MCMC, Taming and GNS density controllers; "
+            "the others come with their variants (ROADMAP item 12)")
+    if gns is not None:
+        step_hook = gns
+    elif isinstance(trainer, GlossyTrainer):
+        step_hook = GlossyStepHook(ctx)
+    elif isinstance(trainer, AppearanceTrainer):
         step_hook = AppearanceStepHook(ctx)
     elif isinstance(trainer, GradAccTrainer):
         step_hook = GradAccStepHook(ctx)
@@ -305,4 +671,6 @@ def build_hooks(ctx: FitContext):
     post_density = []
     if isinstance(trainer.model, MipSplattingConfig):
         post_density.append(MipFilterHook(ctx))
+    if ctx.cfg.lg_prune_steps:
+        post_density.append(LightGaussianPruneHook(ctx))
     return step_hook, density_hook, pre_density, post_density

@@ -66,6 +66,9 @@ class GaussianAdam:
         scale = (opt_cfg.spatial_lr_scale
                  if opt_cfg.spatial_lr_scale > 0 else spatial_lr_scale)
         self.eps = opt_cfg.eps
+        # a property's own eps where its Adam is not this one's (Glossy's
+        # metalness takes optax.adam's)
+        self.eps_of: Dict[str, float] = {}
         means_schedule = exponential_decay(
             lr_init=opt_cfg.means_lr_init * scale,
             lr_final=(opt_cfg.means_lr_init * opt_cfg.means_lr_final_factor
@@ -104,7 +107,7 @@ class GaussianAdam:
             n = state.count_of(k)
             updates[k], exp_avg[k], exp_avg_sq[k] = adam_moments(
                 getattr(grads, k), state.exp_avg[k], state.exp_avg_sq[k],
-                n + 1, self.learning_rate(k, n), self.eps)
+                n + 1, self.learning_rate(k, n), self.eps_of.get(k, self.eps))
         if only is None:
             count, solo = state.count + 1, dict(state.solo_counts)
         else:

@@ -32,7 +32,8 @@ from ..models.gaussian import (GaussianParams, GaussianState,
 from ..renderers.tile_renderer import (TileRendererConfig,
                                        viewspace_grad_scale)
 from ..utils.device import float32_math
-from .density import (DensityControlState, VanillaDensityControllerConfig,
+from .density import (AccurateVisibilityFilterDensityControllerConfig,
+                      DensityControlState, VanillaDensityControllerConfig,
                       densify_and_prune, init_density_state, reset_opacities,
                       update_stats)
 from .metrics import VanillaMetricsConfig, psnr, train_loss
@@ -226,35 +227,51 @@ class Trainer:
         gscale = viewspace_grad_scale(
             img_width, img_height,
             self.renderer_cfg.max_viewspace_grad_scale, state.alive.device)
-        return update_stats(state.density, stat_grad, radii, gscale)
+        return update_stats(
+            state.density, stat_grad, radii, gscale,
+            accurate_visibility=isinstance(
+                self.density_cfg,
+                AccurateVisibilityFilterDensityControllerConfig))
 
     @torch.no_grad()
-    def adam_step(self, state: TrainState, pgrads: GaussianParams):
-        """-> (parameters, Adam state) after one step with `pgrads`."""
+    def adam_step(self, state: TrainState, pgrads: GaussianParams,
+                  update_scale: Optional[Dict[str, float]] = None):
+        """-> (parameters, Adam state) after one step with `pgrads`;
+        `update_scale` multiplies the named properties' updates after Adam
+        (its moments stay as Adam left them)."""
         updates, opt_state = self.tx.update(pgrads, state.opt_state)
-        return state.params.map(lambda k, x: x + getattr(updates, k)), \
-            opt_state
+        scale = update_scale or {}
+
+        def step(k, x):
+            u = getattr(updates, k)
+            return x + (u * scale[k] if k in scale else u)
+
+        return state.params.map(step), opt_state
 
     def apply_gradients(self, state: TrainState, pgrads: GaussianParams,
-                        stat_grad, radii, img_width: int, img_height: int):
+                        stat_grad, radii, img_width: int, img_height: int,
+                        update_scale: Optional[Dict[str, float]] = None):
         """-> (parameters, Adam state, density statistics) after one
         step."""
         density = self.density_stats(state, stat_grad, radii, img_width,
                                      img_height)
-        return (*self.adam_step(state, pgrads), density)
+        return (*self.adam_step(state, pgrads, update_scale), density)
 
     def train_step(self, state: TrainState, camera: Cameras,
                    gt_image: torch.Tensor, img_height: int, img_width: int,
                    sh_degree: int, bg_color: torch.Tensor,
                    mask: Optional[torch.Tensor] = None, aux_inputs=None,
-                   image_idx=None):
+                   image_idx=None, extra_loss=None,
+                   update_scale: Optional[Dict[str, float]] = None):
         """One optimization step on one view. Returns (new state, scalars);
         the scalars are 0-d tensors on the state's device, so the step
         itself never waits for the device beyond the rasterizer's one
         read that sizes its slot buffers. `aux_inputs` goes to
         `render_losses`; `image_idx` (the view's index in the train set)
         picks the output processor's parameters when the state has
-        them."""
+        them. A density controller's own terms (GNS's): `extra_loss`
+        (gstate -> 0-d tensor) joins the loss, and `update_scale` scales
+        properties' Adam updates (see `adam_step`)."""
         use_absgrad = (getattr(self.density_cfg, "absgrad", False)
                        and self.renderer.supports_absgrad())
         has_op = (self.output_processor is not None
@@ -268,15 +285,19 @@ class Trainer:
                              image_idx=0 if image_idx is None else image_idx)
 
         def loss_of(gstate, tap, abstap):
-            return self.render_losses(
+            loss, aux = self.render_losses(
                 gstate, camera, img_height, img_width, bg_color, sh_degree,
                 gt_image, mask, tap, abstap, state.step,
                 aux_inputs=aux_inputs, **op_kwargs)
+            if extra_loss is not None:
+                loss = loss + extra_loss(gstate)
+            return loss, aux
 
         pgrads, stat_grad, op_grads, _, (scalars, radii, n_dropped) = \
             self.gradients(state, loss_of, others, use_absgrad)
         params, opt_state, density = self.apply_gradients(
-            state, pgrads, stat_grad, radii, img_width, img_height)
+            state, pgrads, stat_grad, radii, img_width, img_height,
+            update_scale)
         extra = state.extra
         if has_op:
             with torch.no_grad():

@@ -48,7 +48,7 @@ def state_from_raw_arrays(arrays: dict, device=None) -> GaussianState:
 
 def train_state_from_jax_arrays(params: dict, alive: np.ndarray, opt: dict,
                                 density: dict, step: int, extra=None,
-                                device=None):
+                                device=None, glossy=None):
     """The port's `TrainState` from a JAX ``TrainState`` taken apart into
     numpy arrays: `params` and `alive` as for `state_from_jax_arrays`;
     `opt` = {property: {"mu": ..., "nu": ..., "count": int}}, the optax
@@ -57,7 +57,20 @@ def train_state_from_jax_arrays(params: dict, alive: np.ndarray, opt: dict,
     {"filter_3d"}, or an output processor's ``__outproc__`` and
     ``__outproc_opt__`` in the port's layout. The core properties share
     one Adam count; a property that stepped more often (the appearance
-    features, under the similarity regulariser) keeps its own."""
+    features, under the similarity regulariser) keeps its own. `glossy`:
+    gsl_tpu's ``extra["__glossy__"]`` as {"envmap", "metalness_raw",
+    "opt": {"envmap": {"mu", "nu", "count"}, "metalness_raw": {...}}};
+    the metalness becomes the Gaussian property `metalness` with its
+    moments, the map and its Adam ``extra["__glossy__"]``."""
+    if glossy is not None:
+        params = dict(params, metalness=glossy["metalness_raw"])
+        opt = dict(opt, metalness=glossy["opt"]["metalness_raw"])
+        env = glossy["opt"]["envmap"]
+        extra = dict(extra or {}, __glossy__={
+            "envmap": glossy["envmap"],
+            "opt": {"exp_avg": {"envmap": env["mu"]},
+                    "exp_avg_sq": {"envmap": env["nu"]},
+                    "count": int(env["count"])}})
     gstate = state_from_jax_arrays(params, alive, device)
     dev = gstate.device
 

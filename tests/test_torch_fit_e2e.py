@@ -133,6 +133,8 @@ def _log(run_dir):
 
 
 FIT_STEPS = 60
+PARAM_FIELDS_3DGS = ("means", "scales", "rotations", "opacities", "shs_dc",
+                     "shs_rest")
 # measured on this scene (the port on the CPU): the initial cloud
 # validates at 10.575 dB, and 60 steps with the densify at step 40 reach
 # 15.727 dB, a rise of 5.15 dB; the test asks for half of that rise
@@ -255,6 +257,15 @@ APPEARANCE_PRESETS = ("appearance_embedding.yaml",
 for _p in APPEARANCE_PRESETS:
     # the preset names the model's class, so its fields go in init_args
     VARIANT_EXTRA[_p] = ("model.gaussian.init_args.sh_degree=1",)
+# GNS's budget per scene, and its curve past the 400 points at step 3;
+# Taming's round at 3 its second (the first is the initial count); a
+# LightGaussian prune inside the 4 steps
+VARIANT_EXTRA["gns.yaml"] = ("model.density.init_args.budget=1000",
+                             "model.density.init_args.densify_until_iter=10")
+VARIANT_EXTRA["taming.yaml"] = (
+    "model.density.init_args.densify_from_iter=0",
+    "model.density.init_args.densify_until_iter=10")
+VARIANT_EXTRA["light_gaussian.yaml"] = ("fit.lg_prune_steps=[2]",)
 
 
 # the renderer is the one the loader serves the run with: gsl_tpu's
@@ -275,9 +286,14 @@ for _p in APPEARANCE_PRESETS:
     ("appearance_visibility_map.yaml", "TileRenderer"),
     ("appearance_visibility_map_hash.yaml", "TileRenderer"),
     ("swag.yaml", "TileRenderer"), ("bilagrid.yaml", "TileRenderer"),
-    ("exposure.yaml", "TileRenderer"), ("grad_acc.yaml", "TileRenderer")])
-def test_variant_presets_fit_through_the_cli(scene, tmp_path, preset,
-                                             renderer):
+    ("exposure.yaml", "TileRenderer"), ("grad_acc.yaml", "TileRenderer"),
+    ("revising.yaml", "TileRenderer"), ("taming.yaml", "TileRenderer"),
+    ("gns.yaml", "TileRenderer"), ("light_gaussian.yaml", "TileRenderer"),
+    # validation renders SH colours without the specular term, as
+    # gsl_tpu's does
+    ("glossy.yaml", "TileRenderer")])
+def test_variant_presets_fit_through_the_cli(scene, tmp_path, capsys,
+                                             preset, renderer):
     extra = VARIANT_EXTRA.get(preset, ())
     state, results = cli.main(_argv(
         "fit", scene, str(tmp_path), "run", 4, preset=preset, extra=(
@@ -305,6 +321,9 @@ def test_variant_presets_fit_through_the_cli(scene, tmp_path, preset,
         assert type(cli.build_components(cli.load_config(
             [os.path.join(REPO, "gsl_tpu_torch", "configs", preset)], {}))[
                 0].metrics_cfg).__name__ == "MCMCMetricsConfig"
+    elif preset == "gns.yaml":
+        # the budget curve's point at step 3 holds every candidate
+        assert d["budget"] > d["after"] == d["before"] + d["net"] > 400
     else:
         assert d["after"] == d["before"] + d["clone"] + d["split"] \
             - d["pruned"]
@@ -329,8 +348,26 @@ def test_variant_presets_fit_through_the_cli(scene, tmp_path, preset,
         assert sorted(state.extra) == ["__outproc__", "__outproc_opt__"]
         assert state.extra["__outproc__"].shape[0] == N_VIEWS
         assert state.extra["__outproc_opt__"]["count"] == 4
+    elif preset == "glossy.yaml":
+        # the map and its Adam; the metalness is a property of the rows
+        assert sorted(state.extra) == ["__glossy__"]
+        assert state.extra["__glossy__"]["opt"]["count"] == 4
+        assert state.params.metalness.shape == (state.params.capacity,)
+        assert float(state.params.metalness[state.alive].std()) > 0
+    elif preset == "gns.yaml":
+        assert sorted(state.extra) == ["__gns__"]
     else:
         assert state.extra is None
+    said = capsys.readouterr().out
+    if preset == "light_gaussian.yaml":
+        # 60% of the 400 alive at step 2
+        assert "[fit] LightGaussian pruned 240 at 2" in said
+        assert int(log[2][2]) == 160
+    if preset == "taming.yaml":
+        # the curve from the initial count to 20 x 400 over 4 rounds
+        from gsl_tpu_torch.training.taming import get_count_array
+        assert d["budget"] == get_count_array(400, 20, 10, 0, 3)[1]
+        assert 400 < d["after"] <= d["budget"]
 
 
 def _variant_resume_argv(scene, out, name, resume, preset):
@@ -376,6 +413,51 @@ def test_variant_resume_is_bit_exact(scene, tmp_path, capsys, preset):
     else:
         assert saved["extra"] is None and res.extra is None
         assert ref.gaussians.n_alive > 400      # the rounds grew it
+
+
+def _gns_argv(scene, out, name, resume):
+    return _argv("fit", scene, out, name, 16, preset="gns.yaml", extra=(
+        "model.gaussian.sh_degree=1", "fit.log_interval=2",
+        "fit.save_iterations=[10]", "fit.save_ply=false",
+        f"fit.resume={resume}", "model.density.init_args.budget=500",
+        "model.density.init_args.densify_from_iter=1",
+        "model.density.init_args.densification_interval=3",
+        "model.density.init_args.densify_until_iter=8",
+        "model.density.init_args.opacity_reg_from=8",
+        "model.density.init_args.opacity_reg_until=14"))
+
+
+def test_gns_resume_across_its_regularisation_phase_is_bit_exact(
+        scene, tmp_path, capsys):
+    """GNS on 400 points with a budget of 500: densifies at 3 and 6 grow
+    it past the budget, the regularisation phase runs from 8 to 14 with
+    its opacity term and x4 opacity updates, and the final prune at 14
+    keeps 500. A second run resumed at step 10, inside the phase, from the
+    first's checkpoint ends bit for bit where the first did: its hooks
+    read the resumed count (past the budget, where the point cloud's 400
+    is under it) and the controller's state from the checkpoint."""
+    out = str(tmp_path)
+    ref, _ = cli.main(_gns_argv(scene, out, "ref", "never"))
+    step_10 = os.path.join(out, "ref", "checkpoints", "step_10")
+    saved = torch.load(os.path.join(step_10, "state.pt"), weights_only=True)
+    assert saved["extra"]["__gns__"]["final_pruned"] is False
+    assert int(saved["alive"].sum()) > 500
+    capsys.readouterr()
+    res, _ = cli.main(_gns_argv(scene, out, "res", step_10))
+    said = capsys.readouterr().out
+    assert "-> continuing at 11" in said
+    assert "[fit] GNS final prune at 14 -> 500" in said
+    assert res.gaussians.n_alive == ref.gaussians.n_alive == 500
+    for k in PARAM_FIELDS_3DGS:
+        assert torch.equal(getattr(res.params, k), getattr(ref.params, k)), k
+        assert torch.equal(res.opt_state.exp_avg[k],
+                           ref.opt_state.exp_avg[k]), k
+        assert torch.equal(res.opt_state.exp_avg_sq[k],
+                           ref.opt_state.exp_avg_sq[k]), k
+    assert torch.equal(res.alive, ref.alive)
+    assert res.extra["__gns__"] == ref.extra["__gns__"] == {
+        "reg_weight": 2e-4, "opacity_min": None, "final_pruned": True,
+        "prune_step": 14}
 
 
 @pytest.mark.parametrize("preset", ["appearance_embedding.yaml",
