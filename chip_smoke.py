@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port's render and training paths (3DGS, 2DGS,
 StopThePop, Mip-Splatting, MCMC, the depth, normal and ground
-regularisers, the appearance slice, the density variants and Glossy), of
-its fit through the CLI and of 2DGS mesh extraction on one CUDA card.
+regularisers, the appearance slice, the density variants, Glossy and the
+dynamic scenes), of its fit through the CLI and of 2DGS mesh extraction
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -268,6 +269,31 @@ package is not beside this script. Phases, each fatal on failure:
    glossy.yaml for 150 steps (the env map's Adam at 150 steps). Each fit
    launches K1-K4 and nothing else and must end above the initial cloud's
    val PSNR. Prints what phase 9 (b) prints.
+13. dynamic scenes: (a) phase 5's perturbed scene at capacity 1M, its
+   three views at times drawn in [0, 1]: DeformTrainer with the MLP at
+   gsl_tpu's defaults (8 x 256, skip at 4, frequencies 10 / 6) and with
+   the HexPlane field at its defaults (resolutions 32 and 64, 16
+   features, 64 neurons), 2 warm-up steps and 5 with the field each (AST
+   noise from a card generator), and PVG with velocities N(0, 0.5^2), 5
+   steps. Each step launches K1-K4 once and nothing else; losses and
+   parameters finite; the field must take 5 updates and move a mean, the
+   velocities must move. K1-K4 are held against their plain versions at
+   the bench pose on each path's deformed or modulated inputs as phase 10
+   holds them. Prints ms per step beside phase 5's plain step, the
+   field's forward and backward ms (CUDA events), peak memory and, for
+   HexPlane, the share of alive rows outside its fixed bounds of 1.5. (b)
+   A Nerfies capture written from the bench scene as a PVG ground truth
+   (the rows right of x = 1 vibrate and fade; phase 8's 24 poses at times
+   i / 23, rendered by the port at 540x960 as rgb/2x of 1080x1920
+   originals; scene scale 0.5 and a centre; 100,000 of the means as
+   points.npy; views 4, 12 and 20 to val), parsed at downsample 2:
+   deformable.yaml, gs4d.yaml (warm-up 50) and pvg.yaml, densifying from
+   50 every 50, each fitted for 150 steps and resumed to 200 (must
+   continue at 151; the field must have taken 151 updates). Each launches
+   K1-K4 and nothing else and must end above the initial cloud's val
+   PSNR (for the deform presets the canonical set's, as gsl_tpu
+   validates). Prints what phase 9 (b) prints and, for the deform
+   presets, the PSNR of the render deformed at each val view's own time.
 
 Bounds in the kernels line: the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM f32 without tensor cores). K1 moves 52
@@ -335,6 +361,8 @@ from PIL import Image
 
 from gsl_tpu_torch import cli
 from gsl_tpu_torch.data.cameras import make_camera, stack_cameras
+from gsl_tpu_torch.data.dataparsers.nerfies import NerfiesDataParserConfig
+from gsl_tpu_torch.data.dataset import CachedDataset, image_to_float
 from gsl_tpu_torch.data.colmap_io import (ColmapCamera, ColmapImage,
                                           ColmapModel, qvec_to_rotmat,
                                           read_model, rotmat_to_qvec,
@@ -355,13 +383,15 @@ from gsl_tpu_torch.models.appearance import AppearanceFeatureGaussianConfig
 from gsl_tpu_torch.models.gaussian_2d import Gaussian2DConfig
 from gsl_tpu_torch.models.mip_splatting import (MipSplattingConfig,
                                                 compute_3d_filter)
+from gsl_tpu_torch.models.pvg import PVGConfig, PVGRendererConfig
 from gsl_tpu_torch.renderers.mip_splatting_renderer import \
     MipSplattingRendererConfig
 from gsl_tpu_torch.renderers.surfel_renderer import SurfelRendererConfig
 from gsl_tpu_torch.renderers.tile_renderer import TileRendererConfig
 from gsl_tpu_torch.tools import get_depth_scales, gs2d_mesh_extraction
 from gsl_tpu_torch.training.appearance_trainer import (
-    AppearanceOptimizationConfig, AppearanceTrainer)
+    AppearanceOptimizationConfig, AppearanceTrainer, leaves_of)
+from gsl_tpu_torch.training.deform_trainer import DeformTrainer
 from gsl_tpu_torch.training.density import (
     AccurateVisibilityFilterDensityControllerConfig,
     BackgroundRemovalDensityControllerConfig, H3DGSDensityControllerConfig,
@@ -387,7 +417,8 @@ from gsl_tpu_torch.training.light_gaussian import (accumulate_blend_weights,
                                                    prune_by_importance)
 from gsl_tpu_torch.training.mcmc import (MCMCDensityControllerConfig,
                                          dead_mask, grow_target)
-from gsl_tpu_torch.training.metrics import MCMCMetricsConfig, train_loss
+from gsl_tpu_torch.training.metrics import (MCMCMetricsConfig, psnr,
+                                           train_loss)
 from gsl_tpu_torch.training.opt_strategies import (GradAccConfig,
                                                    GradAccTrainer)
 from gsl_tpu_torch.training.output_processors import (BilateralGridConfig,
@@ -399,7 +430,9 @@ from gsl_tpu_torch.training.trainer import Trainer, TrainerConfig
 from gsl_tpu_torch.training.visibility_map_trainer import \
     VisibilityMapAppearanceTrainer
 from gsl_tpu_torch.utils.checkpoint import load_checkpoint
-from gsl_tpu_torch.utils.convert import state_from_raw_arrays
+from gsl_tpu_torch.utils.convert import (state_from_jax_arrays,
+                                         state_from_raw_arrays)
+from gsl_tpu_torch.utils.device import float32_math
 from gsl_tpu_torch.utils.gaussian_model_loader import GaussianModelLoader
 from gsl_tpu_torch.utils.ply import save_gaussian_ply
 from gsl_tpu_torch.viewer.camera_path import orbit_c2w
@@ -3623,6 +3656,349 @@ def phase_density_fits(tmp, colmap_fit):
         f"{colmap_fit['psnr0']:.4f} dB")
 
 
+# ---- phase 13: dynamic scenes ----------------------------------------------
+
+DYNAMIC_WARM, DYNAMIC_STEPS = 2, 5    # warm-up steps, then deformed ones
+PVG_STEPS = 5
+HEXPLANE_BOUNDS = 1.5                  # gsl_tpu's fixed normalisation
+NERFIES_H, NERFIES_W = 540, 960        # a capture's 2x images of 1080x1920
+NERFIES_SCALE = 0.5
+NERFIES_CENTER = np.array([0.2, -0.1, 0.3])
+NERFIES_VAL = (4, 12, 20)              # the views dataset.json gives val
+DYNAMIC_FIT_STEPS, DYNAMIC_RESUME_STEPS = 150, 200
+DYNAMIC_WARM_UP = 50                   # the deform presets' warm-up, cut
+
+
+def at_time(cam, t):
+    return dataclasses.replace(cam, time=torch.tensor(
+        float(t), dtype=torch.float32, device=cam.R.device))
+
+
+def deform_steps(what, trainer, state, cams, targets, bg, gen):
+    """DYNAMIC_WARM warm-up steps and DYNAMIC_STEPS with the field, each
+    checked for K1-K4 once and nothing else. Returns (state, losses, ms
+    per step)."""
+    losses, step_ms = [], []
+    for step in range(1, DYNAMIC_WARM + DYNAMIC_STEPS + 1):
+        view = step % len(cams)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state, sc = trainer.train_step_deform(
+            state, cams[view], targets[view], H, W, SH_DEGREE, bg,
+            warm_up=step <= DYNAMIC_WARM, generator=gen)
+        losses.append(float(sc["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check_step_launches(what, step)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: non-finite loss in {losses}")
+    for k in PARAM_FIELDS:
+        if not bool(torch.isfinite(getattr(state.params, k)).all()):
+            fail(f"{what}: non-finite {k}")
+    return state, losses, step_ms
+
+
+def field_ms(trainer, state, t):
+    """CUDA-event ms of the field's forward at the state's capacity, and
+    of its backward (the gradients of the outputs' sum in its weights)."""
+    params = leaves_of(state.extra["__deform__"], True)
+    xyz = state.params.means.detach()
+
+    def forward():
+        return torch.func.functional_call(trainer.deform_net, params,
+                                          (xyz, t))
+
+    def both():
+        outs = forward()
+        torch.autograd.grad(sum(o.sum() for o in outs),
+                            list(params.values()))
+
+    with float32_math():
+        fwd = cuda_ms(forward, 3)
+        return fwd, cuda_ms(both, 3) - fwd
+
+
+def hold_dynamic_kernels(vname, gs, renderer, cam):
+    """K1-K4 against their plain versions (hold_raster_kernels) on a
+    dynamic path's inputs at `cam`: the renderer's means, opacities and
+    colours of the deformed or modulated state `gs`."""
+    with torch.no_grad():
+        proj = project_gaussians(
+            renderer.get_means(gs, cam), renderer.get_scales(gs, cam),
+            gs.get_rotations(), cam.world_to_camera, cam.fx, cam.fy,
+            cam.cx, cam.cy, W, H)
+        return hold_raster_kernels(
+            vname, proj, renderer.get_opacities(gs, cam, proj).contiguous(),
+            renderer.get_rgbs(gs, cam, SH_DEGREE).contiguous(),
+            gs.capacity, 13)
+
+
+def pvg_state(arrays, seed=14):
+    """Phase 5's perturbed scene with PVG's properties: life peaks as
+    PVGConfig draws them, lifespan 1, velocities N(0, 0.5^2)."""
+    n = len(arrays["means"])
+    gs = state_from_raw_arrays(perturbed(arrays), device="cuda")
+    t0 = np.random.RandomState(3).uniform(0, 1, n).astype(np.float32)
+    vel = (np.random.RandomState(seed).normal(size=(n, 3)) * 0.5).astype(
+        np.float32)
+    return dataclasses.replace(gs, params=dataclasses.replace(
+        gs.params, t_centers=torch.from_numpy(t0[:, None]).cuda(),
+        t_scales=torch.zeros((n, 1), device="cuda"),
+        velocities=torch.from_numpy(vel).cuda()))
+
+
+def phase_dynamic_training(arrays, plain_step_ms):
+    """Phase 13 (a): DeformTrainer with the MLP and the HexPlane field,
+    and PVG, at full width."""
+    log("== phase 13 (a): DeformTrainer (MLP 8 x 256, HexPlane 32/64 x 16) "
+        f"and PVG at 1088x1920, capacity 1M, camera times in [0, 1]; times "
+        f"on {CARD}")
+    bg = torch.zeros(3, device="cuda")
+    times = np.random.RandomState(13).uniform(0, 1, 3)
+    cams = [at_time(camera(c2w), t) for c2w, t in zip(views().values(),
+                                                      times)]
+    plain = TileRendererConfig().instantiate()
+    truth = state_from_raw_arrays(arrays, device="cuda")
+    with torch.no_grad():
+        targets = [plain.forward(truth, c, H, W, bg, SH_DEGREE).render
+                   for c in cams]
+    del truth
+    model = VanillaGaussianConfig(sh_degree=SH_DEGREE)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    results = {}
+    for field in ("mlp", "hexplane"):
+        trainer = DeformTrainer(model=model, field=field)
+        state = trainer.setup(state_from_raw_arrays(perturbed(arrays),
+                                                    device="cuda"),
+                              cameras_extent=TRAIN_EXTENT)
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, step_ms = deform_steps(
+            f"deform {field}", trainer, state, cams, targets, bg, gen)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        net = state.extra["__deform__"]
+        if net["opt"]["count"] != DYNAMIC_STEPS:
+            fail(f"deform {field}: {net['opt']['count']} field updates")
+        fwd, bwd = field_ms(trainer, state, cams[0].time)
+        with torch.no_grad():
+            moved = trainer.deform(net["params"], state.gaussians,
+                                   cams[0].time)
+            shift = float((moved.params.means - state.params.means)[
+                state.alive].norm(dim=-1).max())
+        if not shift > 0:
+            fail(f"deform {field}: the trained field moves no row")
+        k2, k3 = hold_dynamic_kernels(f"deform {field}", moved,
+                                      trainer.renderer, cams[0])
+        del moved
+        said = ""
+        if field == "hexplane":
+            xyz = state.params.means[state.alive]
+            clip = float((xyz.abs() > HEXPLANE_BOUNDS).any(-1).float()
+                         .mean())
+            said = (f"; rows outside gsl_tpu's fixed bounds +-"
+                    f"{HEXPLANE_BOUNDS} (their coordinates clipped to "
+                    f"the border): {clip:.4f} of the alive rows")
+        results[field] = float(np.median(step_ms[DYNAMIC_WARM + 1:]))
+        log(f"deform {field}: ms per step {[round(x, 2) for x in step_ms]}"
+            f" (the first {DYNAMIC_WARM} in the warm-up), median after it "
+            f"{results[field]:.2f}, in it "
+            f"{float(np.median(step_ms[1:DYNAMIC_WARM])):.2f} (phase 5's "
+            f"plain step in this run {plain_step_ms:.2f}); the field at "
+            f"capacity {state.params.capacity}: forward {fwd:.2f} ms, "
+            f"backward {bwd:.2f} ms (CUDA events); loss {losses[0]:.6g} "
+            f"-> {losses[-1]:.6g}; the trained field moves a mean by up to "
+            f"{shift:.3g}; peak {peak:.3f} GiB; K1-K4 once a step; K2 / K3 "
+            f"on its deformed inputs {k2:.4f} / {k3:.4f} ms{said}")
+        del state, trainer, net
+        torch.cuda.empty_cache()
+
+    trainer = Trainer(model=PVGConfig(sh_degree=SH_DEGREE),
+                      renderer=PVGRendererConfig())
+    state = trainer.setup(pvg_state(arrays), cameras_extent=TRAIN_EXTENT)
+    first_vel = state.params.velocities.clone()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, step_ms, _ = variant_steps("PVG", trainer, state, cams,
+                                              targets, bg, 1, PVG_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vel_moved = float((state.params.velocities - first_vel).abs().max())
+    if not vel_moved > 0 or state.opt_state.count_of("velocities") \
+            != PVG_STEPS:
+        fail(f"PVG: velocities moved by {vel_moved}")
+    k2, k3 = hold_dynamic_kernels("PVG", state.gaussians, trainer.renderer,
+                                  cams[0])
+    results["pvg"] = float(np.median(step_ms[1:]))
+    log(f"PVG: ms per step {[round(x, 2) for x in step_ms]}, median "
+        f"{results['pvg']:.2f} (phase 5's plain step in this run "
+        f"{plain_step_ms:.2f}); loss {losses[0]:.6g} -> {losses[-1]:.6g}; "
+        f"velocities moved by up to {vel_moved:.3g}; peak {peak:.3f} GiB; "
+        f"K1-K4 once a step; K2 / K3 on its modulated inputs {k2:.4f} / "
+        f"{k3:.4f} ms")
+    return results
+
+
+def dynamic_truth(arrays):
+    """The bench scene as a PVG ground truth: the rows right of x = 1
+    vibrate (velocities N(0, 3^2)) and live around their own life peaks
+    (spans 0.3); the others are static (span e^3, no velocity)."""
+    n = len(arrays["means"])
+    rng = np.random.RandomState(15)
+    moving = arrays["means"][:, 0] > 1.0
+    out = dict(arrays)
+    out["t_centers"] = np.where(moving, rng.uniform(0, 1, n),
+                                0.5)[:, None].astype(np.float32)
+    out["t_scales"] = np.where(moving, np.log(0.3), 3.0)[:, None].astype(
+        np.float32)
+    out["velocities"] = (rng.normal(size=(n, 3)) * 3.0
+                         * moving[:, None]).astype(np.float32)
+    return out, float(moving.mean())
+
+
+def write_nerfies_scene(root, arrays):
+    """FIT_VIEWS views of dynamic_truth (phase 8's poses) rendered by the
+    port's PVGRenderer at their times i / (FIT_VIEWS - 1) as a Nerfies
+    capture: rgb/2x/<id>.png at 540x960, camera/<id>.json for the
+    1080x1920 originals (focal 1600), dataset.json (val: NERFIES_VAL),
+    scene.json (scale 0.5, a centre), metadata.json (the time ids) and
+    points.npy (SFM_POINTS of the means). Positions and points are written
+    as the capture holds them, before the scene's normalisation."""
+    truth, moving = dynamic_truth(arrays)
+    state = state_from_jax_arrays(truth, np.ones(N_GAUSSIANS, bool),
+                                  device="cuda")
+    renderer = PVGRendererConfig().instantiate()
+    bg = torch.zeros(3, device="cuda")
+    ids = [f"frame_{i:03d}" for i in range(FIT_VIEWS)]
+    for sub in ("camera", os.path.join("rgb", "2x")):
+        os.makedirs(os.path.join(root, sub))
+    for i, (iid, c2w) in enumerate(zip(ids, fit_poses())):
+        t = i / (FIT_VIEWS - 1)
+        cam = at_time(camera(c2w, NERFIES_H, NERFIES_W, FOCAL / 2), t)
+        with torch.no_grad():
+            out = renderer.forward(state, cam, NERFIES_H, NERFIES_W, bg,
+                                   SH_DEGREE)
+        img = (out.render.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+        Image.fromarray(img).save(os.path.join(root, "rgb", "2x",
+                                               f"{iid}.png"),
+                                  compress_level=1)
+        w2c = np.linalg.inv(c2w)
+        with open(os.path.join(root, "camera", f"{iid}.json"), "w") as f:
+            json.dump({"orientation": w2c[:3, :3].tolist(),
+                       "position": (c2w[:3, 3] / NERFIES_SCALE
+                                    + NERFIES_CENTER).tolist(),
+                       "focal_length": FOCAL, "pixel_aspect_ratio": 1.0,
+                       "principal_point": [W / 2, 1080 / 2],
+                       "image_size": [W, 1080],
+                       "radial_distortion": [0.0, 0.0, 0.0],
+                       "tangential_distortion": [0.0, 0.0]}, f)
+    val = [ids[i] for i in NERFIES_VAL]
+    with open(os.path.join(root, "dataset.json"), "w") as f:
+        json.dump({"count": FIT_VIEWS, "ids": ids, "val_ids": val,
+                   "train_ids": [i for i in ids if i not in val]}, f)
+    with open(os.path.join(root, "scene.json"), "w") as f:
+        json.dump({"scale": NERFIES_SCALE,
+                   "center": NERFIES_CENTER.tolist()}, f)
+    with open(os.path.join(root, "metadata.json"), "w") as f:
+        json.dump({iid: {"time_id": i, "warp_id": i, "appearance_id": i,
+                         "camera_id": 0} for i, iid in enumerate(ids)}, f)
+    pick = np.random.RandomState(3).choice(N_GAUSSIANS, SFM_POINTS,
+                                           replace=False)
+    np.save(os.path.join(root, "points.npy"),
+            arrays["means"][pick] / NERFIES_SCALE + NERFIES_CENTER)
+    return moving
+
+
+def deformed_val_psnr(trainer, state, outputs):
+    """Mean PSNR over the val views of the render deformed by the trained
+    field at each view's own time (validation renders the canonical
+    set)."""
+    dataset = CachedDataset(outputs.val_set)
+    bg = torch.zeros(3, device="cuda")
+    psnrs = []
+    with torch.no_grad(), float32_math():
+        for i in range(len(dataset)):
+            cam, _, img_u8, _ = dataset.get(i)
+            cam = cam.to("cuda")
+            gt = image_to_float(img_u8.to("cuda"))
+            gs = trainer.deform(state.extra["__deform__"]["params"],
+                                state.gaussians, cam.time)
+            out = trainer.renderer.forward(gs, cam, gt.shape[0],
+                                           gt.shape[1], bg, SH_DEGREE)
+            psnrs.append(float(psnr(out.render, gt)))
+    return float(np.mean(psnrs))
+
+
+def phase_dynamic_fits(tmp):
+    """Phase 13 (b): deformable.yaml, gs4d.yaml and pvg.yaml through the
+    CLI on a synthesised Nerfies capture, each fitted and resumed."""
+    log("== phase 13 (b): deformable.yaml, gs4d.yaml and pvg.yaml through "
+        "gsl_tpu_torch.cli on a synthesised Nerfies capture (24 views at "
+        f"540x960 over times 0-1), each resumed; times on {CARD}")
+    data, runs = os.path.join(tmp, "nerfies"), os.path.join(tmp, "runs")
+    t0 = time.perf_counter()
+    moving = write_nerfies_scene(data, scene_arrays(N_GAUSSIANS))
+    outputs = NerfiesDataParserConfig(path=data, downsample=2).instantiate(
+        ).get_outputs()
+    times = outputs.train_set.cameras.time
+    if not (len(outputs.train_set) == FIT_VIEWS - len(NERFIES_VAL)
+            and outputs.train_set.cameras.width[0] == NERFIES_W
+            and float(times.min()) == 0.0 and float(times.max()) == 1.0):
+        fail(f"Nerfies parser: {len(outputs.train_set)} train views, times "
+             f"{times.tolist()}")
+    log(f"Nerfies capture written in {time.perf_counter() - t0:.1f} s: "
+        f"{FIT_VIEWS} views, {moving:.4f} of the {N_GAUSSIANS} rows moving; "
+        f"parsed at downsample 2: {len(outputs.train_set)} train views at "
+        f"{NERFIES_W}x{NERFIES_H}, times {times.min():.3f}-"
+        f"{times.max():.3f}, {len(outputs.point_cloud.xyz)} points")
+    common = ("data.parser.class_path=Nerfies",
+              "data.parser.init_args.downsample=2",
+              f"fit.log_interval={VARIANT_LOG_INTERVAL}",
+              "model.density.init_args.densify_from_iter=50",
+              "model.density.init_args.densification_interval=50")
+    for preset in ("deformable.yaml", "gs4d.yaml", "pvg.yaml"):
+        name = preset.split(".")[0]
+        over = common + ((f"model.deform.init_args.warm_up="
+                          f"{DYNAMIC_WARM_UP}",)
+                         if preset != "pvg.yaml" else ())
+        path = os.path.join(PRESETS, preset)
+        psnr0, _ = initial_psnr([path], over + (f"data.path={data}",), tmp,
+                                name)
+
+        def argv(steps):
+            return ["fit", "--config", path, "--data.path", data,
+                    "--output", runs, "-n", name, "--max_steps",
+                    str(steps), *over]
+
+        first = run_cli(argv(DYNAMIC_FIT_STEPS), GAUSSIAN_KERNELS)
+        first.pop("state")
+        second = run_cli(argv(DYNAMIC_RESUME_STEPS), GAUSSIAN_KERNELS)
+        state = second.pop("state")
+        got = second["results"]["psnr"]
+        if f"-> continuing at {DYNAMIC_FIT_STEPS + 1}" not in second["said"] \
+                or not got > psnr0:
+            fail(f"fit {preset}: val PSNR {got:.3f} dB (initial cloud "
+                 f"{psnr0:.3f}) after the resume")
+        said = ""
+        if preset == "pvg.yaml":
+            v = state.params.velocities[state.alive]
+            said = (f"; velocities of the alive rows up to "
+                    f"{float(v.abs().max()):.3g}")
+        else:
+            count = state.extra["__deform__"]["opt"]["count"]
+            if count != DYNAMIC_RESUME_STEPS - DYNAMIC_WARM_UP + 1:
+                fail(f"fit {preset}: {count} field updates")
+            trainer, _, _ = cli.build_components(cli.load_config(
+                [path], cli.parse_overrides(over)))
+            said = (f" (the canonical set, as gsl_tpu validates); the "
+                    f"render deformed by the field at each val view's time "
+                    f"{deformed_val_psnr(trainer, state, outputs):.4f} dB; "
+                    f"{count} field updates")
+        log(f"fit {preset}: val PSNR {got:.4f} dB at step "
+            f"{DYNAMIC_RESUME_STEPS} after the resume at "
+            f"{DYNAMIC_FIT_STEPS + 1}, from the initial cloud's "
+            f"{psnr0:.4f}{said}")
+        log_fit(f"fit {preset}", [first, second])
+        del state
+        torch.cuda.empty_cache()
+
+
 def tensors_of(x):
     """The tensors and numbers of nested dicts, in key order."""
     if isinstance(x, dict):
@@ -3738,6 +4114,11 @@ def main():
             arrays, float(np.median(training["step_ms"][5:TRAIN_STEPS])))
         torch.cuda.empty_cache()
         phase_density_fits(tmp, colmap_fit)
+        torch.cuda.empty_cache()
+        phase_dynamic_training(
+            arrays, float(np.median(training["step_ms"][5:TRAIN_STEPS])))
+        torch.cuda.empty_cache()
+        phase_dynamic_fits(tmp)
     # StopThePop beside plain 3DGS, phases 7 and 4/5 of this run
     log("StopThePop over plain 3DGS, this run: bench-pose rgb frame ms "
         f"{[round(x, 2) for x in stp_serving['rgb_frame_ms']]} vs "

@@ -18,7 +18,11 @@ gsl_tpu's CLI combines but whose step applies only one (an appearance
 model with an output processor, gradient accumulation, a depth or 2DGS
 metric or plugins; gradient accumulation or Glossy with an output
 processor; Glossy with another variant trainer; GNS with a trainer whose
-step is not the plain one) raise ``ValueError`` naming both.
+step is not the plain one; a deformation field with another variant
+trainer, an output processor, plugins, the AbsGS or accurate-visibility
+statistic or MCMC's regularisers) raise ``ValueError`` naming both. The
+``deform`` key (a field name, or {field, init_args} with ``init_args``
+into `DeformModelConfig`) selects `DeformTrainer`.
 Without ``model.n_appearances`` the appearance embedding is sized from the
 data at fit time.
 """
@@ -36,15 +40,19 @@ from .data.dataparsers.blender import BlenderDataParserConfig
 from .data.dataparsers.colmap import ColmapDataParserConfig
 from .data.dataparsers.estimated_depth_colmap import \
     EstimatedDepthColmapDataParserConfig
+from .data.dataparsers.nerfies import NerfiesDataParserConfig
 from .data.dataparsers.phototourism import PhotoTourismDataParserConfig
 from .models.appearance import AppearanceFeatureGaussianConfig
+from .models.deform import DeformModelConfig
 from .models.gaussian import VanillaGaussianConfig
 from .models.gaussian_2d import Gaussian2DConfig
 from .models.mip_splatting import MipSplattingConfig
+from .models.pvg import PVGConfig, PVGRendererConfig
 from .renderers.mip_splatting_renderer import MipSplattingRendererConfig
 from .renderers.surfel_renderer import SurfelRendererConfig
 from .renderers.tile_renderer import TileRendererConfig
 from .training.appearance_trainer import AppearanceTrainer
+from .training.deform_trainer import DeformTrainer
 from .training.density import VanillaDensityControllerConfig
 from .training.density import (
     AccurateVisibilityFilterDensityControllerConfig,
@@ -74,8 +82,10 @@ _REGISTRY = {
     "MipSplatting": MipSplattingConfig,
     "Gaussian2D": Gaussian2DConfig,
     "AppearanceFeatureGaussian": AppearanceFeatureGaussianConfig,
+    "PVG": PVGConfig,
     "TileRenderer": TileRendererConfig,
     "MipSplattingRenderer": MipSplattingRendererConfig,
+    "PVGRenderer": PVGRendererConfig,
     "SurfelRenderer": SurfelRendererConfig,
     "VanillaDensityController": VanillaDensityControllerConfig,
     "MCMCDensityController": MCMCDensityControllerConfig,
@@ -99,6 +109,7 @@ _REGISTRY = {
     "EstimatedDepthColmap": EstimatedDepthColmapDataParserConfig,
     "PhotoTourism": PhotoTourismDataParserConfig,
     "Blender": BlenderDataParserConfig,
+    "Nerfies": NerfiesDataParserConfig,
 }
 
 # output_processor shorthands
@@ -107,9 +118,9 @@ _PROCESSORS = {"bilagrid": BilateralGridConfig, "exposure": ExposureConfig}
 # components of gsl_tpu's registry that the port has not yet -> ROADMAP
 # item
 _UNPORTED_COMPONENTS = {
-    "NSVF": 12, "MatrixCity": 12, "Nerfies": 12,
+    "NSVF": 12, "MatrixCity": 12,
     "SegAnyColmap": 12, "NGP": 12, "SpotLessColmap": 12, "SpotLessMetrics": 12,
-    "Feature3DGSColmap": 12, "SILVR": 12, "PVG": 12, "PVGRenderer": 12,
+    "Feature3DGSColmap": 12, "SILVR": 12,
 }
 
 # fields of gsl_tpu's configs that exist for the TPU's static shapes, its
@@ -123,7 +134,7 @@ TPU_ONLY_FIELDS = ("backend", "chunk", "pallas_chunk", "max_per_tile",
 _UNPORTED_FIT_FIELDS = {"viewer": 14, "viewer_port": 14}
 
 # top-level / model keys gsl_tpu's build_components reads for variants
-_UNPORTED_KEYS = {"distributed": 13, "deform": 12}
+_UNPORTED_KEYS = {"distributed": 13}
 
 
 def _not_ported(what: str, item: int):
@@ -285,6 +296,20 @@ def build_components(cfg: Dict):
                 f"glossy with {trainer_cls.__name__}: gsl_tpu's glossy "
                 "step would drop the other trainer's step silently")
         trainer_cls = GlossyTrainer       # (a processor: the trainer raises)
+    deform_spec = model_spec.get("deform") or cfg.get("deform")
+    if deform_spec:
+        if isinstance(deform_spec, str):
+            deform_spec = {"field": deform_spec}
+        if trainer_cls is not Trainer:
+            raise ValueError(
+                f"deform with {trainer_cls.__name__}: gsl_tpu's deform "
+                "step would drop the other trainer's step silently")
+        # (a processor, plugins, appearance or a dropped statistic: the
+        # trainer raises, naming both)
+        trainer_cls = DeformTrainer
+        kwargs["field"] = deform_spec.get("field", "mlp")
+        kwargs["deform_cfg"] = _build(DeformModelConfig,
+                                      deform_spec.get("init_args", {}))
     if op_spec:
         if isinstance(op_spec, str):
             op_spec = {"class_path": op_spec}

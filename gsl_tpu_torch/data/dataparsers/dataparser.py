@@ -64,8 +64,9 @@ def camera_centers(cameras: Cameras) -> np.ndarray:
 
 
 def cameras_from_numpy(R, T, fx, fy, cx, cy, width, height,
-                       appearance_id=None) -> Cameras:
-    """A CPU batch from numpy arrays: float32 geometry, int32 sizes."""
+                       appearance_id=None, time=None) -> Cameras:
+    """A CPU batch from numpy arrays: float32 geometry and times, int32
+    sizes."""
     def f32(x):
         return torch.from_numpy(np.ascontiguousarray(x, np.float32))
 
@@ -75,7 +76,8 @@ def cameras_from_numpy(R, T, fx, fy, cx, cy, width, height,
     return Cameras(R=f32(R), T=f32(T), fx=f32(fx), fy=f32(fy), cx=f32(cx),
                    cy=f32(cy), width=i32(width), height=i32(height),
                    appearance_id=(None if appearance_id is None
-                                  else i32(appearance_id)))
+                                  else i32(appearance_id)),
+                   time=None if time is None else f32(time))
 
 
 class DataParser:

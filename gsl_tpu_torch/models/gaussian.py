@@ -11,10 +11,11 @@ Mip-Splatting's `filter_3d`: a dict of tensors, where an entry whose first
 dimension is the capacity is per Gaussian and follows every row edit. An
 entry whose name starts with ``__`` is a variant's own state (a network, an
 output processor and their optimizers): no row edit touches it, whatever
-its shape. `GaussianParams.appearance_features` (the appearance models')
-and `GaussianParams.metalness` (Glossy's) are the optional trainable
-properties ported; the periodic-vibration fields come with their
-variant.
+its shape. The optional trainable properties are
+`GaussianParams.appearance_features` (the appearance models'),
+`GaussianParams.metalness` (Glossy's) and PVG's `t_centers`, `t_scales`
+and `velocities` (``models/pvg.py``): each follows every row edit, and
+new rows start at zero.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ from ..utils.device import resolve_device
 
 PARAM_FIELDS = ("means", "scales", "rotations", "opacities", "shs_dc",
                 "shs_rest")
-OPTIONAL_FIELDS = ("appearance_features", "metalness")
+OPTIONAL_FIELDS = ("appearance_features", "metalness", "t_centers",
+                   "t_scales", "velocities")
 DEAD_LOG_SCALE = -10.0   # raw scale and opacity of a padding slot
 DEAD_LOGIT = -10.0
 
@@ -53,6 +55,10 @@ class GaussianParams:
     shs_rest: torch.Tensor    # [N, K-1, 3]
     appearance_features: Optional[torch.Tensor] = None   # [N, D] or None
     metalness: Optional[torch.Tensor] = None   # [N] logit-space, or None
+    # PVG (periodic vibration): life peak, log lifespan, velocity
+    t_centers: Optional[torch.Tensor] = None    # [N, 1] or None
+    t_scales: Optional[torch.Tensor] = None     # [N, 1] or None
+    velocities: Optional[torch.Tensor] = None   # [N, 3] or None
 
     @property
     def capacity(self) -> int:

@@ -7,8 +7,9 @@ calls uniformly:
 - `StepHook(state, generator, step, ...) -> (state, scalars)`: which train
   step runs, and what it is fed (the view's index in the train set for an
   output processor, the depth trainer's inverse-depth map, the
-  appearance trainers' warm-up flag, gradient accumulation's buffer,
-  GNS's opacity regulariser and update factor);
+  appearance trainers' and the deform trainer's warm-up flags, gradient
+  accumulation's buffer, GNS's opacity regulariser and update factor; the
+  deform trainer's AST noise draws from the fit's generator);
   its `init_state(state, generator)` runs before a resume and sets up
   what the step keeps outside the state (the accumulation buffer) or in
   its `extra` (GNS's schedule);
@@ -22,8 +23,9 @@ calls uniformly:
   the Mip-Splatting 3D-filter recompute and LightGaussian's pruning
   after).
 
-The JAX package's other variant hooks (SpotLess, deform) come with their
-variants; until then `build_hooks` raises for them.
+PVG needs no hook of its own: it is a model and a renderer on the plain
+step. The JAX package's SpotLess hook comes with its variant; until then
+`build_hooks` raises for it.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ from .density import (AccurateVisibilityFilterDensityControllerConfig,
                       StaticDensityControllerConfig,
                       VanillaDensityControllerConfig,
                       background_removal_step, densify_masks, mean_grads)
+from .deform_trainer import DeformTrainer
 from .depth_trainer import DepthTrainer
 from .glossy_trainer import GlossyTrainer
 from .gns import (GNSController, GNSDensityControllerConfig,
@@ -131,6 +134,18 @@ class AppearanceStepHook(StepHook):
         return self.trainer.train_step_appearance(
             state, cam, img, H, W, sh_degree, self.ctx.bg,
             warm_up=step < self.trainer.appearance_opt.warm_up, mask=mask)
+
+
+class DeformStepHook(StepHook):
+    """`train_step_deform`, in its warm-up (the field idle) before
+    `deform_cfg.warm_up`; the AST noise draws from the fit's generator."""
+
+    def __call__(self, state, generator, step, sh_degree, cam, name, img,
+                 mask, H, W):
+        return self.trainer.train_step_deform(
+            state, cam, img, H, W, sh_degree, self.ctx.bg,
+            warm_up=step < self.trainer.deform_cfg.warm_up,
+            generator=generator, mask=mask)
 
 
 class GradAccStepHook(StepHook):
@@ -607,7 +622,8 @@ class LightGaussianPruneHook:
 
 
 TRAINERS = (Trainer, DepthTrainer, GS2DTrainer, AppearanceTrainer,
-            VisibilityMapAppearanceTrainer, GradAccTrainer, GlossyTrainer)
+            VisibilityMapAppearanceTrainer, GradAccTrainer, GlossyTrainer,
+            DeformTrainer)
 # the controllers whose schedule is Trainer.maybe_density_ops
 VANILLA_FAMILY = (VanillaDensityControllerConfig,
                   RevisingDensityControllerConfig,
@@ -657,6 +673,8 @@ def build_hooks(ctx: FitContext, initial_n_alive: int):
         step_hook = gns
     elif isinstance(trainer, GlossyTrainer):
         step_hook = GlossyStepHook(ctx)
+    elif isinstance(trainer, DeformTrainer):
+        step_hook = DeformStepHook(ctx)
     elif isinstance(trainer, AppearanceTrainer):
         step_hook = AppearanceStepHook(ctx)
     elif isinstance(trainer, GradAccTrainer):

@@ -3,7 +3,8 @@
 Port of ``gsl_tpu/training/optimizers.py``. `GaussianAdam` is
 ``build_gaussian_optimizer``: one Adam per property (b1 0.9, b2 0.999, eps
 1e-15), the means' rate decayed exponentially and scaled by the scene
-extent, the appearance features' at 2e-3. `TensorAdam` is ``optax.adam``
+extent, the appearance features' at 2e-3 and PVG's three properties at
+1e-3. `TensorAdam` is ``optax.adam``
 over a dict of named tensors (a network's weights, an output processor's
 grids). The arithmetic is optax's:
 
@@ -31,6 +32,10 @@ B1, B2 = 0.9, 0.999
 # gsl_tpu's build_gaussian_optimizer takes this rate, whatever the model's
 # appearance_feature_lr_init says
 APPEARANCE_FEATURE_LR = 2e-3
+# gsl_tpu's one Adam of PVG's properties: Trainer.setup passes no rate, so
+# build_gaussian_optimizer's default, whatever PVGConfig.pvg_lr says
+PVG_LR = 1e-3
+PVG_FIELDS = ("t_centers", "t_scales", "velocities")
 
 
 def adam_moments(g, mu, nu, t: int, lr: float, eps: float):
@@ -82,6 +87,7 @@ class GaussianAdam:
             "shs_dc": opt_cfg.shs_dc_lr,
             "shs_rest": opt_cfg.shs_dc_lr / opt_cfg.shs_rest_lr_div,
             "appearance_features": APPEARANCE_FEATURE_LR,
+            **{k: PVG_LR for k in PVG_FIELDS},
         }
 
     def learning_rate(self, name: str, count: int) -> float:

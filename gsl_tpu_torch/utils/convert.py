@@ -48,7 +48,7 @@ def state_from_raw_arrays(arrays: dict, device=None) -> GaussianState:
 
 def train_state_from_jax_arrays(params: dict, alive: np.ndarray, opt: dict,
                                 density: dict, step: int, extra=None,
-                                device=None, glossy=None):
+                                device=None, glossy=None, deform=None):
     """The port's `TrainState` from a JAX ``TrainState`` taken apart into
     numpy arrays: `params` and `alive` as for `state_from_jax_arrays`;
     `opt` = {property: {"mu": ..., "nu": ..., "count": int}}, the optax
@@ -61,7 +61,13 @@ def train_state_from_jax_arrays(params: dict, alive: np.ndarray, opt: dict,
     gsl_tpu's ``extra["__glossy__"]`` as {"envmap", "metalness_raw",
     "opt": {"envmap": {"mu", "nu", "count"}, "metalness_raw": {...}}};
     the metalness becomes the Gaussian property `metalness` with its
-    moments, the map and its Adam ``extra["__glossy__"]``."""
+    moments, the map and its Adam ``extra["__glossy__"]``. PVG's
+    `t_centers`, `t_scales` and `velocities` come along in `params` and
+    `opt` where the JAX state has them. `deform`: gsl_tpu's
+    ``extra["__deform__"]`` as {"params": the field's flax tree, "opt":
+    {"mu": tree, "nu": tree, "count": int}}; it becomes
+    ``extra["__deform__"]`` = {"params", "opt"} in the port's layout
+    (`state_dict_from_flax`)."""
     if glossy is not None:
         params = dict(params, metalness=glossy["metalness_raw"])
         opt = dict(opt, metalness=glossy["opt"]["metalness_raw"])
@@ -96,7 +102,21 @@ def train_state_from_jax_arrays(params: dict, alive: np.ndarray, opt: dict,
             count=count, solo_counts=solo),
         density=DensityControlState(**{k: t(density[k]) for k in (
             "grad_accum", "denom", "max_radii")}),
-        step=int(step), extra=_nested(extra, t))
+        step=int(step), extra=_with_deform(_nested(extra, t), deform, dev))
+
+
+def _with_deform(extra, deform, device):
+    """`extra` with gsl_tpu's field state (see
+    `train_state_from_jax_arrays`) as ``__deform__`` in the port's
+    layout."""
+    if deform is None:
+        return extra
+    o = deform["opt"]
+    return dict(extra or {}, __deform__={
+        "params": state_dict_from_flax(deform["params"], device),
+        "opt": {"exp_avg": state_dict_from_flax(o["mu"], device),
+                "exp_avg_sq": state_dict_from_flax(o["nu"], device),
+                "count": int(o["count"])}})
 
 
 def train_state_to_numpy(state) -> dict:
@@ -120,9 +140,11 @@ def train_state_to_numpy(state) -> dict:
 
 # flax module and parameter names -> the port's, for the appearance and
 # visibility networks (models/appearance.py, training/visibility_map.py)
+# and the HexPlane field (models/hexplane.py)
 _FLAX_MODULES = {"Embed_0": "embedding", "SkipMLP_0": "mlp",
                  "DenseGrid2DEncoding_0": "encoding",
-                 "HashGridEncoding_0": "encoding"}
+                 "HashGridEncoding_0": "encoding",
+                 "HexPlaneField_0": "field"}
 
 
 def state_dict_from_flax(tree: dict, device=None) -> dict:
@@ -131,7 +153,8 @@ def state_dict_from_flax(tree: dict, device=None) -> dict:
     [in, out] -> ``layers.i.weight`` [out, in], ``Dense_i/bias`` ->
     ``layers.i.bias``, ``Embed_0/embedding`` -> ``embedding.weight``,
     ``grid_{lv}`` and ``table_{lv}`` under ``encoding.``, ``SkipMLP_0``'s
-    layers under ``mlp.``."""
+    layers under ``mlp.``, ``HexPlaneField_0``'s planes under
+    ``field.``."""
     dev = resolve_device(device)
     tree = tree.get("params", tree)
     out = {}

@@ -1,9 +1,10 @@
 """End to end through gsl_tpu_torch's CLI on the CPU, the port alone: a
 small Blender-style scene rendered by the port is fitted with one densify,
 validated and resumed; the 2DGS, StopThePop, AbsGS, Mip-Splatting, MCMC,
-depth, normal, ground and scale regulariser presets and the seven
-appearance-slice presets take a few steps, and Mip-Splatting, MCMC, an
-appearance run and a bilateral-grid run resume bit for bit."""
+depth, normal, ground and scale regulariser presets, the seven
+appearance-slice presets, the density variants, Glossy and the dynamic
+presets take a few steps, and Mip-Splatting, MCMC, GNS, an appearance run
+and a bilateral-grid run resume bit for bit."""
 import csv
 import json
 import os
@@ -266,6 +267,14 @@ VARIANT_EXTRA["taming.yaml"] = (
     "model.density.init_args.densify_from_iter=0",
     "model.density.init_args.densify_until_iter=10")
 VARIANT_EXTRA["light_gaussian.yaml"] = ("fit.lg_prune_steps=[2]",)
+# the deformation field trains from step 2 (the MLP at 4 x 32 for the
+# CPU); PVG's preset names the model's class
+for _p in ("deformable.yaml", "gs4d.yaml"):
+    VARIANT_EXTRA[_p] = ("model.deform.init_args.warm_up=2",
+                         "model.deform.init_args.n_neurons=32",
+                         "model.deform.init_args.n_layers=4",
+                         "model.deform.init_args.skip_layers=[2]")
+VARIANT_EXTRA["pvg.yaml"] = ("model.gaussian.init_args.sh_degree=1",)
 
 
 # the renderer is the one the loader serves the run with: gsl_tpu's
@@ -291,7 +300,12 @@ VARIANT_EXTRA["light_gaussian.yaml"] = ("fit.lg_prune_steps=[2]",)
     ("gns.yaml", "TileRenderer"), ("light_gaussian.yaml", "TileRenderer"),
     # validation renders SH colours without the specular term, as
     # gsl_tpu's does
-    ("glossy.yaml", "TileRenderer")])
+    ("glossy.yaml", "TileRenderer"),
+    # validation renders the canonical set for the deform presets, and
+    # the loader serves PVG through a plain TileRenderer (a PVG PLY is
+    # static)
+    ("deformable.yaml", "TileRenderer"), ("gs4d.yaml", "TileRenderer"),
+    ("pvg.yaml", "TileRenderer")])
 def test_variant_presets_fit_through_the_cli(scene, tmp_path, capsys,
                                              preset, renderer):
     extra = VARIANT_EXTRA.get(preset, ())
@@ -356,8 +370,18 @@ def test_variant_presets_fit_through_the_cli(scene, tmp_path, capsys,
         assert float(state.params.metalness[state.alive].std()) > 0
     elif preset == "gns.yaml":
         assert sorted(state.extra) == ["__gns__"]
+    elif preset in ("deformable.yaml", "gs4d.yaml"):
+        # three field updates (steps 2-4); the field's widths
+        assert sorted(state.extra) == ["__deform__"]
+        net = state.extra["__deform__"]
+        assert net["opt"]["count"] == 3
+        assert net["params"]["layers.0.weight"].shape == (
+            (32, 72) if preset == "deformable.yaml" else (64, 32))
     else:
         assert state.extra is None
+    if preset == "pvg.yaml":
+        assert state.params.t_centers.shape == (state.params.capacity, 1)
+        assert float(state.params.velocities[state.alive].abs().max()) > 0
     said = capsys.readouterr().out
     if preset == "light_gaussian.yaml":
         # 60% of the 400 alive at step 2

@@ -953,6 +953,81 @@ def test_mcmc_on_card_matches_cpu_and_repeats(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["mlp", "hexplane", "pvg"])
+def test_deform_and_pvg_steps_on_card_match_cpu(cuda, variant):
+    """One DeformTrainer step after the warm-up (the MLP at 4 x 32 with
+    its skip at 2, given the AST draw; HexPlane at its defaults) and one
+    PVG step at time 0.4, card against CPU from the same state and
+    weights: the loss, the Gaussians' gradients (first moments / 0.1) by
+    the rule of test_parameter_gradients_on_card_match_cpu, and the
+    field's by the same rule; K1-K4 launched once each in the card's
+    step."""
+    from gsl_tpu_torch.models.deform import DeformModelConfig
+    from gsl_tpu_torch.models.gaussian import VanillaGaussianConfig
+    from gsl_tpu_torch.models.pvg import PVGConfig, PVGRendererConfig
+    from gsl_tpu_torch.training.deform_trainer import DeformTrainer
+    from gsl_tpu_torch.training.trainer import Trainer
+    arrays = scene(1500, seed=9)
+    pvg = variant == "pvg"
+    model = (PVGConfig if pvg else VanillaGaussianConfig)(sh_degree=1)
+    if pvg:
+        trainer = Trainer(model=model, renderer=PVGRendererConfig())
+    else:
+        trainer = DeformTrainer(model=model, field=variant,
+                                deform_cfg=DeformModelConfig(
+                                    n_neurons=32, n_layers=4,
+                                    skip_layers=(2,)))
+        # heads away from zero, so every layer of the field has a gradient
+        gen = torch.Generator().manual_seed(10)
+        with torch.no_grad():
+            for layer in list(trainer.deform_net.layers)[-3:]:
+                layer.weight.normal_(0.0, 0.02, generator=gen)
+    rgb = np.random.RandomState(11).uniform(0, 1, (1500, 3))
+    velocities = torch.from_numpy(np.random.RandomState(13).normal(
+        size=(2000, 3)).astype(np.float32))
+    target = torch.rand((H, W, 3), generator=torch.Generator(
+        device="cpu").manual_seed(12))
+    states, losses, launches = [], [], {}
+    for dev in (cuda, torch.device("cpu")):
+        gaussians = model.init_from_pcd(arrays["means"], rgb, 2000, dev)
+        if pvg:
+            gaussians.params.velocities = velocities.to(dev)
+        state = trainer.setup(gaussians, 1.0)
+        cam = dataclasses.replace(camera(dev),
+                                  time=torch.tensor(0.4, device=dev))
+        for w in (R.expand, R.rasterize_fwd, R.rasterize_bwd,
+                  R.reduce_grads):
+            w.launches = 0
+        bg = torch.zeros(3, device=dev)
+        if pvg:
+            out, sc = trainer.train_step(state, cam, target.to(dev), H, W,
+                                         1, bg)
+        else:
+            out, sc = trainer.train_step_deform(
+                state, cam, target.to(dev), H, W, 1, bg, False,
+                ast_draw=torch.tensor(0.7, device=dev))
+        if dev.type == "cuda":
+            launches = {w.__name__: w.launches for w in (
+                R.expand, R.rasterize_fwd, R.rasterize_bwd,
+                R.reduce_grads)}
+        states.append(out)
+        losses.append(float(sc["loss"]))
+    assert set(launches.values()) == {1}, launches
+    assert losses[0] == pytest.approx(losses[1], rel=1e-4)
+    got, want = states
+    fields = want.params.fields()
+    _assert_grads_close(
+        {k: got.opt_state.exp_avg[k].cpu() / 0.1 for k in fields},
+        {k: want.opt_state.exp_avg[k] / 0.1 for k in fields})
+    if not pvg:
+        net, wnet = got.extra["__deform__"], want.extra["__deform__"]
+        assert net["opt"]["count"] == wnet["opt"]["count"] == 1
+        _assert_grads_close(
+            {k: v.cpu() / 0.1 for k, v in net["opt"]["exp_avg"].items()},
+            {k: v / 0.1 for k, v in wnet["opt"]["exp_avg"].items()})
+
+
+@pytest.mark.cuda
 def test_chip_smoke_passes(cuda):
     r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
                        capture_output=True, text=True, timeout=1200)
