@@ -294,6 +294,33 @@ package is not beside this script. Phases, each fatal on failure:
    PSNR (for the deform presets the canonical set's, as gsl_tpu
    validates). Prints what phase 9 (b) prints and, for the deform
    presets, the PSNR of the render deformed at each val view's own time.
+14. SpotLess and the distillation stages, on the backward kernels' channel
+   groups. (a) At the bench pose (1M, 1088x1920) with seeded normal
+   feature channels at C = 32, 64 and 128, K1-K4 are held as phase 10
+   holds them (K3 launching once per group of channels, each group's
+   geometry columns added in group order; K4 on 8 + C columns), and K2,
+   K3 at each group size of 8, 16, 32 and 36 and K4 are timed, with
+   their bounds from this run's counts and their launches per call; K3s
+   at C = 96 (past its largest group, 88) on the small STP scene and K7 at
+   C = 64 (past 60) on the small surfel scene against their plain
+   versions column by column, identical in two runs, and both timed by
+   channel group (8 and their largest) at the bench pose. (b) The SpotLess
+   step (an 800x800 mask MLP over 1280 synthesised SD features [1280,
+   50, 50] float16 per view) at capacity 1M on phase 5's scene, 5 steps:
+   ms per step beside phase 5's plain step, the mask mean, peak memory,
+   K1-K4 once a step. Then a copy of phase 8's scene whose image names
+   carry `clutter` (train) and `extra` (every eighth, val), with SD
+   features for the train images: spotless.yaml fitted for 150 steps and
+   resumed to 200, the specular reset at 120; it prints what phase 9 (b)
+   prints. (c) At the bench scene (1M, 1088x1920): three steps each of
+   Feature3DGS at C = 128 and with speedup (C = 64) against [64, 64, D]
+   teacher maps, and of SegAny at C = 32 with 1024 sampled pixels under
+   eight synthesised SAM masks: ms per step, peak memory, K2 / K3
+   launches per step. Then `python -m gsl_tpu_torch.seganygs fit` and
+   `python -m gsl_tpu_torch.feature3dgs fit [--speedup]` on phase 8's
+   colmap.yaml run with SAM masks and [128, 64, 64] teacher maps
+   synthesised at the parsers' names, 50 steps each: the loss at the
+   first and last step, the files the root scripts write.
 
 Bounds in the kernels line: the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM f32 without tensor cores). K1 moves 52
@@ -391,7 +418,16 @@ from gsl_tpu_torch.renderers.tile_renderer import TileRendererConfig
 from gsl_tpu_torch.tools import get_depth_scales, gs2d_mesh_extraction
 from gsl_tpu_torch.training.appearance_trainer import (
     AppearanceOptimizationConfig, AppearanceTrainer, leaves_of)
+from gsl_tpu_torch import feature3dgs as feature3dgs_main
+from gsl_tpu_torch import seganygs as seganygs_main
+from gsl_tpu_torch.data.colmap_io import read_model
 from gsl_tpu_torch.training.deform_trainer import DeformTrainer
+from gsl_tpu_torch.training.feature3dgs import (Feature3DGSConfig,
+                                                Feature3DGSTrainer)
+from gsl_tpu_torch.training.segany import SegAnyConfig, SegAnyTrainer
+from gsl_tpu_torch.training.spotless import (SpotLessMetricsConfig,
+                                             init_spotless_state,
+                                             spotless_step)
 from gsl_tpu_torch.training.density import (
     AccurateVisibilityFilterDensityControllerConfig,
     BackgroundRemovalDensityControllerConfig, H3DGSDensityControllerConfig,
@@ -2505,13 +2541,16 @@ def geometry_channels(state, renderer, cam, proj, C):
     return op.contiguous(), torch.cat([rgb, d, normals], 1).contiguous()
 
 
-def hold_raster_kernels(vname, proj, opac, ch, n, seed, cotangents=None):
+def hold_raster_kernels(vname, proj, opac, ch, n, seed, cotangents=None,
+                        record=None):
     """K1-K4 at the bench pose on the opacities `opac` and channels `ch`
     of a projection, held against their plain versions as phase 3 holds
     them (K1 bit for bit, K2's stops and values at its shares, K3's
     columns, K4's sums), K2 twice and built without contraction. K3 takes
     the (image [H, W, C], alpha [H, W]) `cotangents`, or random ones drawn
-    from `seed`. Returns the (K2, K3) ms of a CUDA graph replay."""
+    from `seed`. Returns the (K2, K3) ms of a CUDA graph replay; `record`
+    (a dict) gets the kernels' inputs and the counts of the plain
+    versions."""
     tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
     C = ch.shape[1]
     tag = f"{vname} C={C}"
@@ -2529,7 +2568,8 @@ def hold_raster_kernels(vname, proj, opac, ch, n, seed, cotangents=None):
     gids = gs[:n_valid].contiguous()
     fwd = (m2d, con, opac, ch, gids, bounds, H, W, TILE)
     got = R.rasterize_fwd(*fwd)
-    want = R.rasterize_fwd_plain(*fwd)
+    fstats = {}
+    want = R.rasterize_fwd_plain(*fwd, stats=fstats)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, R.rasterize_fwd(
             *fwd))):
@@ -2553,7 +2593,10 @@ def hold_raster_kernels(vname, proj, opac, ch, n, seed, cotangents=None):
                       torch.randn((H, W), generator=gen, device="cuda"))
     bwd = (m2d, con, opac, ch, gids, bounds, *cotangents, got[1], got[2],
            TILE)
-    check_backward(vname, C, bwd, isects, order, n, False)
+    brec = check_backward(vname, C, bwd, isects, order, n, False)
+    if record is not None:
+        record.update(brec, fwd=fwd, bwd=bwd, isects=isects, order=order,
+                      n_valid=n_valid, near_pairs=fstats["near_pairs"])
     return (graph_ms(lambda: R.rasterize_fwd(*fwd), 20),
             graph_ms(lambda: R.rasterize_bwd(*bwd), 20))
 
@@ -3999,6 +4042,545 @@ def phase_dynamic_fits(tmp):
         torch.cuda.empty_cache()
 
 
+# ---- phase 14: SpotLess and the distillation stages ------------------------
+
+WIDE_WIDTHS = (32, 64, 128)     # SegAny; Feature3DGS with speedup; without
+BWD_GROUPS = (8, 16, 32, 36)    # K3's channel groups timed (36: its largest)
+STP_WIDE, SURFEL_WIDE = 96, 64  # past K3s's 88 and K7's 60 at tile 16
+K2_GROUP = 8                    # channels per K2 launch (csrc's kMaxGroup)
+SPOTLESS_STEPS, DISTILL_STEPS, ENTRY_STEPS = 5, 3, 50
+SPOTLESS_FIT_STEPS, SPOTLESS_RESUME_STEPS, SPOTLESS_RESET = 150, 200, 120
+SD_SHAPE = (1280, 50, 50)       # tools/sd_feature_extraction.py's features
+N_SAM_MASKS, TEACHER_HW = 8, 64
+
+
+def raster_launches(C, bwd=True):
+    """K1-K4's launches in one render (and with `bwd` its backward) of C
+    channels: K2 once per group of K2_GROUP, K3 once per group of
+    min(K3_GROUP, its largest)."""
+    k3 = -(-C // min(R.K3_GROUP, R.rasterize_bwd_max_group(TILE)))
+    want = {k: 0 for k in KERNELS}
+    want.update(expand=1, rasterize_fwd=-(-C // K2_GROUP))
+    if bwd:
+        want.update(rasterize_bwd=k3, reduce_grads=1)
+    return want
+
+
+def phase_wide_kernels(arrays):
+    """Phase 14 (a): K1-K4 at C = 32, 64 and 128 at the bench pose, K3 at
+    each group size, and K3s and K7 past their largest groups on the small
+    scenes, and timed by group at the bench pose. Returns {C: times,
+    launches and bounds}."""
+    state = state_from_raw_arrays(arrays, device="cuda")
+    renderer = TileRendererConfig().instantiate()
+    log("== phase 14 (a): the backward kernels past their channel "
+        f"ceilings: K1-K4 at C = {WIDE_WIDTHS}, full width; K3s at C = "
+        f"{STP_WIDE} and K7 at C = {SURFEL_WIDE} on the small scenes; times "
+        f"on {CARD}")
+    tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
+    n_tiles, n = tiles_x * tiles_y, state.capacity
+    log(f"largest channel groups at tile {TILE}: K3 "
+        f"{R.rasterize_bwd_max_group(TILE)}, K3s "
+        f"{STP.rasterize_bwd_stp_max_group(TILE)}, K7 "
+        f"{SR.rasterize_surfels_bwd_max_group(TILE)}; K3_GROUP "
+        f"{R.K3_GROUP}")
+    cam = camera(np.eye(4))
+    proj = project_gaussians(
+        state.get_means(), state.get_scales(), state.get_rotations(),
+        cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, W, H)
+    opac = renderer.get_opacities(state, cam, proj).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out = {}
+    for C in WIDE_WIDTHS:
+        ch = torch.randn((n, C), generator=gen, device="cuda")
+        rec = {}
+        k2_ms, k3_ms = hold_raster_kernels("bench", proj, opac, ch, n,
+                                           140 + C, record=rec)
+        fwd, bwd, isects = rec["fwd"], rec["bwd"], rec["isects"]
+        n_valid, bounds, i_stop = rec["n_valid"], bwd[5], bwd[9]
+        torch.cuda.synchronize()
+        reset_launches()
+        R.rasterize_fwd(*fwd)
+        rows = R.rasterize_bwd(*bwd)
+        red = (rows, bwd[4], isects.offsets, R.invert_order(rec["order"]),
+               bounds[-1:], n)
+        R.reduce_grads(*red)
+        torch.cuda.synchronize()
+        per_call = {k: v for k, v in read_launches().items() if v}
+        want = {k: v for k, v in raster_launches(C).items()
+                if v and k != "expand"}
+        if per_call != want:
+            fail(f"wide C={C}: launches per call {per_call}, not {want}")
+        group_ms = {g: graph_ms(lambda g=g: R.rasterize_bwd(*bwd, group=g),
+                                10) for g in BWD_GROUPS}
+        k4_ms = graph_ms(lambda: R.reduce_grads(*red), 20)
+        pairs = visited_pairs(i_stop, bounds, tiles_x)
+        pairs_bwd = pairs - int((i_stop < R.NEVER_STOPPED).sum())
+        comp = rec["composited_pairs"]
+        fwd_bytes = (n * (24 + 4 * C) + 4 * n_valid + 8 * (n_tiles + 1)
+                     + H * W * (4 * C + 8))
+        k2_bound = bound(fwd_bytes, 12 * pairs + 5 * rec["near_pairs"]
+                         + (3 + 2 * C) * comp)
+        k3_bound = bound(fwd_bytes + 4 * H * W + 4 * (6 + C) * n_valid,
+                         18 * pairs_bwd + (35 + 4 * C) * comp)
+        k4_bound = bound(4 * (6 + C) * n_valid + 4 * isects.total + 8 * n
+                         + 4 * (8 + C) * n, (8 + C) * n_valid)
+        out[C] = {"K2_ms": round(k2_ms, 4), "K3_ms": round(k3_ms, 4),
+                  "K3_ms_by_group": {g: round(v, 4)
+                                     for g, v in group_ms.items()},
+                  "K4_ms": round(k4_ms, 4), "launches_per_call": per_call,
+                  "K2_bound": k2_bound, "K3_bound": k3_bound,
+                  "K4_bound": k4_bound, "pairs": pairs,
+                  "pairs_bwd": pairs_bwd, "composited_pairs": comp,
+                  "near_pairs": rec["near_pairs"], "n_valid": n_valid,
+                  "K3_max_abs_err": rec["bwd_err"],
+                  "K4_max_abs_err": rec["reduce_err"]}
+        log(f"wide C={C}: " + json.dumps(out[C]))
+        del ch, rec, fwd, bwd, rows, red
+        torch.cuda.empty_cache()
+    out["stp"] = wide_small_stp()
+    out["stp"]["bench_ms_by_group"] = wide_bench_stp(state, renderer)
+    del state
+    torch.cuda.empty_cache()
+    out["surfel"] = wide_small_surfel()
+    out["surfel"]["bench_ms_by_group"] = wide_bench_surfel(arrays)
+    return out
+
+
+def wide_bench_stp(state, renderer):
+    """K3s at C = STP_WIDE at the bench pose, timed by channel group (8 and
+    its largest); held on the small scene by `wide_small_stp`."""
+    tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
+    cam = camera(np.eye(4))
+    proj = project_gaussians(
+        state.get_means(), state.get_scales(), state.get_rotations(),
+        cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, W, H)
+    op = renderer.get_opacities(state, cam, proj).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    ch = torch.randn((state.capacity, STP_WIDE), generator=gen,
+                     device="cuda")
+    m2d, con = proj.means2d.contiguous(), proj.conics.contiguous()
+    depths, kz = proj.depths.contiguous(), proj.depth_grads.contiguous()
+    keys, gids = R.expand(R.isect_encode(proj, H, W, TILE), m2d, con, op,
+                          depths, tiles_x, tiles_y, TILE, True, True, kz)
+    sk, gs, _ = R.sort_slots(keys, gids)
+    bounds = R.tile_bounds(sk, tiles_x * tiles_y)
+    fwd = (m2d, con, op, ch, depths, kz, gs, bounds, H, W, TILE)
+    _, t_fin, _, ckpt = STP.rasterize_fwd_stp(*fwd, checkpoints=True)
+    g_out = torch.randn((H, W, STP_WIDE), generator=gen, device="cuda")
+    g_alpha = torch.randn((H, W), generator=gen, device="cuda")
+    bwd = (*fwd[:8], g_out, g_alpha, t_fin, ckpt, TILE)
+    ms = {g: round(graph_ms(lambda g=g: STP.rasterize_bwd_stp(
+        *bwd, group=g), 5), 4)
+        for g in (8, STP.rasterize_bwd_stp_max_group(TILE))}
+    log(f"K3s bench C={STP_WIDE}: ms by group {ms}")
+    return ms
+
+
+def wide_bench_surfel(arrays):
+    """K7 at C = SURFEL_WIDE at the bench pose on the surfel scene, timed
+    by channel group (8 and its largest); held on the small scene by
+    `wide_small_surfel`."""
+    tiles_x, tiles_y = -(-W // TILE), -(-H // TILE)
+    state = state_from_raw_arrays(surfel_arrays(arrays), device="cuda")
+    cam = camera(np.eye(4))
+    proj = project_surfels(
+        state.get_means(), state.get_scales(), state.get_rotations(),
+        cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, W, H)
+    geom = SR.pack_surfels(proj.Tu, proj.Tv, proj.Tw, proj.zcoef,
+                           state.get_opacities())
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    ch = torch.randn((state.capacity, SURFEL_WIDE), generator=gen,
+                     device="cuda")
+    isects = SR.surfel_isect_encode(proj.means2d, proj.depths, proj.radii,
+                                    H, W, TILE)
+    keys, gids = SR.surfel_expand(isects, proj.depths.contiguous(), tiles_x,
+                                  tiles_y)
+    sk, gs, _ = R.sort_slots(keys, gids)
+    bounds = R.tile_bounds(sk, tiles_x * tiles_y)
+    _, aux, stop = SR.rasterize_surfels_fwd(geom, ch, gs, bounds, H, W,
+                                            TILE)
+    g_out = torch.randn((H, W, SURFEL_WIDE), generator=gen, device="cuda")
+    g_aux = torch.randn((3, H, W), generator=gen, device="cuda")
+    bwd = (geom, ch, gs, bounds, g_out, g_aux, aux, stop, TILE)
+    ms = {g: round(graph_ms(lambda g=g: SR.rasterize_surfels_bwd(
+        *bwd, group=g), 5), 4)
+        for g in (8, SR.rasterize_surfels_bwd_max_group(TILE))}
+    log(f"K7 bench C={SURFEL_WIDE}: ms by group {ms}")
+    return ms
+
+
+def small_scene_arrays():
+    """phase_small_reference's scene: 400 Gaussians, nearer the camera."""
+    arrays = scene_arrays(400, seed=1)
+    arrays["means"][:, 2] -= 2.0
+    return arrays
+
+
+def wide_small_stp():
+    """K3s at C = STP_WIDE on the small scene (128x96): rows against the
+    plain version column by column on the same inputs, identical twice,
+    launches per call; ms per call by group."""
+    h, w = 96, 128
+    tiles_x, tiles_y = -(-w // TILE), -(-h // TILE)
+    state = state_from_raw_arrays(small_scene_arrays(), device="cuda")
+    cam = camera(np.eye(4), h, w, 120.0)
+    proj = project_gaussians(
+        state.get_means(), state.get_scales(), state.get_rotations(),
+        cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, w, h)
+    op = TileRendererConfig().instantiate().get_opacities(
+        state, cam, proj).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    ch = torch.rand((state.capacity, STP_WIDE), generator=gen,
+                    device="cuda")
+    m2d, con = proj.means2d.contiguous(), proj.conics.contiguous()
+    depths, kz = proj.depths.contiguous(), proj.depth_grads.contiguous()
+    isects = R.isect_encode(proj, h, w, TILE)
+    keys, gids = R.expand(isects, m2d, con, op, depths, tiles_x, tiles_y,
+                          TILE, True, True, kz)
+    sk, gs, _ = R.sort_slots(keys, gids)
+    bounds = R.tile_bounds(sk, tiles_x * tiles_y)
+    fwd = (m2d, con, op, ch, depths, kz, gs, bounds, h, w, TILE)
+    _, t_fin, _, ckpt = STP.rasterize_fwd_stp(*fwd, checkpoints=True)
+    g_out = torch.randn((h, w, STP_WIDE), generator=gen, device="cuda")
+    g_alpha = torch.randn((h, w), generator=gen, device="cuda")
+    bwd = (*fwd[:8], g_out, g_alpha, t_fin, ckpt, TILE)
+    before = STP.rasterize_bwd_stp.launches
+    rows = STP.rasterize_bwd_stp(*bwd)
+    launches = STP.rasterize_bwd_stp.launches - before
+    want = -(-STP_WIDE // STP.rasterize_bwd_stp_max_group(TILE))
+    if launches != want:
+        fail(f"K3s C={STP_WIDE}: {launches} launches, not {want}")
+    rows_p = STP.rasterize_bwd_stp_plain(*bwd)
+    torch.cuda.synchronize()
+    if not torch.equal(rows, STP.rasterize_bwd_stp(*bwd)):
+        fail(f"K3s C={STP_WIDE}: two runs gave different rows")
+    err, share = check_rows(f"K3s small STP scene C={STP_WIDE}", rows,
+                            rows_p, K3_COLUMNS, GRAD_SHARE)
+    ms = {g: round(graph_ms(lambda g=g: STP.rasterize_bwd_stp(
+        *bwd, group=g), 10), 4)
+        for g in (8, STP.rasterize_bwd_stp_max_group(TILE))}
+    log(f"K3s small STP scene C={STP_WIDE}: every column agrees on >= "
+        f"{share:.6f} of its values, max abs err {err:.3e}; identical in "
+        f"two runs; {launches} launches a call; ms by group {ms}")
+    return {"launches": launches, "share": share, "max_abs_err": err,
+            "ms_by_group": ms}
+
+
+def wide_small_surfel():
+    """K7 at C = SURFEL_WIDE on the small surfel scene, as
+    `wide_small_stp` holds K3s."""
+    h, w = 96, 128
+    tiles_x, tiles_y = -(-w // TILE), -(-h // TILE)
+    state = state_from_raw_arrays(surfel_arrays(small_scene_arrays()),
+                                  device="cuda")
+    cam = camera(np.eye(4), h, w, 120.0)
+    proj = project_surfels(
+        state.get_means(), state.get_scales(), state.get_rotations(),
+        cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, w, h)
+    geom = SR.pack_surfels(proj.Tu, proj.Tv, proj.Tw, proj.zcoef,
+                           state.get_opacities())
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    ch = torch.rand((state.capacity, SURFEL_WIDE), generator=gen,
+                    device="cuda")
+    isects = SR.surfel_isect_encode(proj.means2d, proj.depths, proj.radii,
+                                    h, w, TILE)
+    keys, gids = SR.surfel_expand(isects, proj.depths.contiguous(), tiles_x,
+                                  tiles_y)
+    sk, gs, _ = R.sort_slots(keys, gids)
+    bounds = R.tile_bounds(sk, tiles_x * tiles_y)
+    _, aux, stop = SR.rasterize_surfels_fwd(geom, ch, gs, bounds, h, w,
+                                            TILE)
+    g_out = torch.randn((h, w, SURFEL_WIDE), generator=gen, device="cuda")
+    g_aux = torch.randn((3, h, w), generator=gen, device="cuda")
+    bwd = (geom, ch, gs, bounds, g_out, g_aux, aux, stop, TILE)
+    before = SR.rasterize_surfels_bwd.launches
+    rows = SR.rasterize_surfels_bwd(*bwd)
+    launches = SR.rasterize_surfels_bwd.launches - before
+    want = -(-SURFEL_WIDE // SR.rasterize_surfels_bwd_max_group(TILE))
+    if launches != want:
+        fail(f"K7 C={SURFEL_WIDE}: {launches} launches, not {want}")
+    rows_p = SR.rasterize_surfels_bwd_plain(*bwd)
+    torch.cuda.synchronize()
+    if not torch.equal(rows, SR.rasterize_surfels_bwd(*bwd)):
+        fail(f"K7 C={SURFEL_WIDE}: two runs gave different rows")
+    err, share = check_rows(f"K7 small surfel scene C={SURFEL_WIDE}", rows,
+                            rows_p, K7_COLUMNS, SURFEL_GRAD_SHARE)
+    ms = {g: round(graph_ms(lambda g=g: SR.rasterize_surfels_bwd(
+        *bwd, group=g), 10), 4)
+        for g in (8, SR.rasterize_surfels_bwd_max_group(TILE))}
+    log(f"K7 small surfel scene C={SURFEL_WIDE}: every column agrees on >= "
+        f"{share:.6f} of its values, max abs err {err:.3e}; identical in "
+        f"two runs; {launches} launches a call; ms by group {ms}")
+    return {"launches": launches, "share": share, "max_abs_err": err,
+            "ms_by_group": ms}
+
+
+def bench_targets(arrays, cams, bg):
+    """The bench scene rendered by the port at `cams` (phase 5's targets)."""
+    truth = state_from_raw_arrays(arrays, device="cuda")
+    plain = TileRendererConfig().instantiate()
+    with torch.no_grad():
+        return [plain.forward(truth, c, H, W, bg, SH_DEGREE).render
+                for c in cams]
+
+
+def phase_spotless_training(arrays, plain_step_ms):
+    """Phase 14 (b): the SpotLess step at capacity 1M."""
+    log("== phase 14 (b): the SpotLess step (mask MLP at 800x800 over "
+        f"{SD_SHAPE} SD features) at 1088x1920, capacity 1M; times on "
+        f"{CARD}")
+    bg = torch.zeros(3, device="cuda")
+    cams = [camera(c2w) for c2w in views().values()]
+    targets = bench_targets(arrays, cams, bg)
+    cfg = SpotLessMetricsConfig(opacity_reg=0.01)
+    trainer = Trainer(model=VanillaGaussianConfig(sh_degree=SH_DEGREE),
+                      metrics=cfg)
+    state = trainer.setup(state_from_raw_arrays(perturbed(arrays),
+                                                device="cuda"),
+                          cameras_extent=TRAIN_EXTENT)
+    state = dataclasses.replace(state, extra=dict(
+        state.extra or {}, __spotless__=init_spotless_state(
+            cfg, "cuda", torch.Generator().manual_seed(14))))
+    rng = np.random.RandomState(14)
+    feats = [torch.from_numpy(rng.randn(*SD_SHAPE).astype(np.float16)).to(
+        "cuda").float() for _ in cams]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, masks = [], [], []
+    for step in range(SPOTLESS_STEPS):
+        view = step % len(cams)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state, sc = spotless_step(trainer, cfg, state, cams[view],
+                                  targets[view], feats[view], bg, H, W,
+                                  SH_DEGREE, generator=gen)
+        losses.append(float(sc["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        masks.append(round(float(sc["mask_mean"]), 5))
+        check_step_launches("SpotLess", step)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sls = state.extra["__spotless__"]
+    if not (all(math.isfinite(x) for x in losses)
+            and sls["opt"]["count"] == SPOTLESS_STEPS
+            and float(sls["hist"].sum()) > 0):
+        fail(f"SpotLess: losses {losses}, {sls['opt']['count']} MLP "
+             "updates")
+    ms = float(np.median(step_ms[1:]))
+    log(f"SpotLess: ms per step {[round(x, 2) for x in step_ms]}, median "
+        f"after the first {ms:.2f} (phase 5's plain step in this run "
+        f"{plain_step_ms:.2f}); loss {losses[0]:.6g} -> {losses[-1]:.6g}; "
+        f"mask mean per step {masks}; peak {peak:.3f} GiB; K1-K4 once a "
+        "step")
+    return {"ms": ms, "peak_gib": peak, "mask_mean": masks}
+
+
+def write_keyword_scene(src, dst):
+    """A copy of phase 8's scene whose image names carry SpotLess's
+    keywords (every eighth, from the fifth, `extra_*`, val; the others
+    `clutter_*`, train), with SD features SD/<stem>.npy [1280, 50, 50]
+    float16 for the train images. Returns (train, val) counts."""
+    model = read_model(os.path.join(src, "sparse", "0"))
+    os.makedirs(os.path.join(dst, "images"))
+    os.makedirs(os.path.join(dst, "SD"))
+    rng = np.random.RandomState(17)
+    images, n_val = {}, 0
+    for i, (k, img) in enumerate(sorted(model.images.items())):
+        val = i % 8 == 4
+        n_val += val
+        name = ("extra_" if val else "clutter_") + img.name
+        os.link(os.path.join(src, "images", img.name),
+                os.path.join(dst, "images", name))
+        images[k] = dataclasses.replace(img, name=name)
+        if not val:
+            np.save(os.path.join(dst, "SD", name[:-4] + ".npy"),
+                    rng.randn(*SD_SHAPE).astype(np.float16))
+    write_model_bin(dataclasses.replace(model, images=images),
+                    os.path.join(dst, "sparse", "0"))
+    return len(images) - n_val, n_val
+
+
+def phase_spotless_fit(tmp):
+    """Phase 14 (b): spotless.yaml through the CLI on a keyword-split copy
+    of phase 8's scene, fitted and resumed."""
+    log("== phase 14 (b): spotless.yaml through gsl_tpu_torch.cli on a "
+        "keyword-split copy of phase 8's scene, resumed")
+    data, runs = os.path.join(tmp, "spotless_scene"), os.path.join(tmp,
+                                                                   "runs")
+    n_train, n_val = write_keyword_scene(os.path.join(tmp, "scene"), data)
+    preset = os.path.join(PRESETS, "spotless.yaml")
+    over = (f"fit.log_interval={VARIANT_LOG_INTERVAL}",
+            "model.density.init_args.densify_from_iter=100",
+            "model.density.init_args.densification_interval=50",
+            f"model.metric.init_args.reset_sh={SPOTLESS_RESET}")
+    psnr0, _ = initial_psnr([preset], over + (f"data.path={data}",), tmp,
+                            "spotless")
+
+    def argv(steps):
+        return ["fit", "--config", preset, "--data.path", data, "--output",
+                runs, "-n", "spotless", "--max_steps", str(steps), *over]
+
+    first = run_cli(argv(SPOTLESS_FIT_STEPS), GAUSSIAN_KERNELS)
+    first.pop("state")
+    second = run_cli(argv(SPOTLESS_RESUME_STEPS), GAUSSIAN_KERNELS)
+    state = second.pop("state")
+    psnr = second["results"]["psnr"]
+    sls = state.extra["__spotless__"]
+    if (f"-> continuing at {SPOTLESS_FIT_STEPS + 1}" not in second["said"]
+            or not psnr > psnr0
+            or sls["opt"]["count"] != SPOTLESS_RESUME_STEPS):
+        fail(f"fit spotless.yaml: val PSNR {psnr:.3f} dB (initial cloud "
+             f"{psnr0:.3f}), {sls['opt']['count']} MLP updates after the "
+             "resume")
+    log(f"fit spotless.yaml: {n_train} clutter (train) and {n_val} extra "
+        f"(val) views; val PSNR initial cloud {psnr0:.4f} dB, at step "
+        f"{SPOTLESS_FIT_STEPS} {first['results']['psnr']:.4f}, at step "
+        f"{SPOTLESS_RESUME_STEPS} {psnr:.4f} after the resume at "
+        f"{SPOTLESS_FIT_STEPS + 1}; {sls['opt']['count']} MLP updates; "
+        f"the specular reset at {SPOTLESS_RESET}")
+    log_fit("fit spotless.yaml", [first, second])
+    del state
+    torch.cuda.empty_cache()
+
+
+def sam_masks(m, h, w, seed):
+    """[m, h, w] bool rectangles, as SAM's masks cover objects; a corner
+    under none."""
+    rng = np.random.RandomState(seed)
+    masks = np.zeros((m, h, w), bool)
+    for i in range(m):
+        y0, x0 = rng.randint(0, h // 2), rng.randint(0, w // 2)
+        masks[i, y0:y0 + rng.randint(h // 8, h // 2),
+              x0:x0 + rng.randint(w // 8, w // 2)] = True
+    masks[:, :h // 16, :w // 16] = False
+    return masks
+
+
+def distill_steps(what, step, n_channels):
+    """`DISTILL_STEPS` calls of `step()` -> loss, each checked for its
+    launches (K1-K4 at `n_channels`). Returns (ms per step, losses, peak
+    GiB, launches per step)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    want = raster_launches(n_channels)
+    for _ in range(DISTILL_STEPS):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if read_launches() != want:
+            fail(f"{what}: launches {read_launches()}, not {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: non-finite loss in {losses}")
+    return (step_ms, losses, torch.cuda.max_memory_allocated() / 2 ** 30,
+            {k: v for k, v in want.items() if v})
+
+
+def phase_distill(arrays):
+    """Phase 14 (c): Feature3DGS (C = 128, speedup C = 64) and SegAny
+    (C = 32) steps on the bench scene at 1M."""
+    log("== phase 14 (c): Feature3DGS at C = 128 and with speedup (64), "
+        "SegAny at C = 32 with 1024 samples, on the frozen bench scene "
+        f"(1M, 1088x1920); times on {CARD}")
+    state = state_from_raw_arrays(arrays, device="cuda")
+    cam = camera(np.eye(4))
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    out = {}
+    for speedup in (False, True):
+        cfg = Feature3DGSConfig(speedup=speedup)
+        trainer = Feature3DGSTrainer(cfg, state)
+        box = list(trainer.init(torch.Generator().manual_seed(0)))
+        teacher = torch.randn((TEACHER_HW, TEACHER_HW, cfg.n_feature_dims),
+                              generator=gen, device="cuda")
+
+        def step():
+            box[0], box[1], loss = trainer.train_step(box[0], box[1], cam,
+                                                      teacher, H, W)
+            return loss
+
+        what = f"Feature3DGS C={cfg.actual_dims}" + (
+            " (speedup)" if speedup else "")
+        ms, losses, peak, launches = distill_steps(what, step,
+                                                   cfg.actual_dims)
+        out[what] = {"ms": ms, "peak_gib": peak, "launches": launches}
+        log(f"{what}: ms per step {[round(x, 2) for x in ms]}; loss "
+            f"{losses[0]:.6g} -> {losses[-1]:.6g}; peak {peak:.3f} GiB; "
+            f"launches per step {launches}")
+        del box, trainer, teacher
+        torch.cuda.empty_cache()
+    cfg = SegAnyConfig()
+    trainer = SegAnyTrainer(cfg, state)
+    box = list(trainer.init(torch.Generator().manual_seed(0)))
+    masks = torch.from_numpy(sam_masks(N_SAM_MASKS, H, W, 18)).to("cuda")
+    scales = torch.ones(N_SAM_MASKS, device="cuda")
+
+    def step():
+        box[0], box[1], loss = trainer.train_step(
+            box[0], box[1], cam, masks, scales, 1.0, H, W, generator=gen)
+        return loss
+
+    what = f"SegAny C={cfg.feature_dims}"
+    ms, losses, peak, launches = distill_steps(what, step, cfg.feature_dims)
+    out[what] = {"ms": ms, "peak_gib": peak, "launches": launches}
+    log(f"{what}, {cfg.n_sampled_pixels} samples, {N_SAM_MASKS} masks: ms "
+        f"per step {[round(x, 2) for x in ms]}; loss {losses[0]:.6g} -> "
+        f"{losses[-1]:.6g}; peak {peak:.3f} GiB; launches per step "
+        f"{launches}")
+    return out
+
+
+def phase_distill_entry_points(tmp):
+    """Phase 14 (c): the two entry points on phase 8's colmap.yaml run,
+    with SAM masks and teacher maps synthesised at the parsers' names."""
+    log("== phase 14 (c): gsl_tpu_torch.seganygs and gsl_tpu_torch."
+        "feature3dgs (and --speedup) on phase 8's colmap.yaml run, "
+        f"{ENTRY_STEPS} steps each")
+    data, run = os.path.join(tmp, "scene"), os.path.join(tmp, "runs",
+                                                         "colmap")
+    for d in ("semantic/masks", "semantic/sam_features"):
+        os.makedirs(os.path.join(data, d), exist_ok=True)
+    rng = np.random.RandomState(19)
+    names = sorted(os.listdir(os.path.join(data, "images")))
+    for i, name in enumerate(names):
+        np.savez_compressed(os.path.join(
+            data, "semantic/masks", os.path.splitext(name)[0] + ".npz"),
+            masks=sam_masks(N_SAM_MASKS, H, W, i))
+        np.save(os.path.join(data, "semantic/sam_features", name + ".npy"),
+                rng.randn(128, TEACHER_HW, TEACHER_HW).astype(np.float32))
+    for tag, main_fn, extra, written in (
+            ("seganygs", seganygs_main.main, (), "scene_features.npy"),
+            ("feature3dgs", feature3dgs_main.main, (), "features.npz"),
+            ("feature3dgs --speedup", feature3dgs_main.main,
+             ("--speedup",), "features.npz")):
+        out = os.path.join(tmp, "distill", tag.replace(" --", "_"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, losses = main_fn(["fit", run, "--data.path", data,
+                                 "--max_steps", str(ENTRY_STEPS),
+                                 "--output", out, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in read_launches().items() if v}
+        if set(launches) != set(GAUSSIAN_KERNELS):
+            fail(f"{tag}: launches {launches}")
+        steps = sorted(losses)
+        if (not os.path.isfile(os.path.join(out, written))
+                or len(steps) < ENTRY_STEPS // 2
+                or not all(math.isfinite(v) for v in losses.values())):
+            fail(f"{tag}: {len(steps)} steps, losses {losses}")
+        log(f"{tag}: {len(steps)} steps in {wall:.1f} s; loss at step "
+            f"{steps[0]} {losses[steps[0]]:.6g}, at step {steps[-1]} "
+            f"{losses[steps[-1]]:.6g}; wrote {written}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; "
+            f"launches {launches}")
+
+
 def tensors_of(x):
     """The tensors and numbers of nested dicts, in key order."""
     if isinstance(x, dict):
@@ -4119,6 +4701,18 @@ def main():
             arrays, float(np.median(training["step_ms"][5:TRAIN_STEPS])))
         torch.cuda.empty_cache()
         phase_dynamic_fits(tmp)
+        torch.cuda.empty_cache()
+        plain_step_ms = float(np.median(training["step_ms"][5:TRAIN_STEPS]))
+        with torch.no_grad():
+            wide = phase_wide_kernels(arrays)
+        torch.cuda.empty_cache()
+        phase_spotless_training(arrays, plain_step_ms)
+        torch.cuda.empty_cache()
+        phase_spotless_fit(tmp)
+        torch.cuda.empty_cache()
+        phase_distill(arrays)
+        torch.cuda.empty_cache()
+        phase_distill_entry_points(tmp)
     # StopThePop beside plain 3DGS, phases 7 and 4/5 of this run
     log("StopThePop over plain 3DGS, this run: bench-pose rgb frame ms "
         f"{[round(x, 2) for x in stp_serving['rgb_frame_ms']]} vs "
@@ -4216,6 +4810,17 @@ def main():
         e.update(attributes=r["fwd_attributes"])
     for e, r in ((kernels[1], rec), (kernels[7], trec)):
         e.update(near_pairs=r["near_pairs"])
+    # phase 14 (a): K2, K3 and K4 at the distillation widths
+    for e, key in ((kernels[1], "K2"), (kernels[2], "K3"),
+                   (kernels[3], "K4")):
+        e["wide"] = {C: {"ms": wide[C][f"{key}_ms"],
+                         "bound_ms": wide[C][f"{key}_bound"][0],
+                         "bound_by": wide[C][f"{key}_bound"][1]}
+                     for C in WIDE_WIDTHS}
+    for C in WIDE_WIDTHS:
+        kernels[2]["wide"][C]["ms_by_group"] = wide[C]["K3_ms_by_group"]
+    kernels[8]["wide"] = {STP_WIDE: wide["stp"]}
+    kernels[6]["wide"] = {SURFEL_WIDE: wide["surfel"]}
     log(f"surfel backward at the bench pose: K6's median depth differs by "
         f"up to {srec['median_err']:.3e} (a flipped crossing); K7 errors "
         f"are of rows up to {srec['bwd_scale']:.3e}, K4's of sums up to "

@@ -20,8 +20,9 @@ metric or plugins; gradient accumulation or Glossy with an output
 processor; Glossy with another variant trainer; GNS with a trainer whose
 step is not the plain one; a deformation field with another variant
 trainer, an output processor, plugins, the AbsGS or accurate-visibility
-statistic or MCMC's regularisers) raise ``ValueError`` naming both. The
-``deform`` key (a field name, or {field, init_args} with ``init_args``
+statistic or MCMC's regularisers; the SpotLess metrics, whose step
+replaces the trainer's, with anything that step drops) raise
+``ValueError`` naming both. The ``deform`` key (a field name, or {field, init_args} with ``init_args``
 into `DeformModelConfig`) selects `DeformTrainer`.
 Without ``model.n_appearances`` the appearance embedding is sized from the
 data at fit time.
@@ -40,8 +41,11 @@ from .data.dataparsers.blender import BlenderDataParserConfig
 from .data.dataparsers.colmap import ColmapDataParserConfig
 from .data.dataparsers.estimated_depth_colmap import \
     EstimatedDepthColmapDataParserConfig
+from .data.dataparsers.feature_3dgs import Feature3DGSColmapDataParserConfig
 from .data.dataparsers.nerfies import NerfiesDataParserConfig
 from .data.dataparsers.phototourism import PhotoTourismDataParserConfig
+from .data.dataparsers.segany_colmap import SegAnyColmapDataParserConfig
+from .data.dataparsers.spotless_colmap import SpotLessColmapDataParserConfig
 from .models.appearance import AppearanceFeatureGaussianConfig
 from .models.deform import DeformModelConfig
 from .models.gaussian import VanillaGaussianConfig
@@ -71,6 +75,7 @@ from .training.opt_strategies import GradAccConfig, GradAccTrainer
 from .training.output_processors import BilateralGridConfig, ExposureConfig
 from .training.plugins import PLUGIN_REGISTRY
 from .training.similarity_reg import SimilarityRegConfig
+from .training.spotless import SpotLessMetricsConfig, check_spotless_trainer
 from .training.taming import Taming3DGSDensityControllerConfig
 from .training.trainer import Trainer, TrainerConfig
 from .training.visibility_map_trainer import VisibilityMapAppearanceTrainer
@@ -105,11 +110,17 @@ _REGISTRY = {
     "MCMCMetrics": MCMCMetricsConfig,
     "GS2DMetrics": GS2DMetricsConfig,
     "DepthMetrics": DepthMetricsConfig,
+    "SpotLessMetrics": SpotLessMetricsConfig,
     "Colmap": ColmapDataParserConfig,
     "EstimatedDepthColmap": EstimatedDepthColmapDataParserConfig,
     "PhotoTourism": PhotoTourismDataParserConfig,
     "Blender": BlenderDataParserConfig,
     "Nerfies": NerfiesDataParserConfig,
+    "SpotLessColmap": SpotLessColmapDataParserConfig,
+    # the second stages' parsers (gsl_tpu_torch.seganygs and
+    # gsl_tpu_torch.feature3dgs build them themselves)
+    "SegAnyColmap": SegAnyColmapDataParserConfig,
+    "Feature3DGSColmap": Feature3DGSColmapDataParserConfig,
 }
 
 # output_processor shorthands
@@ -117,11 +128,8 @@ _PROCESSORS = {"bilagrid": BilateralGridConfig, "exposure": ExposureConfig}
 
 # components of gsl_tpu's registry that the port has not yet -> ROADMAP
 # item
-_UNPORTED_COMPONENTS = {
-    "NSVF": 12, "MatrixCity": 12,
-    "SegAnyColmap": 12, "NGP": 12, "SpotLessColmap": 12, "SpotLessMetrics": 12,
-    "Feature3DGSColmap": 12, "SILVR": 12,
-}
+_UNPORTED_COMPONENTS = {"NSVF": 12, "MatrixCity": 12, "NGP": 12,
+                        "SILVR": 12}
 
 # fields of gsl_tpu's configs that exist for the TPU's static shapes, its
 # matrix unit or its sort; the port has no knob for them
@@ -323,6 +331,9 @@ def build_components(cfg: Dict):
     trainer = trainer_cls(model=model, renderer=renderer, density=density,
                           metrics=metrics, config=trainer_cfg,
                           plugins=plugins, **kwargs)
+    if isinstance(metrics, SpotLessMetricsConfig):
+        # its step replaces the trainer's (training/hooks.py)
+        check_spotless_trainer(trainer)
     return trainer, dataparser_cfg, fit_cfg
 
 

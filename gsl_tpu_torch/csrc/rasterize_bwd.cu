@@ -71,9 +71,13 @@
 //   sums would not hold the rows to their tolerances.
 //
 // No atomics: the order of every addition is fixed, the same rows in every
-// run. Any C works: C <= 8 is a template parameter (cotangents in
-// registers), larger C keeps the cotangents in shared memory and sums the
-// row in chunks of 32 values.
+// run.
+// C <= 8 is a template parameter (cotangents in registers), larger C keeps
+// the cotangents in shared memory and sums the row in chunks of 32 values.
+// A launch takes at most max_group(tile_size) channels, the most whose
+// block fits the 227 KiB of shared memory (the partial rows grow with C);
+// the wrapper launches wider C once per group of channels and adds the
+// groups' geometry columns (ops/rasterize.py, backward_by_channel_groups).
 #include <cstdint>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -90,6 +94,8 @@ using Mask = std::conditional_t<(kBatch > 32), unsigned long long, unsigned>;
 constexpr int kFields = 6;  // mean x, mean y, conic a, b, c, opacity
 constexpr int kMaxTemplateC = 8;
 constexpr int kMaxThreads = 1024;  // tile_size <= 32
+// the dynamic shared memory a block of the H100 may ask for
+constexpr size_t kMaxSharedBytes = 227 * 1024;
 using gsl::kFullMask;
 
 // A slot's record in shared memory: its six fields, its C channels, padded
@@ -383,7 +389,7 @@ cudaError_t launch(const float* means2d, const float* conics,
                    cudaStream_t stream, int* attributes) {
   const int bs = tile_size * tile_size;
   const size_t smem = smem_words(n_channels, bs, CT == 0) * sizeof(float);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         rasterize_bwd_kernel<CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -430,12 +436,32 @@ bool bad_shape(int n_channels, int tile_size) {
   return n_channels < 1 || tile_size < 1 || bs > kMaxThreads || bs % 32 != 0;
 }
 
+
+// The largest channel count whose block fits kMaxSharedBytes at this tile
+// size (0 for a bad tile size): the wrapper launches the kernel once per
+// group of at most that many channels.
+int max_group(int tile_size) {
+  if (bad_shape(1, tile_size)) return 0;
+  const int bs = tile_size * tile_size;
+  int c = 0;
+  while (smem_words(c + 1, bs, c + 1 > kMaxTemplateC) * sizeof(float) <=
+         kMaxSharedBytes) {
+    ++c;
+  }
+  return c;
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* gsl_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The most channels one launch takes at this tile size.
+int gsl_rasterize_bwd_max_group(int tile_size) {
+  return max_group(tile_size);
 }
 
 // rows [n_valid, 6 + C] must be zeroed by the caller: positions at or behind

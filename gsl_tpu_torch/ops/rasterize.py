@@ -455,6 +455,18 @@ def slot_warps(comp):
     return comp.reshape(g, (p + pad) // 32, 32, k).any(2).sum()
 
 
+N_GEOM = 6   # K3's leading columns: dmx dmy da db dc dop (kGeom in K4)
+# channels per K3 launch where the caller gives no group (see
+# backward_by_channel_groups): groups of 8 take its path with the
+# cotangents in registers and three blocks an SM. On an NVIDIA H100 80GB
+# HBM3 at 700 W, at the bench pose (1M Gaussians, 1088x1920), K3 took
+# 11.0 / 22.4 / 45.3 ms at C = 32 / 64 / 128 in groups
+# of 8, against 18.9 / 39.4 / 72.5 in its largest groups (36) and 22.3 /
+# 45.0 / 90.3 in groups of 16 (PERF.md, section 6). K3s and K7 take their
+# largest groups: in groups of 8 they were slower (PERF.md).
+K3_GROUP = 8
+
+
 def rasterize_bwd_plain(means2d, conics, opacities, channels, gids, bounds,
                         g_out, g_alpha, t_final, i_stop, tile_size: int,
                         stats: dict | None = None):
@@ -561,7 +573,15 @@ def _bwd_lib(extra: tuple = ()):
     lib.gsl_rasterize_bwd_attributes.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.gsl_rasterize_bwd_attributes.restype = ctypes.c_int
+    lib.gsl_rasterize_bwd_max_group.argtypes = [ctypes.c_int]
+    lib.gsl_rasterize_bwd_max_group.restype = ctypes.c_int
     return lib
+
+
+def rasterize_bwd_max_group(tile_size: int = 16) -> int:
+    """The most channels one K3 launch takes at this tile size (36 at
+    16). Needs the built library."""
+    return _bwd_lib().gsl_rasterize_bwd_max_group(tile_size)
 
 
 def kernel_attributes(lib, entry: str, *args: int):
@@ -584,11 +604,61 @@ def rasterize_bwd_attributes(n_channels: int, tile_size: int = 16):
                              n_channels, tile_size)
 
 
+def backward_by_channel_groups(bwd_group, channels, g_out, n_geom: int,
+                               group: int, first_only=()):
+    """A backward kernel's rows [n, n_geom + C] for any channel count C,
+    from calls of `bwd_group(channels_g, g_out_g, *cotangents)` on groups
+    of at most `group` consecutive channels, each returning rows
+    [n, n_geom + C_g]. A row's channel columns depend on their own
+    channels only, and its geometry columns are linear in the cotangents:
+    so each group's channel columns are its own, and the geometry columns
+    are the groups' sum, added in group order (the same rows in every
+    run). The cotangents of what is not a channel (`first_only`: alpha;
+    for the surfels, alpha, depth and distortion) go to the first group,
+    zeros to the others. With C <= group, one call on the inputs as
+    given."""
+    C = channels.shape[1]
+    if group < 1:
+        raise ValueError(f"channel group of {group}")
+    if C <= group:
+        return bwd_group(channels, g_out, *first_only)
+    zeros = tuple(torch.zeros_like(t) for t in first_only)
+    rows = None
+    for c0 in range(0, C, group):
+        c1 = min(C, c0 + group)
+        part = bwd_group(channels[:, c0:c1].contiguous(),
+                         g_out[..., c0:c1].contiguous(),
+                         *(first_only if c0 == 0 else zeros))
+        if rows is None:
+            rows = part.new_empty((part.shape[0], n_geom + C))
+            rows[:, :n_geom] = part[:, :n_geom]
+        else:
+            rows[:, :n_geom] += part[:, :n_geom]
+        rows[:, n_geom + c0:n_geom + c1] = part[:, n_geom:]
+    return rows
+
+
+def bwd_group_size(group, max_group: int, name: str,
+                   default=None) -> int:
+    """The channels a backward launch takes: `group`, or where None
+    `default` (the kernel's largest where that is None too), at most the
+    kernel's `max_group` (what its block's shared memory holds)."""
+    want = default if group is None else group
+    g = max_group if want is None else min(int(want), max_group)
+    if g < 1:
+        raise ValueError(f"{name}: no channel group fits this tile size")
+    return g
+
+
 def rasterize_bwd(means2d, conics, opacities, channels, gids, bounds,
                   g_out, g_alpha, t_final, i_stop, tile_size: int = 16,
-                  contract: bool = True):
-    """Kernel K3 on CUDA tensors, `rasterize_bwd_plain` on CPU tensors: one
-    launch for any channel count. Returns rows [len(gids), 6 + C].
+                  contract: bool = True, group=None):
+    """Kernel K3 on CUDA tensors, `rasterize_bwd_plain` on CPU tensors.
+    Any channel count: one launch per group of up to `group` channels
+    (`bwd_group_size`: K3_GROUP by default, at most
+    `rasterize_bwd_max_group(tile_size)`), the groups joined by
+    `backward_by_channel_groups`; one launch for C <= the group. Returns
+    rows [len(gids), 6 + C].
 
     `contract=False` launches a build of the same source without
     multiply-add contraction. The kernel contracts sigma and the gradient
@@ -619,24 +689,30 @@ def rasterize_bwd(means2d, conics, opacities, channels, gids, bounds,
         raise ValueError("rasterize_bwd: cotangent shapes do not match the "
                          "forward's")
     tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
-    # zeroed: the kernel writes only positions before a tile's largest stop
-    rows = torch.zeros((gids.numel(), 6 + C), dtype=torch.float32,
-                       device=dev)
     lib = _bwd_lib(() if contract else cuda_build.NO_CONTRACTION)
-    code = lib.gsl_rasterize_bwd(
-        _ptr(means2d), _ptr(conics), _ptr(opacities), _ptr(channels), C,
-        _ptr(gids), _ptr(bounds), tiles_x * tiles_y, tiles_x, tile_size,
-        img_height, img_width, _ptr(g_out), _ptr(g_alpha), _ptr(t_final),
-        _ptr(i_stop), _ptr(rows), _stream(dev))
-    cuda_build.check(lib, code, "rasterize_bwd")
-    rasterize_bwd.launches += 1
-    return rows
+
+    def launch(ch, g_o, g_a):
+        cg = ch.shape[1]
+        # zeroed: the kernel writes only positions before a tile's largest
+        # stop
+        rows = torch.zeros((gids.numel(), 6 + cg), dtype=torch.float32,
+                           device=dev)
+        code = lib.gsl_rasterize_bwd(
+            _ptr(means2d), _ptr(conics), _ptr(opacities), _ptr(ch), cg,
+            _ptr(gids), _ptr(bounds), tiles_x * tiles_y, tiles_x, tile_size,
+            img_height, img_width, _ptr(g_o), _ptr(g_a), _ptr(t_final),
+            _ptr(i_stop), _ptr(rows), _stream(dev))
+        cuda_build.check(lib, code, "rasterize_bwd")
+        rasterize_bwd.launches += 1
+        return rows
+
+    return backward_by_channel_groups(
+        launch, channels, g_out, N_GEOM,
+        bwd_group_size(group, lib.gsl_rasterize_bwd_max_group(tile_size),
+                       "rasterize_bwd", K3_GROUP), (g_alpha,))
 
 
 rasterize_bwd.launches = 0
-
-
-N_GEOM = 6   # K3's leading columns: dmx dmy da db dc dop (kGeom in K4)
 
 
 def reduce_grads_plain(rows, gids, n: int, n_abs: int = 2):

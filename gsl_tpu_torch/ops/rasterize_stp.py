@@ -47,9 +47,10 @@ import ctypes
 import torch
 
 from . import cuda_build
-from .rasterize import (MIN_ONE_MINUS_ALPHA, NEVER_STOPPED, _check_cuda,
-                        _image_to_tiles, _ptr, _stream, _tiles,
-                        _tiles_to_image, kernel_attributes, skip_cut,
+from .rasterize import (MIN_ONE_MINUS_ALPHA, N_GEOM, NEVER_STOPPED,
+                        _check_cuda, _image_to_tiles, _ptr, _stream, _tiles,
+                        _tiles_to_image, backward_by_channel_groups,
+                        bwd_group_size, kernel_attributes, skip_cut,
                         slot_warps)
 from .rasterize_reference import ALPHA_THRESHOLD, MAX_ALPHA
 
@@ -403,7 +404,15 @@ def _bwd_lib(extra: tuple = ()):
     lib.gsl_rasterize_bwd_stp_attributes.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.gsl_rasterize_bwd_stp_attributes.restype = ctypes.c_int
+    lib.gsl_rasterize_bwd_stp_max_group.argtypes = [ctypes.c_int]
+    lib.gsl_rasterize_bwd_stp_max_group.restype = ctypes.c_int
     return lib
+
+
+def rasterize_bwd_stp_max_group(tile_size: int = 16) -> int:
+    """The most channels one K3s launch takes at this tile size (88 at
+    16). Needs the built library."""
+    return _bwd_lib().gsl_rasterize_bwd_stp_max_group(tile_size)
 
 
 def rasterize_bwd_stp_attributes(n_channels: int, tile_size: int = 16):
@@ -415,12 +424,16 @@ def rasterize_bwd_stp_attributes(n_channels: int, tile_size: int = 16):
 def rasterize_bwd_stp(means2d, conics, opacities, channels, depths,
                       depth_grads, gids, bounds, g_out, g_alpha, t_final,
                       checkpoints, tile_size: int = 16,
-                      contract: bool = True):
+                      contract: bool = True, group=None):
     """Kernel K3s on CUDA tensors, `rasterize_bwd_stp_plain` on CPU
-    tensors: one launch for any channel count. `checkpoints` is what
-    `rasterize_fwd_stp(checkpoints=True)` returned for the same inputs.
-    Returns rows [len(gids), 6 + C]. `contract=False`: see
-    `rasterize_fwd_stp`."""
+    tensors. Any channel count: one launch per group of up to `group`
+    channels (`ops.rasterize.bwd_group_size`; by default, and at most,
+    `rasterize_bwd_stp_max_group(tile_size)`), joined by
+    `ops.rasterize.backward_by_channel_groups`; the checkpoints hold T
+    per window, no channel, so every group reads them whole.
+    `checkpoints` is what `rasterize_fwd_stp(checkpoints=True)` returned
+    for the same inputs. Returns rows [len(gids), 6 + C].
+    `contract=False`: see `rasterize_fwd_stp`."""
     if not means2d.is_cuda:
         return rasterize_bwd_stp_plain(
             means2d, conics, opacities, channels, depths, depth_grads, gids,
@@ -437,19 +450,27 @@ def rasterize_bwd_stp(means2d, conics, opacities, channels, depths,
                                      tile_size * tile_size)):
         raise ValueError("rasterize_bwd_stp: cotangent or checkpoint "
                          "shapes do not match the forward's")
-    # zeroed: the kernel writes only the valid positions
-    rows = torch.zeros((gids.numel(), 6 + C), dtype=torch.float32,
-                       device=dev)
     lib = _bwd_lib(() if contract else cuda_build.NO_CONTRACTION)
-    code = lib.gsl_rasterize_bwd_stp(
-        _ptr(means2d), _ptr(conics), _ptr(opacities), _ptr(channels),
-        _ptr(depths), _ptr(depth_grads), C, _ptr(gids), _ptr(bounds),
-        n_tiles, tiles_x, tile_size, img_height, img_width, _ptr(g_out),
-        _ptr(g_alpha), _ptr(t_final), _ptr(checkpoints), _ptr(rows),
-        _stream(dev))
-    cuda_build.check(lib, code, "rasterize_bwd_stp")
-    rasterize_bwd_stp.launches += 1
-    return rows
+
+    def launch(ch, g_o, g_a):
+        cg = ch.shape[1]
+        # zeroed: the kernel writes only the valid positions
+        rows = torch.zeros((gids.numel(), 6 + cg), dtype=torch.float32,
+                           device=dev)
+        code = lib.gsl_rasterize_bwd_stp(
+            _ptr(means2d), _ptr(conics), _ptr(opacities), _ptr(ch),
+            _ptr(depths), _ptr(depth_grads), cg, _ptr(gids), _ptr(bounds),
+            n_tiles, tiles_x, tile_size, img_height, img_width, _ptr(g_o),
+            _ptr(g_a), _ptr(t_final), _ptr(checkpoints), _ptr(rows),
+            _stream(dev))
+        cuda_build.check(lib, code, "rasterize_bwd_stp")
+        rasterize_bwd_stp.launches += 1
+        return rows
+
+    return backward_by_channel_groups(
+        launch, channels, g_out, N_GEOM,
+        bwd_group_size(group, lib.gsl_rasterize_bwd_stp_max_group(tile_size),
+                       "rasterize_bwd_stp"), (g_alpha,))
 
 
 rasterize_bwd_stp.launches = 0

@@ -72,7 +72,8 @@ from .projection import Projections
 from .rasterize import (MIN_ONE_MINUS_ALPHA, NEVER_STOPPED, PLAIN_CHUNK,
                         PLAIN_TILE_GROUP, Isects, _check_cuda,
                         _image_to_tiles, _ptr, _stream, _tiles,
-                        _tiles_to_image, invert_order, isect_encode,
+                        _tiles_to_image, backward_by_channel_groups,
+                        bwd_group_size, invert_order, isect_encode,
                         kernel_attributes, reduce_grads, slot_keys,
                         slot_tiles, slot_warps, sort_slots, tile_bounds)
 from .rasterize_reference import ALPHA_THRESHOLD, MIN_TRANSMITTANCE
@@ -492,7 +493,15 @@ def _bwd_lib(extra: tuple = ()):
     lib.gsl_rasterize_surfels_bwd_attributes.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.gsl_rasterize_surfels_bwd_attributes.restype = ctypes.c_int
+    lib.gsl_rasterize_surfels_bwd_max_group.argtypes = [ctypes.c_int]
+    lib.gsl_rasterize_surfels_bwd_max_group.restype = ctypes.c_int
     return lib
+
+
+def rasterize_surfels_bwd_max_group(tile_size: int = 16) -> int:
+    """The most channels one K7 launch takes at this tile size (60 at
+    16). Needs the built library."""
+    return _bwd_lib().gsl_rasterize_surfels_bwd_max_group(tile_size)
 
 
 def rasterize_surfels_bwd_attributes(n_channels: int, tile_size: int = 16):
@@ -503,10 +512,14 @@ def rasterize_surfels_bwd_attributes(n_channels: int, tile_size: int = 16):
 
 
 def rasterize_surfels_bwd(geom, channels, gids, bounds, g_out, g_aux, aux,
-                          i_stop, tile_size: int = 16, contract: bool = True):
+                          i_stop, tile_size: int = 16, contract: bool = True,
+                          group=None):
     """Kernel K7 on CUDA tensors, `rasterize_surfels_bwd_plain` on CPU
-    tensors: one launch for any channel count. Returns rows
-    [len(gids), 13 + C].
+    tensors. Any channel count: one launch per group of up to `group`
+    channels (`ops.rasterize.bwd_group_size`; by default, and at most,
+    `rasterize_surfels_bwd_max_group(tile_size)`), joined by
+    `ops.rasterize.backward_by_channel_groups`, `g_aux` (alpha, depth and
+    distortion) with the first group. Returns rows [len(gids), 13 + C].
 
     `contract=False` launches a build of the same source without
     multiply-add contraction. The solve's hx = px Tw - Tu and hx x hy are
@@ -539,18 +552,28 @@ def rasterize_surfels_bwd(geom, channels, gids, bounds, g_out, g_aux, aux,
         raise ValueError("rasterize_surfels_bwd: shapes do not match the "
                          "forward's")
     tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
-    # zeroed: the kernel writes only positions before a tile's largest stop
-    rows = torch.zeros((gids.numel(), N_GEOM_S + C), dtype=torch.float32,
-                       device=dev)
     lib = _bwd_lib(() if contract else cuda_build.NO_CONTRACTION)
-    code = lib.gsl_rasterize_surfels_bwd(
-        _ptr(geom), _ptr(channels), C, _ptr(gids), _ptr(bounds),
-        tiles_x * tiles_y, tiles_x, tile_size, img_height, img_width,
-        _ptr(g_out), _ptr(g_aux), _ptr(aux), _ptr(i_stop), _ptr(rows),
-        _stream(dev))
-    cuda_build.check(lib, code, "rasterize_surfels_bwd")
-    rasterize_surfels_bwd.launches += 1
-    return rows
+
+    def launch(ch, g_o, g_a):
+        cg = ch.shape[1]
+        # zeroed: the kernel writes only positions before a tile's largest
+        # stop
+        rows = torch.zeros((gids.numel(), N_GEOM_S + cg),
+                           dtype=torch.float32, device=dev)
+        code = lib.gsl_rasterize_surfels_bwd(
+            _ptr(geom), _ptr(ch), cg, _ptr(gids), _ptr(bounds),
+            tiles_x * tiles_y, tiles_x, tile_size, img_height, img_width,
+            _ptr(g_o), _ptr(g_a), _ptr(aux), _ptr(i_stop), _ptr(rows),
+            _stream(dev))
+        cuda_build.check(lib, code, "rasterize_surfels_bwd")
+        rasterize_surfels_bwd.launches += 1
+        return rows
+
+    return backward_by_channel_groups(
+        launch, channels, g_out, N_GEOM_S,
+        bwd_group_size(group,
+                       lib.gsl_rasterize_surfels_bwd_max_group(tile_size),
+                       "rasterize_surfels_bwd"), (g_aux,))
 
 
 rasterize_surfels_bwd.launches = 0

@@ -24,8 +24,8 @@ calls uniformly:
   after).
 
 PVG needs no hook of its own: it is a model and a renderer on the plain
-step. The JAX package's SpotLess hook comes with its variant; until then
-`build_hooks` raises for it.
+step. SpotLess keys off the metrics config, as in gsl_tpu: its step
+replaces the trainer's (`SpotLessStepHook`).
 """
 from __future__ import annotations
 
@@ -61,6 +61,8 @@ from .mcmc import (MCMCDensityControllerConfig, dead_mask, grow_target,
 from .opt_strategies import GradAccTrainer
 from .schedulers import exponential_decay
 from .similarity_reg import draw_sample, similarity_reg_step
+from .spotless import (SpotLessMetricsConfig, check_spotless_trainer,
+                       init_spotless_state, reset_shs_rest, spotless_step)
 from .taming import (Taming3DGSDensityControllerConfig,
                      compute_gaussian_scores, densify_selected,
                      draw_uniforms, get_count_array, get_edges,
@@ -184,6 +186,65 @@ class GlossyStepHook(StepHook):
         return self.trainer.train_step_glossy(state, cam, img, H, W,
                                               sh_degree, self.ctx.bg,
                                               mask=mask)
+
+
+class SpotLessStepHook(StepHook):
+    """SpotLessSplats: the step of `training/spotless.py` in place of the
+    trainer's, the MLP, its Adam and the error histogram in
+    ``state.extra["__spotless__"]``, set up before a resume (its weights
+    drawn from the fit's generator). Each image's Stable Diffusion
+    features (`sd_feature_paths` of the parser, [F, h, w]) load once,
+    as float32 on the state's device, and stay cached there, as gsl_tpu
+    caches them; an image without a file gets zero features
+    [n_feature_dims, 50, 50]. `reset_shs_rest` runs at `reset_sh`."""
+
+    def __init__(self, ctx: FitContext):
+        super().__init__(ctx)
+        check_spotless_trainer(ctx.trainer)
+        self.cfg = ctx.trainer.metrics_cfg
+        paths = (ctx.outputs.train_set.extra_data or {}).get(
+            "sd_feature_paths")
+        self.sd_by_name = (dict(zip(ctx.outputs.train_set.image_names,
+                                    paths)) if paths else {})
+        self.sd_cache = {}
+
+    def init_state(self, state, generator):
+        if "__spotless__" not in (state.extra or {}):
+            # the weights are drawn on the CPU from a generator seeded by
+            # the fit's, so a CPU and a card fit start alike
+            seed = int(torch.randint(0, 2 ** 62, (), generator=generator,
+                                     device=generator.device))
+            state = dataclasses.replace(state, extra=dict(
+                state.extra or {}, __spotless__=init_spotless_state(
+                    self.cfg, state.alive.device,
+                    torch.Generator().manual_seed(seed))))
+        return state
+
+    def sd_feature(self, name, device):
+        if name not in self.sd_cache:
+            import os
+            path = self.sd_by_name.get(name)
+            if path and os.path.isfile(path):
+                feat = np.load(path).astype(np.float32)
+            else:
+                # no features: the mask MLP learns from the positional
+                # encodings alone
+                feat = np.zeros((self.cfg.n_feature_dims, 50, 50),
+                                np.float32)
+            self.sd_cache[name] = torch.from_numpy(feat).to(device)
+        return self.sd_cache[name]
+
+    def __call__(self, state, generator, step, sh_degree, cam, name, img,
+                 mask, H, W):
+        return spotless_step(self.trainer, self.cfg, state, cam, img,
+                             self.sd_feature(name, state.alive.device),
+                             self.ctx.bg, H, W, sh_degree,
+                             generator=generator, mask=mask)
+
+    def periodic(self, state, generator, step):
+        if step == self.cfg.reset_sh:
+            state = reset_shs_rest(state)
+        return state
 
 
 class DensityHook:
@@ -639,6 +700,10 @@ def build_hooks(ctx: FitContext, initial_n_alive: int):
     `initial_n_alive`: the alive count before any step or resume, where
     Taming's count curve starts."""
     trainer = ctx.trainer
+    spotless = isinstance(trainer.metrics_cfg, SpotLessMetricsConfig)
+    if spotless:
+        # before the GNS branch: the SpotLess step cannot stand with GNS
+        check_spotless_trainer(trainer)
     if type(trainer) not in TRAINERS:
         raise NotImplementedError(
             f"{type(trainer).__name__}: the fit runs "
@@ -671,6 +736,8 @@ def build_hooks(ctx: FitContext, initial_n_alive: int):
             "the others come with their variants (ROADMAP item 12)")
     if gns is not None:
         step_hook = gns
+    elif spotless:
+        step_hook = SpotLessStepHook(ctx)
     elif isinstance(trainer, GlossyTrainer):
         step_hook = GlossyStepHook(ctx)
     elif isinstance(trainer, DeformTrainer):

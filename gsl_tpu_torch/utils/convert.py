@@ -48,7 +48,8 @@ def state_from_raw_arrays(arrays: dict, device=None) -> GaussianState:
 
 def train_state_from_jax_arrays(params: dict, alive: np.ndarray, opt: dict,
                                 density: dict, step: int, extra=None,
-                                device=None, glossy=None, deform=None):
+                                device=None, glossy=None, deform=None,
+                                spotless=None):
     """The port's `TrainState` from a JAX ``TrainState`` taken apart into
     numpy arrays: `params` and `alive` as for `state_from_jax_arrays`;
     `opt` = {property: {"mu": ..., "nu": ..., "count": int}}, the optax
@@ -67,7 +68,10 @@ def train_state_from_jax_arrays(params: dict, alive: np.ndarray, opt: dict,
     ``extra["__deform__"]`` as {"params": the field's flax tree, "opt":
     {"mu": tree, "nu": tree, "count": int}}; it becomes
     ``extra["__deform__"]`` = {"params", "opt"} in the port's layout
-    (`state_dict_from_flax`)."""
+    (`state_dict_from_flax`). `spotless`: gsl_tpu's
+    ``extra["__spotless__"]`` as {"hist", "mlp": {"w1", "b1", "w2", "b2"},
+    "opt": {"mu", "nu", "count"}}; it becomes ``extra["__spotless__"]``
+    (`spotless_state_from_jax`)."""
     if glossy is not None:
         params = dict(params, metalness=glossy["metalness_raw"])
         opt = dict(opt, metalness=glossy["opt"]["metalness_raw"])
@@ -102,7 +106,42 @@ def train_state_from_jax_arrays(params: dict, alive: np.ndarray, opt: dict,
             count=count, solo_counts=solo),
         density=DensityControlState(**{k: t(density[k]) for k in (
             "grad_accum", "denom", "max_radii")}),
-        step=int(step), extra=_with_deform(_nested(extra, t), deform, dev))
+        step=int(step), extra=_with_spotless(
+            _with_deform(_nested(extra, t), deform, dev), spotless, dev))
+
+
+def tensors_from_numpy(arrays: dict, device=None) -> dict:
+    """{name: array} as float32 tensors on `device` (a feature table, a
+    decoder, an MLP's weights)."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.ascontiguousarray(v),
+                               dtype=torch.float32).to(dev)
+            for k, v in arrays.items()}
+
+
+def adam_state_from_jax(mu: dict, nu: dict, count, device=None) -> dict:
+    """optax.adam's state (`ScaleByAdamState`: its count and the mu and nu
+    trees, here {name: array}) as `TensorAdam`'s state."""
+    return {"exp_avg": tensors_from_numpy(mu, device),
+            "exp_avg_sq": tensors_from_numpy(nu, device),
+            "count": int(np.asarray(count))}
+
+
+def spotless_state_from_jax(sls: dict, device=None) -> dict:
+    """gsl_tpu's SpotLess state {"hist", "mlp", "opt": {"mu", "nu",
+    "count"}} as the port's ``extra["__spotless__"]``."""
+    o = sls["opt"]
+    return {"hist": tensors_from_numpy({"h": sls["hist"]}, device)["h"],
+            "mlp": tensors_from_numpy(sls["mlp"], device),
+            "opt": adam_state_from_jax(o["mu"], o["nu"], o["count"],
+                                       device)}
+
+
+def _with_spotless(extra, spotless, device):
+    if spotless is None:
+        return extra
+    return dict(extra or {},
+                __spotless__=spotless_state_from_jax(spotless, device))
 
 
 def _with_deform(extra, deform, device):

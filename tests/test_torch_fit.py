@@ -39,7 +39,8 @@ PRESETS = ("colmap.yaml", "blender.yaml", "stp.yaml", "gs2d.yaml",
            "appearance_visibility_map_hash.yaml", "swag.yaml",
            "bilagrid.yaml", "exposure.yaml", "grad_acc.yaml",
            "revising.yaml", "taming.yaml", "gns.yaml", "light_gaussian.yaml",
-           "glossy.yaml", "deformable.yaml", "gs4d.yaml", "pvg.yaml")
+           "glossy.yaml", "deformable.yaml", "gs4d.yaml", "pvg.yaml",
+           "spotless.yaml", "segany.yaml")
 OVERRIDES = ["data.path=/data/scene",
              "model.density.init_args.densify_from_iter=100",
              "model.density.init_args.densification_interval=50",
@@ -109,18 +110,16 @@ def test_unknown_field_raises():
         cli.build_components({"model": {"renderer": {"class_path": "Nope"}}})
 
 
-# segany.yaml (``model: {}``) builds a vanilla trainer in both packages:
-# SegAny is a second stage over a trained scene (seganygs.py), so the
-# preset cannot stand here; spotless.yaml's two components each raise.
-# The dynamic presets are ported: with a parser still to come they raise
-# for the parser
+# Every preset but distributed.yaml is ported; with a component still to
+# come (a parser of item 12c, the viewer of item 14) a ported preset
+# raises for that component
 @pytest.mark.parametrize("preset,overrides,item", [
     ("deformable.yaml", {"data": {"parser": {"class_path": "NSVF"}}}, 12),
     ("gs4d.yaml", {"data": {"parser": {"class_path": "MatrixCity"}}}, 12),
     ("distributed.yaml", {}, 13),
     ("pvg.yaml", {"data": {"parser": {"class_path": "NGP"}}}, 12),
-    ("spotless.yaml", {}, 12),
-    ("spotless.yaml", {"data": {"parser": {"class_path": "Colmap"}}}, 12)])
+    ("spotless.yaml", {"data": {"parser": {"class_path": "SILVR"}}}, 12),
+    ("segany.yaml", {"fit": {"viewer": True}}, 14)])
 def test_unported_presets_raise_naming_their_item(preset, overrides, item):
     cfg = cli.load_config([os.path.join(REPO, "gsl_tpu", "configs", preset)],
                           overrides)

@@ -2,9 +2,9 @@
 small Blender-style scene rendered by the port is fitted with one densify,
 validated and resumed; the 2DGS, StopThePop, AbsGS, Mip-Splatting, MCMC,
 depth, normal, ground and scale regulariser presets, the seven
-appearance-slice presets, the density variants, Glossy and the dynamic
-presets take a few steps, and Mip-Splatting, MCMC, GNS, an appearance run
-and a bilateral-grid run resume bit for bit."""
+appearance-slice presets, the density variants, Glossy, the dynamic
+presets and SpotLess take a few steps, and Mip-Splatting, MCMC, GNS, an
+appearance run and a bilateral-grid run resume bit for bit."""
 import csv
 import json
 import os
@@ -275,6 +275,9 @@ for _p in ("deformable.yaml", "gs4d.yaml"):
                          "model.deform.init_args.n_layers=4",
                          "model.deform.init_args.skip_layers=[2]")
 VARIANT_EXTRA["pvg.yaml"] = ("model.gaussian.init_args.sh_degree=1",)
+# SpotLess on the Blender scene: no SD features, so zero ones, at 16
+# channels for the CPU
+VARIANT_EXTRA["spotless.yaml"] = ("model.metric.init_args.n_feature_dims=16",)
 
 
 # the renderer is the one the loader serves the run with: gsl_tpu's
@@ -305,7 +308,7 @@ VARIANT_EXTRA["pvg.yaml"] = ("model.gaussian.init_args.sh_degree=1",)
     # the loader serves PVG through a plain TileRenderer (a PVG PLY is
     # static)
     ("deformable.yaml", "TileRenderer"), ("gs4d.yaml", "TileRenderer"),
-    ("pvg.yaml", "TileRenderer")])
+    ("pvg.yaml", "TileRenderer"), ("spotless.yaml", "TileRenderer")])
 def test_variant_presets_fit_through_the_cli(scene, tmp_path, capsys,
                                              preset, renderer):
     extra = VARIANT_EXTRA.get(preset, ())
@@ -377,6 +380,12 @@ def test_variant_presets_fit_through_the_cli(scene, tmp_path, capsys,
         assert net["opt"]["count"] == 3
         assert net["params"]["layers.0.weight"].shape == (
             (32, 72) if preset == "deformable.yaml" else (64, 32))
+    elif preset == "spotless.yaml":
+        # the MLP stepped every step; the histogram took every pixel
+        sls = state.extra["__spotless__"]
+        assert sorted(state.extra) == ["__spotless__"]
+        assert sls["opt"]["count"] == 4
+        assert float(sls["hist"].sum()) > 64 * 64
     else:
         assert state.extra is None
     if preset == "pvg.yaml":

@@ -335,3 +335,136 @@ def test_k2s_and_k3s_sources_match_plain(host_libs, n_channels, ts, width,
     want = STP.rasterize_bwd_stp_plain(*fwd, g_out, g_alpha, t_p, ckpt_p, ts)
     assert float(want.abs().max()) > 1.0
     assert _close_share(got, want, atol=1e-3) >= SHARE
+
+
+# ---- the backward kernels' channel groups -----------------------------------
+
+def _assert_groups_equal_one_pass(got, want, n_geom, calls, C, group):
+    """The group split's rows against one pass over all channels: the
+    calls one per group of `group` (the last the rest); every column
+    within 1e-5 of its largest value (the geometry columns sum the
+    groups' terms, each group rounding its own partial sums, and the
+    plain version's vectorised pixel sums round by the channel count)."""
+    assert calls == [group] * (C // group) + [C % group] * (C % group > 0)
+    assert got.shape == want.shape
+    scale = want.abs().amax(0)
+    assert bool((scale > 0).all())
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("n_channels", [37, 64, 128])
+def test_k3_channel_groups_equal_one_plain_pass(n_channels):
+    """`backward_by_channel_groups` over K3's plain version in groups of
+    36 (K3's largest at tile 16), alpha's cotangent with the first group
+    only, equals one plain pass over all C channels."""
+    C, ts, width, height = n_channels, 16, 48, 32
+    m2d, con, op, ch, _, _, gs, bounds = _inputs(300, C, ts, width, height,
+                                                 stp=False, seed=C)
+    _, t_fin, stop = R.rasterize_fwd_plain(m2d, con, op, ch, gs, bounds,
+                                           height, width, ts)
+    gen = torch.Generator().manual_seed(C)
+    g_out = torch.randn((height, width, C), generator=gen)
+    g_alpha = torch.randn((height, width), generator=gen)
+    want = R.rasterize_bwd_plain(m2d, con, op, ch, gs, bounds, g_out,
+                                 g_alpha, t_fin, stop, ts)
+    calls = []
+
+    def one(c, g, ga):
+        calls.append(c.shape[1])
+        assert c.is_contiguous() and g.is_contiguous()
+        if len(calls) > 1:
+            assert float(ga.abs().max()) == 0.0
+        return R.rasterize_bwd_plain(m2d, con, op, c, gs, bounds, g, ga,
+                                     t_fin, stop, ts)
+
+    got = R.backward_by_channel_groups(one, ch, g_out, R.N_GEOM, 36,
+                                       (g_alpha,))
+    _assert_groups_equal_one_pass(got, want, R.N_GEOM, calls, C, 36)
+
+
+def test_k7_channel_groups_equal_one_plain_pass():
+    """The same over K7's plain version at C = 64 in groups of 60 (K7's
+    largest at tile 16), alpha, depth and distortion cotangents with the
+    first group only."""
+    from gsl_tpu_torch.ops import surfel_rasterize as SR
+    from gsl_tpu_torch.ops.surfel import project_surfels
+    C, ts, width, height, n = 64, 16, 48, 32, 60
+    rng = np.random.RandomState(5)
+    w2c = torch.eye(4)
+    w2c[2, 3] = 4.0
+    proj = project_surfels(
+        torch.from_numpy((rng.randn(n, 3) * 0.7).astype(np.float32)),
+        torch.from_numpy((rng.rand(n, 2) * 0.3 + 0.05).astype(np.float32)),
+        torch.from_numpy(rng.randn(n, 4).astype(np.float32)), w2c, 40.0,
+        40.0, width / 2, height / 2, width, height)
+    geom = SR.pack_surfels(proj.Tu, proj.Tv, proj.Tw, proj.zcoef,
+                           torch.from_numpy((rng.rand(n) * 0.7 + 0.2
+                                             ).astype(np.float32)))
+    ch = torch.from_numpy(rng.rand(n, C).astype(np.float32))
+    tiles_x, tiles_y = -(-width // ts), -(-height // ts)
+    isects = SR.surfel_isect_encode(proj.means2d, proj.depths, proj.radii,
+                                    height, width, ts)
+    keys, gids = SR.surfel_expand_plain(isects, proj.depths, tiles_x,
+                                        tiles_y)
+    sk, gs, _ = R.sort_slots(keys, gids)
+    bounds = R.tile_bounds(sk, tiles_x * tiles_y)
+    gs = gs[:int(bounds[-1])].contiguous()
+    _, aux, stop = SR.rasterize_surfels_fwd_plain(geom, ch, gs, bounds,
+                                                  height, width, ts)
+    gen = torch.Generator().manual_seed(7)
+    g_out = torch.randn((height, width, C), generator=gen)
+    g_aux = torch.randn((3, height, width), generator=gen) * 0.1
+    want = SR.rasterize_surfels_bwd_plain(geom, ch, gs, bounds, g_out,
+                                          g_aux, aux, stop, ts)
+    calls = []
+
+    def one(c, g, ga):
+        calls.append(c.shape[1])
+        return SR.rasterize_surfels_bwd_plain(geom, c, gs, bounds, g, ga,
+                                              aux, stop, ts)
+
+    got = R.backward_by_channel_groups(one, ch, g_out, SR.N_GEOM_S, 60,
+                                       (g_aux,))
+    _assert_groups_equal_one_pass(got, want, SR.N_GEOM_S, calls, C, 60)
+
+
+def test_k3s_source_in_channel_groups_matches_plain(host_libs):
+    """K3s's CUDA source, emulated, past its group: C = 12 in launches of
+    5 channels (5, 5, 2) through `backward_by_channel_groups`, against
+    the plain version's one pass, at tile size 8 (blocks of 64 host
+    threads); and the source's largest group at tile 16, from its
+    shared-memory formula, is 88."""
+    n_channels, ts, width, height = 12, 8, 24, 24
+    fwd = _inputs(300, n_channels, ts, width, height, stp=True, seed=4)
+    m2d, con, op, ch, depths, kz, gs, bounds = fwd
+    tiles_x, tiles_y = -(-width // ts), -(-height // ts)
+    n_tiles = tiles_x * tiles_y
+    _, t_p, _, ckpt_p = STP.rasterize_fwd_stp_plain(
+        *fwd, height, width, ts, checkpoints=True)
+    gen = torch.Generator().manual_seed(3)
+    g_out = torch.randn((height, width, n_channels), generator=gen)
+    g_alpha = torch.randn((height, width), generator=gen)
+    lib = host_libs["rasterize_bwd_stp"]
+    assert lib.gsl_rasterize_bwd_stp_max_group(16) == 88
+    bwd = lib.gsl_rasterize_bwd_stp
+    bwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                    + [ctypes.c_void_p] * 6)
+    calls = []
+
+    def one(c, g, ga):
+        calls.append(c.shape[1])
+        rows = torch.zeros((gs.numel(), 6 + c.shape[1]))
+        assert bwd(_p(m2d), _p(con), _p(op), _p(c), _p(depths), _p(kz),
+                   c.shape[1], _p(gs), _p(bounds), n_tiles, tiles_x, ts,
+                   height, width, _p(g), _p(ga), _p(t_p), _p(ckpt_p),
+                   _p(rows), None) == 0
+        return rows
+
+    got = R.backward_by_channel_groups(one, ch, g_out, R.N_GEOM, 5,
+                                       (g_alpha,))
+    assert calls == [5, 5, 2]
+    want = STP.rasterize_bwd_stp_plain(*fwd, g_out, g_alpha, t_p, ckpt_p,
+                                       ts)
+    assert float(want.abs().max()) > 1.0
+    assert _close_share(got, want, atol=1e-3) >= SHARE

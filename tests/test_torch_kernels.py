@@ -235,17 +235,20 @@ def close_share_grad(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_channels,ts,cut", KERNEL_CASES["k3"])
 def test_backward_kernels_match_plain(cuda, n_channels, ts, cut):
-    """C = 11 and 27 take K3's path with the cotangents in shared memory;
-    at C = 27 K3 sums 33 values a row, in two chunks. `cut`: the tiles'
-    lists cut to 1, 17, 33, 0, 47, 2 and 49 slots, so K3's batches of 32
-    end ragged and a tile has one slot."""
+    """C = 11 and 27 take ceil(C / 8) K3 launches of channel groups
+    (K3_GROUP), and in one group (`group`) one launch on K3's path with
+    the cotangents in shared memory, which at C = 27 sums 33 values a row
+    in two chunks. `cut`: the
+    tiles' lists cut to 1, 17, 33, 0, 47, 2 and 49 slots, so K3's batches
+    of 32 end ragged and a tile has one slot."""
     bwd, isects, order, n = _backward_inputs(cuda, n_channels, ts=ts,
                                              cut=cut)
     gs, bounds = bwd[4], bwd[5]
     before = R.rasterize_bwd.launches
     rows = R.rasterize_bwd(*bwd)
     torch.cuda.synchronize()
-    assert R.rasterize_bwd.launches == before + 1
+    assert R.rasterize_bwd.launches == before + bwd_launches(
+        n_channels, R.rasterize_bwd_max_group(ts), default=R.K3_GROUP)
     rows_p = R.rasterize_bwd_plain(*bwd)
     assert rows.shape == rows_p.shape == (gs.numel(), 6 + n_channels)
     assert bool(torch.isfinite(rows).all())
@@ -257,6 +260,9 @@ def test_backward_kernels_match_plain(cuda, n_channels, ts, cut):
     assert min(shares) >= SHARE, shares
     # twice the same: no atomics
     assert torch.equal(rows, R.rasterize_bwd(*bwd))
+    # the whole width in one launch, where the kernel's block takes it
+    whole = R.rasterize_bwd(*bwd, group=n_channels)
+    assert close_share_grad(whole, rows_p) >= SHARE
     assert_attributes(R.rasterize_bwd_attributes(n_channels, ts))
     if cut:     # K4 needs every slot of the expand's output
         return
@@ -415,9 +421,9 @@ def column_shares(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_channels,ts,cut", KERNEL_CASES["surfel"])
 def test_surfel_kernels_match_plain(cuda, n_channels, ts, cut):
-    """C = 9 and 20 take ceil(C / 8) K6 launches and K7's path with the
-    cotangents in shared memory; at C = 20 K7 sums 33 values a row, in two
-    chunks. `cut`: the tiles' lists cut to 1, 17, 33, 0, 47, 2 and 49
+    """C = 9 and 20 take ceil(C / 8) K6 launches and one of K7's path with
+    the cotangents in shared memory; at C = 20 K7 sums 33 values a row, in
+    two chunks; in groups of 8 (`group`) K7 takes ceil(C / 8) launches. `cut`: the tiles' lists cut to 1, 17, 33, 0, 47, 2 and 49
     slots, so K7's batches of 32 end ragged and a tile has one slot."""
     n = 3000
     proj, geom, ch, isects, gen = _surfel_inputs(cuda, n_channels, n, ts)
@@ -466,7 +472,8 @@ def test_surfel_kernels_match_plain(cuda, n_channels, ts, cut):
     before = SR.rasterize_surfels_bwd.launches
     rows = SR.rasterize_surfels_bwd(*bwd)
     torch.cuda.synchronize()
-    assert SR.rasterize_surfels_bwd.launches == before + 1
+    assert SR.rasterize_surfels_bwd.launches == before + bwd_launches(
+        n_channels, SR.rasterize_surfels_bwd_max_group(ts))
     rows_p = SR.rasterize_surfels_bwd_plain(*bwd)
     assert rows.shape == rows_p.shape == (gs.numel(), 13 + n_channels)
     assert bool(torch.isfinite(rows).all())
@@ -478,6 +485,8 @@ def test_surfel_kernels_match_plain(cuda, n_channels, ts, cut):
     shares = column_shares(uncontracted, rows_p)
     assert min(shares) >= SHARE, shares
     assert torch.equal(rows, SR.rasterize_surfels_bwd(*bwd))   # no atomics
+    shares = column_shares(SR.rasterize_surfels_bwd(*bwd, group=8), rows_p)
+    assert min(shares) >= SURFEL_GRAD_SHARE, shares
     assert_attributes(SR.rasterize_surfels_bwd_attributes(n_channels, ts))
     if cut:     # K4 needs every slot of the expand's output
         return
@@ -594,9 +603,10 @@ def _stp_inputs(cuda, n_channels, n=3000, ts=TS):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_channels,ts,cut", KERNEL_CASES["stp"])
 def test_stp_kernels_match_plain(cuda, n_channels, ts, cut):
-    """C = 11 and 27 take ceil(C / 8) K2s launches and K3s's path with the
-    cotangents in shared memory; at C = 27 K3s sums 33 values a row, in two
-    chunks. `cut`: the tiles' lists cut to 1, 17, 65, 0, 47, 2 and 129
+    """C = 11 and 27 take ceil(C / 8) K2s launches and one of K3s's path
+    with the cotangents in shared memory; at C = 27 K3s sums 33 values a
+    row, in two chunks; in groups of 8 (`group`) K3s takes ceil(C / 8)
+    launches. `cut`: the tiles' lists cut to 1, 17, 65, 0, 47, 2 and 129
     slots, so they end one past a window or one past K2s's batch of 64, and
     a tile has one slot."""
     proj, op, ch, isects, args, gen = _stp_inputs(cuda, n_channels, ts=ts)
@@ -635,7 +645,8 @@ def test_stp_kernels_match_plain(cuda, n_channels, ts, cut):
     before = STP.rasterize_bwd_stp.launches
     rows = STP.rasterize_bwd_stp(*fwd[:8], g_out, g_alpha, t_fin, ckpt, ts)
     torch.cuda.synchronize()
-    assert STP.rasterize_bwd_stp.launches == before + 1
+    assert STP.rasterize_bwd_stp.launches == before + bwd_launches(
+        n_channels, STP.rasterize_bwd_stp_max_group(ts))
     rows_p = STP.rasterize_bwd_stp_plain(*fwd[:8], g_out, g_alpha, t_p,
                                          ckpt_p, ts)
     assert rows.shape == rows_p.shape == (gs.numel(), 6 + n_channels)
@@ -648,6 +659,9 @@ def test_stp_kernels_match_plain(cuda, n_channels, ts, cut):
     assert close_share_grad(loose_rows, rows_p) >= SHARE
     assert torch.equal(rows, STP.rasterize_bwd_stp(          # no atomics
         *fwd[:8], g_out, g_alpha, t_fin, ckpt, ts))
+    grouped = STP.rasterize_bwd_stp(*fwd[:8], g_out, g_alpha, t_fin, ckpt,
+                                    ts, group=8)
+    assert close_share_grad(grouped, rows_p) >= SHARE
     assert_attributes(STP.rasterize_bwd_stp_attributes(n_channels, ts))
     if cut:     # K4 needs every slot of the expand's output
         return
@@ -1033,3 +1047,124 @@ def test_chip_smoke_passes(cuda):
                        capture_output=True, text=True, timeout=1200)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().splitlines()[-1].startswith('{"ok": true')
+
+
+# ---- any channel count through the backward kernels -------------------------
+
+def bwd_launches(n_channels, max_group, group=None, default=None):
+    """The launches of a backward wrapper at C channels: one per group of
+    `group`, or where None of `default` (the kernel's largest where that
+    is None too: K3s, K7), at most the kernel's largest."""
+    want = default if group is None else group
+    g = max_group if want is None else min(want, max_group)
+    return -(-n_channels // g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_channels", [37, 64, 128])
+def test_backward_kernel_takes_any_channel_count(cuda, n_channels):
+    """K3 past its largest group (36 at tile 16, from its shared memory):
+    the wrapper launches once per channel group and adds the groups'
+    geometry columns. The rows, by default and in groups of 8 and of 36,
+    are held to the plain version's one pass as at C <= 36; the build
+    without contraction column by column; identical in two runs. K4 sums
+    the 8 + C columns equal to the sums in slot order, twice."""
+    assert R.rasterize_bwd_max_group(TS) == 36
+    bwd, isects, order, n = _backward_inputs(cuda, n_channels, n=1500)
+    gs, bounds = bwd[4], bwd[5]
+    before = R.rasterize_bwd.launches
+    rows = R.rasterize_bwd(*bwd)
+    torch.cuda.synchronize()
+    assert R.rasterize_bwd.launches == before + bwd_launches(
+        n_channels, 36, default=R.K3_GROUP)
+    rows_p = R.rasterize_bwd_plain(*bwd)
+    assert rows.shape == rows_p.shape == (gs.numel(), 6 + n_channels)
+    assert bool(torch.isfinite(rows).all())
+    assert float(rows_p.abs().max()) > 1.0
+    assert close_share_grad(rows, rows_p) >= SHARE
+    for group in (8, 36):
+        before = R.rasterize_bwd.launches
+        got = R.rasterize_bwd(*bwd, group=group)
+        assert R.rasterize_bwd.launches == before + bwd_launches(
+            n_channels, 36, group)
+        assert close_share_grad(got, rows_p) >= SHARE
+    loose = R.rasterize_bwd(*bwd, contract=False)
+    shares = column_shares(loose, rows_p)
+    assert min(shares) >= SHARE, shares
+    assert torch.equal(rows, R.rasterize_bwd(*bwd))          # no atomics
+    red = (rows, gs, isects.offsets, R.invert_order(order), bounds[-1:], n)
+    summed = R.reduce_grads(*red)
+    assert summed.shape == (n, 8 + n_channels)
+    assert torch.equal(summed, R.reduce_grads_slot_order(rows, *red[2:]))
+    assert torch.equal(summed, R.reduce_grads(*red))
+    into = R.reduce_grads_plain(rows.abs(), gs, n)
+    assert bool(((summed - R.reduce_grads_plain(rows, gs, n)).abs()
+                 <= 1e-5 * into).all())
+
+
+@pytest.mark.cuda
+def test_stp_backward_kernel_takes_any_channel_count(cuda):
+    """K3s past its largest group (88 at tile 16): C = 96 in two launches
+    by default and in 12 of 8 channels, held to the plain version as at
+    C = 27; identical in two runs."""
+    n_channels = 96
+    assert STP.rasterize_bwd_stp_max_group(TS) == 88
+    proj, op, ch, isects, args, gen = _stp_inputs(cuda, n_channels, n=1500)
+    keys, gids = R.expand(*args)
+    sk, gs, order = R.sort_slots(keys, gids)
+    bounds = R.tile_bounds(sk, args[5] * args[6])
+    fwd = (proj.means2d, proj.conics, op, ch, proj.depths,
+           proj.depth_grads.contiguous(), gs, bounds, H, W, TS)
+    out, t_fin, stop, ckpt = STP.rasterize_fwd_stp(*fwd, checkpoints=True)
+    _, t_p, _, ckpt_p = STP.rasterize_fwd_stp_plain(*fwd, checkpoints=True)
+    g_out = torch.randn((H, W, n_channels), generator=gen).to(cuda)
+    g_alpha = torch.randn((H, W), generator=gen).to(cuda)
+    bwd = (*fwd[:8], g_out, g_alpha, t_fin, ckpt, TS)
+    before = STP.rasterize_bwd_stp.launches
+    rows = STP.rasterize_bwd_stp(*bwd)
+    torch.cuda.synchronize()
+    assert STP.rasterize_bwd_stp.launches == before + bwd_launches(
+        n_channels, 88)
+    rows_p = STP.rasterize_bwd_stp_plain(*fwd[:8], g_out, g_alpha, t_p,
+                                         ckpt_p, TS)
+    assert rows.shape == rows_p.shape == (gs.numel(), 6 + n_channels)
+    assert bool(torch.isfinite(rows).all())
+    assert close_share_grad(rows, rows_p) >= SHARE
+    before = STP.rasterize_bwd_stp.launches
+    got = STP.rasterize_bwd_stp(*bwd, group=8)
+    assert STP.rasterize_bwd_stp.launches == before + 12
+    assert close_share_grad(got, rows_p) >= SHARE
+    assert torch.equal(rows, STP.rasterize_bwd_stp(*bwd))    # no atomics
+
+
+@pytest.mark.cuda
+def test_surfel_backward_kernel_takes_any_channel_count(cuda):
+    """K7 past its largest group (60 at tile 16): C = 64 in two launches
+    by default and in groups of 8, alpha, depth and distortion cotangents
+    with the first group, held to the plain version column by column as
+    at C = 20; identical in two runs."""
+    n_channels, n = 64, 1500
+    assert SR.rasterize_surfels_bwd_max_group(TS) == 60
+    proj, geom, ch, isects, gen = _surfel_inputs(cuda, n_channels, n)
+    keys, gids = SR.surfel_expand(isects, proj.depths.contiguous(),
+                                  -(-W // TS), -(-H // TS))
+    sk, gs, order = R.sort_slots(keys, gids)
+    bounds = R.tile_bounds(sk, (-(-W // TS)) * (-(-H // TS)))
+    out, aux, stop = SR.rasterize_surfels_fwd(geom, ch, gs, bounds, H, W,
+                                              TS)
+    g_out = torch.randn((H, W, n_channels), generator=gen).to(cuda)
+    g_aux = torch.randn((3, H, W), generator=gen).to(cuda)
+    bwd = (geom, ch, gs, bounds, g_out, g_aux, aux, stop, TS)
+    before = SR.rasterize_surfels_bwd.launches
+    rows = SR.rasterize_surfels_bwd(*bwd)
+    torch.cuda.synchronize()
+    assert SR.rasterize_surfels_bwd.launches == before + bwd_launches(
+        n_channels, 60)
+    rows_p = SR.rasterize_surfels_bwd_plain(*bwd)
+    assert rows.shape == rows_p.shape == (gs.numel(), 13 + n_channels)
+    assert bool(torch.isfinite(rows).all())
+    shares = column_shares(rows, rows_p)
+    assert min(shares) >= SURFEL_GRAD_SHARE, shares
+    shares = column_shares(SR.rasterize_surfels_bwd(*bwd, group=8), rows_p)
+    assert min(shares) >= SURFEL_GRAD_SHARE, shares
+    assert torch.equal(rows, SR.rasterize_surfels_bwd(*bwd))  # no atomics
