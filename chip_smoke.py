@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port's render and training paths (3DGS, 2DGS,
 StopThePop, Mip-Splatting, MCMC, the depth, normal and ground
 regularisers, the appearance slice, the density variants, Glossy and the
-dynamic scenes), of its fit through the CLI and of 2DGS mesh extraction
-on one CUDA card.
+dynamic scenes), of its fit through the CLI, of 2DGS mesh extraction and
+of serving and editing a trained scene (the web and in-training viewers,
+the parsers, LPIPS and the tools) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -321,6 +322,45 @@ package is not beside this script. Phases, each fatal on failure:
    colmap.yaml run with SAM masks and [128, 64, 64] teacher maps
    synthesised at the parsers' names, 50 steps each: the loss at the
    first and last step, the files the root scripts write.
+   K3s's and K7's bounds at C = 96 and 64 at the bench pose come from
+   phase 3's counts of the same walks there (they do not depend on C).
+15. serve and edit, on the existing kernels. (a) The web viewer
+   (gsl_tpu_torch.viewer.Viewer) on the bench scene's PLY (1M, SH degree
+   3) at 1088^2, bound to port 0 and driven over HTTP by urllib from this
+   script: the page; /outputs equal to available_output_types(); /render
+   for every output type resting (1088^2) and moving (544^2), each PNG
+   equal to ViewerRenderer.get_outputs at the same pose and size, K1 and
+   K2 launched and no other kernel; /transform with a rotation, a scale
+   and a translation equal to transform_state applied directly;
+   /edit/delete_box deleting as many as the host counts in the box;
+   /measure finite; /path/add twice, /path/save, /path/render.gif of 30
+   frames that decode (30 launches each), /path/clear. Then the same on
+   phase 8's gs2d.yaml run through SurfelRenderer (K5, K6). Prints ms per
+   rgb /render request (median of 10, the HTTP round trip with the PNG
+   encode) beside get_outputs alone and the encode alone, ms of
+   /transform, seconds of the GIF, peak memory and launches per request;
+   four /render requests sent at once must peak no higher (within 1%)
+   than the largest of the same poses requested one at a time, since the
+   viewer renders under one lock (after a first round at once, which
+   gives each server thread its cuBLAS workspace).
+   (b) colmap.yaml on phase 8's scene for 100 steps through cli.main with
+   --viewer --viewer_port 0 while a client polls /status and fetches new
+   /frame JPEGs at the page's cadence, and the same 100 steps without the
+   viewer (cuDNN deterministic for both): frames must arrive, the fit
+   must stop its server, and every logged loss must be equal. Prints ms
+   per step with and without the viewer and the frames served. (c) Phase
+   8's 24 views written as an NSVF, an instant-ngp (scene box 8), a
+   MatrixCity (no depth files) and a SiLVR capture, each fitted 100 steps
+   through the CLI with blender.yaml and the parser's class_path: finite
+   losses, K1-K4 only, val PSNR above the initial cloud's; prints ms per
+   step and val PSNR. (d) LPIPS with a seeded random-weights file (the
+   values show the path, not quality): phase 8's render against its
+   image at 1088x1920 on the card and on the CPU within rtol 1e-4, its
+   ms, and validate on phase 8's run writing a filled lpips column. (e)
+   ckpt2ply, gaussian_transform, fuse_mip_filter and convert2splat on
+   phase 8's colmap.yaml run on the card, each file read back by the
+   port's readers (the exported means equal to the loader's, the .splat
+   holding the run's means); prints seconds per tool.
 
 Bounds in the kernels line: the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM f32 without tensor cores). K1 moves 52
@@ -380,7 +420,9 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -395,6 +437,7 @@ from gsl_tpu_torch.data.colmap_io import (ColmapCamera, ColmapImage,
                                           read_model, rotmat_to_qvec,
                                           write_model_bin)
 from gsl_tpu_torch.ops import cuda_build
+from gsl_tpu_torch.ops import lpips as lpips_module
 from gsl_tpu_torch.ops import rasterize as R
 from gsl_tpu_torch.ops import rasterize_stp as STP
 from gsl_tpu_torch.ops import surfel_rasterize as SR
@@ -415,7 +458,10 @@ from gsl_tpu_torch.renderers.mip_splatting_renderer import \
     MipSplattingRendererConfig
 from gsl_tpu_torch.renderers.surfel_renderer import SurfelRendererConfig
 from gsl_tpu_torch.renderers.tile_renderer import TileRendererConfig
-from gsl_tpu_torch.tools import get_depth_scales, gs2d_mesh_extraction
+from gsl_tpu_torch.tools import (ckpt2ply, convert2splat, fuse_mip_filter,
+                                 gaussian_transform, get_depth_scales,
+                                 gs2d_mesh_extraction)
+from gsl_tpu_torch.training import fit as fit_module
 from gsl_tpu_torch.training.appearance_trainer import (
     AppearanceOptimizationConfig, AppearanceTrainer, leaves_of)
 from gsl_tpu_torch import feature3dgs as feature3dgs_main
@@ -470,9 +516,12 @@ from gsl_tpu_torch.utils.convert import (state_from_jax_arrays,
                                          state_from_raw_arrays)
 from gsl_tpu_torch.utils.device import float32_math
 from gsl_tpu_torch.utils.gaussian_model_loader import GaussianModelLoader
-from gsl_tpu_torch.utils.ply import save_gaussian_ply
+from gsl_tpu_torch.utils.ply import load_gaussian_ply, save_gaussian_ply
 from gsl_tpu_torch.viewer.camera_path import orbit_c2w
+from gsl_tpu_torch.viewer.panels import transform_state
 from gsl_tpu_torch.viewer.renderer import ViewerRenderer
+from gsl_tpu_torch.viewer.training_viewer import TrainingViewer
+from gsl_tpu_torch.viewer.viewer import Viewer, png_bytes
 
 H, W, FOCAL = 1088, 1920, 1600.0
 N_GAUSSIANS = 1_000_000
@@ -1087,11 +1136,11 @@ def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
         fwd_bound=bound(fwd_bytes, 12 * pairs + 5 * stats["near_pairs"]
                         + (9 + 2 * C) * composited
                         + stats["unordered_live_squares"]),
-        bwd_bound=bound(
-            fwd_bytes + ckpt_bytes + 4 * H * W + 4 * (6 + C) * n_valid,
-            12 * pairs + 5 * stats["near_pairs"] + (9 + 2 * C) * composited
-            + (35 + 4 * C) * composited + stats["unordered_live_squares"]
-            + (5 + 2 * C) * stats["unordered_live_entries"]),
+        bwd_bound=stp_bwd_bound(C, n, dict(
+            n_valid=n_valid, checkpoint_bytes=ckpt_bytes, pairs=pairs,
+            near_pairs=stats["near_pairs"], composited_pairs=composited,
+            unordered_live_squares=stats["unordered_live_squares"],
+            unordered_live_entries=stats["unordered_live_entries"])),
         slots=isects.total, n_isects=isects.n_isects, n_valid=n_valid,
         pairs=pairs, composited_pairs=composited,
         unordered_windows=unordered, checkpoint_bytes=ckpt_bytes,
@@ -1099,10 +1148,28 @@ def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
         unordered_warp_windows=stats["unordered_warp_windows"],
         live_entries=stats["live_entries"], near_pairs=stats["near_pairs"],
         unordered_live_squares=stats["unordered_live_squares"],
+        unordered_live_entries=stats["unordered_live_entries"],
         bwd_attributes=attrs, fwd_attributes=fwd_attrs)
     log(f"stp {tag} timings " + json.dumps(
         {k: v for k, v in rec.items() if not k.endswith("_err")}))
     return rec
+
+
+def stp_bwd_bound(C, n, c):
+    """K3s's bound at C channels from a walk's counts `c` (n_valid,
+    checkpoint_bytes, pairs, near_pairs, composited_pairs,
+    unordered_live_squares, unordered_live_entries), which do not depend
+    on C: K2s's bytes and walk, then the backward's."""
+    n_tiles = -(-W // TILE) * -(-H // TILE)
+    fwd_bytes = (n * (36 + 4 * C) + 4 * c["n_valid"] + 8 * (n_tiles + 1)
+                 + H * W * (4 * C + 8))
+    comp = c["composited_pairs"]
+    return bound(
+        fwd_bytes + c["checkpoint_bytes"] + 4 * H * W
+        + 4 * (6 + C) * c["n_valid"],
+        12 * c["pairs"] + 5 * c["near_pairs"] + (9 + 2 * C) * comp
+        + (35 + 4 * C) * comp + c["unordered_live_squares"]
+        + (5 + 2 * C) * c["unordered_live_entries"])
 
 
 def phase_stp_kernels(state, renderer):
@@ -1395,12 +1462,13 @@ def check_surfel_kernels(vname, C, state, cam, seed, timed):
         expand_bound=bound(28 * n + 12 * isects.total, 6 * isects.n_isects),
         fwd_bound=bound(in_bytes + H * W * (4 * C + 32),
                         47 * pairs + (26 + 2 * C) * composited),
-        bwd_bound=bound(in_bytes + H * W * (4 * C + 44) + 4 * R_ * n_valid,
-                        48 * pairs_bwd + (123 + 4 * C) * composited),
+        bwd_bound=surfel_bwd_bound(C, n, dict(
+            n_valid=n_valid, pairs_bwd=pairs_bwd,
+            composited_pairs=composited)),
         reduce_bound=bound(4 * R_ * n_valid + 4 * isects.total + 8 * n
                            + 4 * R_ * n, R_ * n_valid),
         slots=isects.total, n_isects=isects.n_isects, pairs=pairs,
-        pairs_bwd=pairs_bwd, composited_pairs=composited,
+        pairs_bwd=pairs_bwd, composited_pairs=composited, n_valid=n_valid,
         composited_slot_warps=stats["composited_slot_warps"],
         bwd_attributes=SR.rasterize_surfels_bwd_attributes(C, TILE),
         fwd_attributes=attrs, expand_attributes=expand_attrs,
@@ -1411,6 +1479,16 @@ def check_surfel_kernels(vname, C, state, cam, seed, timed):
          or k in ("slots", "n_isects", "pairs", "pairs_bwd",
                   "composited_pairs")}))
     return rec
+
+
+def surfel_bwd_bound(C, n, c):
+    """K7's bound at C channels from a walk's counts `c` (n_valid,
+    pairs_bwd, composited_pairs), which do not depend on C."""
+    n_tiles = -(-W // TILE) * -(-H // TILE)
+    in_bytes = n * (52 + 4 * C) + 4 * c["n_valid"] + 8 * (n_tiles + 1)
+    return bound(in_bytes + H * W * (4 * C + 44)
+                 + 4 * (13 + C) * c["n_valid"],
+                 48 * c["pairs_bwd"] + (123 + 4 * C) * c["composited_pairs"])
 
 
 def phase_surfel_kernels(state):
@@ -4066,11 +4144,12 @@ def raster_launches(C, bwd=True):
     return want
 
 
-def phase_wide_kernels(arrays):
+def phase_wide_kernels(arrays, trec, srec):
     """Phase 14 (a): K1-K4 at C = 32, 64 and 128 at the bench pose, K3 at
     each group size, and K3s and K7 past their largest groups on the small
-    scenes, and timed by group at the bench pose. Returns {C: times,
-    launches and bounds}."""
+    scenes, and timed by group at the bench pose, with their bounds there
+    from phase 3's counts of the same walks (`trec`, `srec`: the bench
+    pose's). Returns {C: times, launches and bounds}."""
     state = state_from_raw_arrays(arrays, device="cuda")
     renderer = TileRendererConfig().instantiate()
     log("== phase 14 (a): the backward kernels past their channel "
@@ -4140,10 +4219,20 @@ def phase_wide_kernels(arrays):
         torch.cuda.empty_cache()
     out["stp"] = wide_small_stp()
     out["stp"]["bench_ms_by_group"] = wide_bench_stp(state, renderer)
+    out["stp"]["bound_ms"], out["stp"]["bound_by"] = stp_bwd_bound(
+        STP_WIDE, n, trec)
     del state
     torch.cuda.empty_cache()
     out["surfel"] = wide_small_surfel()
     out["surfel"]["bench_ms_by_group"] = wide_bench_surfel(arrays)
+    out["surfel"]["bound_ms"], out["surfel"]["bound_by"] = surfel_bwd_bound(
+        SURFEL_WIDE, n, srec)
+    for key, name, C in (("stp", "K3s", STP_WIDE),
+                         ("surfel", "K7", SURFEL_WIDE)):
+        best = min(out[key]["bench_ms_by_group"].values())
+        log(f"{name} bench C={C}: bound {out[key]['bound_ms']:.4f} ms "
+            f"({out[key]['bound_by']}, from phase 3's counts at the bench "
+            f"pose), {best / out[key]['bound_ms']:.1f}x at its best group")
     return out
 
 
@@ -4581,6 +4670,505 @@ def phase_distill_entry_points(tmp):
             f"launches {launches}")
 
 
+# ---- phase 15: serve and edit ----------------------------------------------
+
+VIEWER_SIZE = 1088          # the served frame's side when the camera rests
+RENDER_REPS = 10            # /render requests timed, and get_outputs calls
+GIF_FRAMES = 30             # the viewer's camera-path GIF
+CONCURRENT = 4              # /render requests sent at once
+SERVE_KERNELS = ("expand", "rasterize_fwd")
+SURFEL_SERVE_KERNELS = ("surfel_expand", "surfel_fwd")
+VIEWER_FIT_STEPS = 100
+PAGE_POLL_S = 0.5           # the training viewer page's /status interval
+PARSER_FIT_STEPS = 100      # 50 if the whole script passes ~800 s
+LPIPS_RTOL = 1e-4
+PARSER_CAPTURES = ("NSVF", "NGP", "MatrixCity", "SILVR")
+
+
+def http_get(base, path, timeout=600):
+    with urllib.request.urlopen(base + path, timeout=timeout) as r:
+        return r.read()
+
+
+def decode_png(data):
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def host_ms(fn):
+    """(result, ms) of fn(), synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def serve_and_edit(tag, model_path, kernels, tmp):
+    """Phase 15 (a) on one model: the web viewer at VIEWER_SIZE on port 0,
+    every route driven over HTTP from this script."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    v = Viewer(model_path, host="127.0.0.1", port=0,
+               image_size=VIEWER_SIZE, max_fps=1e9, moving_window_s=0.0)
+    v.start(block=False)
+    base = f"http://127.0.0.1:{v.port}"
+    n_rows = v.renderer.state.n_alive
+    try:
+        if b"gsl_tpu_torch viewer" not in http_get(base, "/"):
+            fail(f"{tag}: / did not serve the viewer's page")
+        names = json.loads(http_get(base, "/outputs"))
+        if names != v.renderer.available_output_types():
+            fail(f"{tag}: /outputs gave {names}, not "
+                 f"{v.renderer.available_output_types()}")
+        per_request = {}
+        for output in names:
+            for moving in (False, True):
+                # the camera rests (full size) or moves (half size)
+                v.moving_window_s = 1e9 if moving else 0.0
+                size = VIEWER_SIZE // 2 if moving else VIEWER_SIZE
+                yaw = 12.0 + 0.5 * moving
+                torch.cuda.synchronize()
+                reset_launches()
+                png = http_get(base, f"/render?yaw={yaw}&pitch=-10&dist=6"
+                               f"&output={output}")
+                torch.cuda.synchronize()
+                per = {k: c for k, c in read_launches().items() if c}
+                if set(per) != set(kernels):
+                    fail(f"{tag} /render {output} at {size}: launched "
+                         f"{per}, not {kernels}")
+                per_request[f"{output}@{size}"] = per
+                v.renderer.output_type = output
+                want = v.renderer.get_outputs(
+                    orbit_c2w(yaw, -10.0, 6.0, v.target), size, size)
+                got = decode_png(png)
+                if got.shape != (size, size, 3) or not np.array_equal(
+                        got, want):
+                    fail(f"{tag} /render {output} at {size}: the PNG "
+                         "differs from ViewerRenderer.get_outputs at the "
+                         "same pose")
+        v.moving_window_s = 0.0
+        request_ms, direct_ms, encode_ms = [], [], []
+        for i in range(RENDER_REPS):
+            _, ms = host_ms(lambda i=i: http_get(
+                base, f"/render?yaw={30 + i}&pitch=-10&dist=6&output=rgb"))
+            request_ms.append(ms)
+        v.renderer.output_type = "rgb"
+        for i in range(RENDER_REPS):
+            img, ms = host_ms(lambda i=i: v.renderer.get_outputs(
+                orbit_c2w(30.0 + i, -10.0, 6.0, v.target), VIEWER_SIZE,
+                VIEWER_SIZE))
+            direct_ms.append(ms)
+            encode_ms.append(host_ms(lambda: png_bytes(img))[1])
+
+        # CONCURRENT poses' peaks one request at a time, then the same
+        # requests at once: the viewer renders under one lock, so the
+        # peak must be the largest single one (a pose's buffers follow
+        # its slot count). A round at once first: each server thread
+        # alive at once takes its own cuBLAS handle, whose 32 MiB
+        # workspace is allocated once and kept
+        def peak_of(yaws, workers):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+                pngs = list(pool.map(lambda yaw: http_get(
+                    base, f"/render?yaw={yaw}&pitch=-10&dist=6"), yaws))
+            torch.cuda.synchronize()
+            if not all(p[:8] == b"\x89PNG\r\n\x1a\n" for p in pngs):
+                fail(f"{tag}: a concurrent /render gave no PNG")
+            return torch.cuda.max_memory_allocated() / 2 ** 30
+
+        yaws = [50.0 + i for i in range(CONCURRENT)]
+        peak_of(yaws, CONCURRENT)
+        single = max(peak_of([y], 1) for y in yaws)
+        http_get(base, "/render?yaw=80&pitch=-10&dist=6")   # uncache
+        peaks = [single, peak_of(yaws, CONCURRENT)]
+        if peaks[1] > peaks[0] * 1.01:
+            fail(f"{tag}: {CONCURRENT} concurrent /render requests peaked "
+                 f"at {peaks[1]:.4f} GiB, the largest single one at "
+                 f"{peaks[0]:.4f}")
+        kw = dict(translate=(0.3, -0.2, 0.5), rotate_deg=(10.0, -25.0, 40.0),
+                  scale=1.2)
+        _, transform_ms = host_ms(lambda: http_get(
+            base, "/transform?tx=0.3&ty=-0.2&tz=0.5&rx=10&ry=-25&rz=40"
+            "&s=1.2"))
+        direct = transform_state(v._base_state, **kw)
+        for k in direct.params.fields():
+            if not torch.equal(getattr(v.renderer.state.params, k),
+                               getattr(direct.params, k)):
+                fail(f"{tag} /transform: {k} differs from transform_state "
+                     "applied directly")
+        means = v.renderer.state.params.means.cpu().numpy()
+        alive = v.renderer.state.alive.cpu().numpy()
+        lo = [float(f"{x:.4f}") for x in np.percentile(means, 30, axis=0)]
+        hi = [float(f"{x:.4f}") for x in np.percentile(means, 60, axis=0)]
+        inside = int((((means >= lo) & (means <= hi)).all(1) & alive).sum())
+        text, delete_ms = host_ms(lambda: http_get(
+            base, f"/edit/delete_box?min={','.join(map(str, lo))}"
+            f"&max={','.join(map(str, hi))}").decode())
+        if text != f"deleted {inside}" or inside == 0 \
+                or v.renderer.state.n_alive != n_rows - inside:
+            fail(f"{tag} /edit/delete_box said {text!r}; the host counts "
+                 f"{inside} alive means in the box")
+        text, measure_ms = host_ms(lambda: http_get(
+            base, "/measure?p1=0.4,0.5&p2=0.6,0.5&yaw=12&pitch=-10&dist=6"
+        ).decode())
+        if not (text.startswith("distance ")
+                and math.isfinite(float(text.split()[1]))):
+            fail(f"{tag} /measure said {text!r}")
+        http_get(base, "/path/add?yaw=0&pitch=-10&dist=6")
+        if http_get(base, "/path/add?yaw=40&pitch=-20&dist=7") \
+                != b"2 keyframes":
+            fail(f"{tag} /path/add kept no second keyframe")
+        path_file = os.path.join(tmp, tag.replace(" ", "_") + ".json")
+        http_get(base, f"/path/save?file={path_file}")
+        with open(path_file) as f:
+            if len(json.load(f)["keyframes"]) != 2:
+                fail(f"{tag} /path/save wrote no two keyframes")
+        torch.cuda.synchronize()
+        reset_launches()
+        gif, gif_ms = host_ms(lambda: http_get(base, "/path/render.gif"))
+        gif_launches = {k: c for k, c in read_launches().items() if c}
+        im = Image.open(io.BytesIO(gif))
+        if im.n_frames != GIF_FRAMES or im.size != (VIEWER_SIZE,
+                                                    VIEWER_SIZE):
+            fail(f"{tag} /path/render.gif: {im.n_frames} frames of "
+                 f"{im.size}")
+        for i in range(GIF_FRAMES):
+            im.seek(i)
+            im.convert("RGB").load()
+        if gif_launches != {k: GIF_FRAMES for k in kernels}:
+            fail(f"{tag} /path/render.gif launched {gif_launches}")
+        http_get(base, "/path/clear")
+        if v.camera_path.keyframes:
+            fail(f"{tag} /path/clear left keyframes")
+    finally:
+        v.stop()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{tag}: {n_rows} rows; /outputs {names}; every output's /render "
+        f"PNG at {VIEWER_SIZE}^2 (resting) and {VIEWER_SIZE // 2}^2 "
+        "(moving) equal to ViewerRenderer.get_outputs; launches per request "
+        f"{json.dumps(per_request)}")
+    log(f"{tag}: ms per rgb /render request at {VIEWER_SIZE}^2 (HTTP round "
+        f"trip incl. PNG encode) median "
+        f"{float(np.median(request_ms)):.2f} of "
+        f"{[round(x, 2) for x in request_ms]}; get_outputs alone median "
+        f"{float(np.median(direct_ms)):.2f} of "
+        f"{[round(x, 2) for x in direct_ms]}; PNG encode alone median "
+        f"{float(np.median(encode_ms)):.2f} ms; on {CARD}")
+    log(f"{tag}: peak of {CONCURRENT} poses' /render requests one at a time "
+        f"{peaks[0]:.4f} GiB (the largest), sent at once {peaks[1]:.4f} GiB "
+        "(renders take one lock)")
+    log(f"{tag}: /transform (rotation, scale, translation) {transform_ms:.2f}"
+        f" ms, equal to transform_state; /edit/delete_box {delete_ms:.2f} ms, "
+        f"deleted {inside} (the host's count); /measure {measure_ms:.2f} ms "
+        f"({text}); /path/render.gif {GIF_FRAMES} frames in "
+        f"{gif_ms / 1e3:.2f} s ({len(gif)} bytes, launches {gif_launches}); "
+        f"peak memory {peak:.3f} GiB")
+    return {"render_ms": float(np.median(request_ms)),
+            "get_outputs_ms": float(np.median(direct_ms)),
+            "transform_ms": transform_ms, "gif_s": gif_ms / 1e3,
+            "peak_gib": peak}
+
+
+class RecordedTrainingViewer(TrainingViewer):
+    """The fit's training viewer, kept where this script can find its
+    bound port."""
+    started = []
+
+    def start(self):
+        RecordedTrainingViewer.started.append(super().start())
+        return self
+
+
+def phase_training_viewer(tmp):
+    """Phase 15 (b): colmap.yaml on phase 8's scene with --viewer on port
+    0 while a client polls it, against the same fit without the viewer."""
+    log(f"== phase 15 (b): the in-training viewer, colmap.yaml for "
+        f"{VIEWER_FIT_STEPS} steps on phase 8's scene")
+    data, runs = os.path.join(tmp, "scene"), os.path.join(tmp, "runs")
+
+    def argv(name, viewer):
+        return ["fit", "--config", os.path.join(PRESETS, "colmap.yaml"),
+                "--data.path", data, "--output", runs, "-n", name,
+                "--max_steps", str(VIEWER_FIT_STEPS), *FIT_OVERRIDES,
+                "fit.log_interval=1", "fit.save_ply=false"] + (
+            ["--viewer", "--viewer_port", "0"] if viewer else [])
+
+    polls, frames, stop = [0], [], threading.Event()
+
+    def client():
+        """The page's client: /status every PAGE_POLL_S, /frame when the
+        frame id changes."""
+        while not RecordedTrainingViewer.started and not stop.is_set():
+            time.sleep(0.005)
+        if stop.is_set():
+            return
+        base = f"http://127.0.0.1:{RecordedTrainingViewer.started[0].port}"
+        shown = None
+        while not stop.is_set():
+            try:
+                st = json.loads(http_get(
+                    base, "/status?yaw=20&pitch=-10&dist=5", timeout=30))
+                polls[0] += 1
+                if st.get("frame") and st["frame"] != shown:
+                    frames.append(http_get(base, "/frame", timeout=30))
+                    shown = st["frame"]
+            except OSError:
+                return               # the fit ended and stopped its server
+            stop.wait(PAGE_POLL_S)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # both fits alike
+    saved = fit_module.TrainingViewer
+    fit_module.TrainingViewer = RecordedTrainingViewer
+    poller = threading.Thread(target=client, daemon=True)
+    try:
+        plain = run_cli(argv("no_viewer", False), GAUSSIAN_KERNELS)
+        poller.start()
+        viewed = run_cli(argv("viewer", True), GAUSSIAN_KERNELS)
+    finally:
+        stop.set()
+        poller.join(timeout=60)
+        fit_module.TrainingViewer = saved
+        torch.backends.cudnn.deterministic = deterministic
+    tv = RecordedTrainingViewer.started[0]
+    if tv._server is not None:
+        fail("the fit left its training viewer running")
+    if not frames or not all(f[:2] == b"\xff\xd8" for f in frames):
+        fail(f"the training viewer served {len(frames)} JPEG frames")
+    losses = [[r[1] for r in f["rows"]] for f in (plain, viewed)]
+    if losses[0] != losses[1] or len(losses[0]) != VIEWER_FIT_STEPS:
+        fail("the losses with the viewer differ from those without: "
+             f"{losses[1][:5]}... vs {losses[0][:5]}...")
+    ms = [[1e3 / float(r[3]) for r in f["rows"][10:]] for f in
+          (plain, viewed)]
+    log(f"training viewer: {VIEWER_FIT_STEPS} losses equal with and "
+        f"without the viewer; ms per step (steps 11-{VIEWER_FIT_STEPS}, "
+        f"median) {float(np.median(ms[1])):.2f} with the viewer vs "
+        f"{float(np.median(ms[0])):.2f} without; {tv.frames} frames "
+        f"rendered at {tv.image_size}^2 every {tv.pump_interval} steps, "
+        f"{len(frames)} fetched over {polls[0]} /status polls; launches "
+        f"{viewed['launches']} vs {plain['launches']}; on {CARD}")
+    return {"ms": float(np.median(ms[1])),
+            "plain_ms": float(np.median(ms[0])), "frames": len(frames)}
+
+
+def write_parser_captures(tmp, arrays):
+    """Phase 8's views (the same PNGs, linked) as an NSVF, an instant-ngp,
+    a MatrixCity (no depth files) and a SiLVR capture; every eighth view
+    is val where the format has a split."""
+    src = os.path.join(tmp, "scene", "images")
+    names = [f"view_{i:03d}.png" for i in range(FIT_VIEWS)]
+    gl = []
+    for c2w in fit_poses():
+        g = np.array(c2w, np.float64)
+        g[:3, 1:3] *= -1            # OpenCV -> OpenGL; the parsers flip back
+        gl.append(g)
+    roots = {k: os.path.join(tmp, "captures", k) for k in PARSER_CAPTURES}
+
+    def link(name, dst):
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        os.symlink(os.path.join(src, name), dst)
+
+    def dump(obj, path):
+        with open(path, "w") as f:
+            json.dump(obj, f)
+
+    intr = {"fl_x": FOCAL, "fl_y": FOCAL, "cx": W / 2, "cy": H / 2, "w": W,
+            "h": H}
+    r = roots["NSVF"]
+    os.makedirs(os.path.join(r, "pose"))
+    for i, name in enumerate(names):
+        stem = f"{int(i % 8 == 0)}_{i:03d}"
+        link(name, os.path.join(r, "rgb", stem + ".png"))
+        np.savetxt(os.path.join(r, "pose", stem + ".txt"), gl[i])
+    with open(os.path.join(r, "intrinsics.txt"), "w") as f:
+        f.write(f"{FOCAL} {W / 2} {H / 2} 0.\n")
+    np.savetxt(os.path.join(r, "bbox.txt"), [np.concatenate(
+        [arrays["means"].min(0), arrays["means"].max(0), [0.05]])])
+    frames = [{"file_path": f"images/{n}", "transform_matrix": gl[i].tolist()}
+              for i, n in enumerate(names)]
+    for key in ("NGP", "SILVR"):
+        for n in names:
+            link(n, os.path.join(roots[key], "images", n))
+    dump(dict(intr, frames=frames),
+         os.path.join(roots["NGP"], "transforms.json"))
+    dump({"frames": [dict(f, **intr) for f in frames]},
+         os.path.join(roots["SILVR"], "transforms.json"))
+    r = roots["MatrixCity"]
+    for n in names:
+        link(n, os.path.join(r, "rgb", n))
+    for split, keep in (("train", False), ("test", True)):
+        dump(dict(intr, frames=[
+            {"file_path": f"rgb/{n}", "transform_matrix": gl[i].tolist()}
+            for i, n in enumerate(names) if (i % 8 == 0) == keep]),
+            os.path.join(r, f"transforms_{split}.json"))
+    return roots
+
+
+def phase_parser_fits(tmp, arrays):
+    """Phase 15 (c): the four parsers fitted through the CLI."""
+    log(f"== phase 15 (c): NSVF, NGP, MatrixCity and SiLVR captures of "
+        f"phase 8's views, blender.yaml with each parser, "
+        f"{PARSER_FIT_STEPS} steps")
+    roots = write_parser_captures(tmp, arrays)
+    blender = os.path.join(PRESETS, "blender.yaml")
+    out = {}
+    for name in PARSER_CAPTURES:
+        extra = ["trainer.background_color=[0.0, 0.0, 0.0]"]
+        if name == "NGP":
+            extra.append("data.parser.init_args.scene_box=8.0")
+        overrides = [f"data.parser.class_path={name}",
+                     f"data.path={roots[name]}", *extra]
+        psnr0, _ = initial_psnr([blender], overrides, tmp, name)
+        f = run_cli(["fit", "--config", blender, "--data.path", roots[name],
+                     "--output", os.path.join(tmp, "runs"), "-n",
+                     f"parser_{name}", "--max_steps", str(PARSER_FIT_STEPS),
+                     f"data.parser.class_path={name}", "fit.log_interval=10",
+                     "fit.save_ply=false", *extra], GAUSSIAN_KERNELS)
+        psnr = f["results"]["psnr"]
+        if not psnr > psnr0:
+            fail(f"{name}: val PSNR {psnr:.3f} dB after {PARSER_FIT_STEPS} "
+                 f"steps is not above the initial cloud's {psnr0:.3f}")
+        rows = f["rows"]
+        ms = [1e3 / float(r[3]) for r in rows[1:]]
+        log(f"fit {name}: val PSNR {psnr0:.3f} -> {psnr:.3f} dB; ms per step "
+            f"(windows after the first) median {float(np.median(ms)):.2f} of "
+            f"{[round(x, 2) for x in ms]}; {int(rows[-1][2])} Gaussians; "
+            f"peak {f['peak_gib']} GiB; on {CARD}")
+        out[name] = {"psnr0": psnr0, "psnr": psnr,
+                     "ms": float(np.median(ms))}
+    return out
+
+
+def lpips_random_weights(path):
+    """A seeded AlexNet-LPIPS weight file of the exported layout."""
+    rng = np.random.RandomState(0)
+    convs = [(64, 3, 11), (192, 64, 5), (384, 192, 3), (256, 384, 3),
+             (256, 256, 3)]
+    z = {}
+    for fid, (o, i, k) in zip((0, 3, 6, 8, 10), convs):
+        z[f"features.{fid}.weight"] = (rng.randn(o, i, k, k)
+                                       * 0.05).astype(np.float32)
+        z[f"features.{fid}.bias"] = np.zeros(o, np.float32)
+    for li, c in enumerate((64, 192, 384, 256, 256)):
+        z[f"lin.{li}.weight"] = (np.abs(rng.randn(1, c, 1, 1))
+                                 * 0.1).astype(np.float32)
+    np.savez(path, **z)
+    return path
+
+
+def phase_lpips(tmp):
+    """Phase 15 (d): LPIPS on the card against the CPU, and validate's
+    column filled on phase 8's run."""
+    log("== phase 15 (d): LPIPS (seeded random weights: the values show "
+        "the path, not quality)")
+    path = lpips_random_weights(os.path.join(tmp, "lpips_alex.npz"))
+    gt = image_to_float(torch.from_numpy(np.array(Image.open(os.path.join(
+        tmp, "scene", "images", "view_000.png")))))
+    loaded, renderer, sh_degree = GaussianModelLoader.load(
+        os.path.join(tmp, "runs", "colmap"))
+    with torch.no_grad():
+        render = renderer.forward(loaded, camera(np.eye(4)), H, W,
+                                  torch.zeros(3, device="cuda"),
+                                  sh_degree).render.clamp(0, 1)
+    del loaded
+    w_card, w_cpu = lpips_module.load_weights(path, "cuda"), \
+        lpips_module.load_weights(path)
+    card = float(lpips_module.lpips(render, gt.cuda(), w_card))
+    cpu = float(lpips_module.lpips(render.cpu(), gt, w_cpu))
+    if not abs(card - cpu) <= LPIPS_RTOL * abs(cpu):
+        fail(f"LPIPS at {H}x{W}: card {card!r} vs CPU {cpu!r}")
+    ms = cuda_ms(lambda: lpips_module.lpips(render, gt.cuda(), w_card), 10)
+    os.environ["GSL_LPIPS_WEIGHTS"] = path
+    lpips_module.get_lpips_fn.cache_clear()
+    try:
+        val = run_cli(["validate", "--output", os.path.join(tmp, "runs"),
+                       "-n", "colmap"], SERVE_KERNELS)
+    finally:
+        del os.environ["GSL_LPIPS_WEIGHTS"]
+        lpips_module.get_lpips_fn.cache_clear()
+    with open(val["results"]["csv"]) as f:
+        rows = list(csv.reader(f))
+    if rows[0][3] != "lpips" or not all(
+            math.isfinite(float(r[3])) for r in rows[1:]):
+        fail(f"validate wrote no LPIPS column: {rows}")
+    log(f"LPIPS at {H}x{W} (random weights): card {card:.6f}, CPU "
+        f"{cpu:.6f} (rtol {LPIPS_RTOL}); {ms:.2f} ms on {CARD}; validate "
+        f"on phase 8's run: column {rows[0][3]!r}, MEAN "
+        f"{float(rows[-1][3]):.6f} over {len(rows) - 2} views")
+    return {"ms": ms, "card": card, "cpu": cpu}
+
+
+def phase_tools(tmp):
+    """Phase 15 (e): the PLY and checkpoint tools on phase 8's run."""
+    log("== phase 15 (e): ckpt2ply, gaussian_transform, fuse_mip_filter "
+        "and convert2splat on phase 8's colmap.yaml run")
+    run, data = os.path.join(tmp, "runs", "colmap"), os.path.join(tmp,
+                                                                 "scene")
+    loaded, _, _ = GaussianModelLoader.load(run)
+    n = loaded.n_alive
+    means = loaded.params.means.cpu().numpy()
+    del loaded
+    out = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for name, fn in (
+                ("ckpt2ply", lambda: ckpt2ply.main([run, "-o", os.path.join(
+                    tmp, "exported.ply")])),
+                ("gaussian_transform", lambda: gaussian_transform.main(
+                    [run, os.path.join(tmp, "transformed.ply"),
+                     "--rotate-euler", "10", "-20", "30", "--translate", "1",
+                     "0", "0", "--scale", "1.5"])),
+                ("fuse_mip_filter", lambda: fuse_mip_filter.main(
+                    [run, "--dataset_path", data, "-o",
+                     os.path.join(tmp, "fused.ply")])),
+                ("convert2splat", lambda: convert2splat.main(
+                    [run, os.path.join(tmp, "scene.splat")]))):
+            out[name] = host_ms(fn)[1] / 1e3
+    exported = load_gaussian_ply(os.path.join(tmp, "exported.ply"))
+    if not np.array_equal(exported["means"], means):
+        fail("ckpt2ply: the exported means differ from the loader's")
+    for name in ("transformed.ply", "fused.ply"):
+        got = load_gaussian_ply(os.path.join(tmp, name))
+        if got["means"].shape[0] != n or not all(
+                np.isfinite(v).all() for v in got.values()):
+            fail(f"{name}: {got['means'].shape[0]} rows, or a non-finite "
+                 "value")
+    splat = np.fromfile(os.path.join(tmp, "scene.splat"), np.uint8)
+    pos = splat.reshape(n, 32)[:, :12].copy().view(np.float32)
+    if splat.size != 32 * n or not np.array_equal(
+            np.sort(pos, axis=0), np.sort(means, axis=0)):
+        fail("convert2splat: the .splat does not hold the run's means")
+    log(f"tools on phase 8's run ({n} Gaussians): seconds "
+        f"{ {k: round(v, 3) for k, v in out.items()} }; each file read "
+        f"back by the port's readers; on {CARD}")
+    return out
+
+
+def phase_serve_and_edit(tmp, arrays):
+    """Phase 15: (a) the web viewer on the bench scene's PLY and on phase
+    8's gs2d.yaml run; (b) the in-training viewer; (c) the four parsers;
+    (d) LPIPS; (e) the tools."""
+    log("== phase 15 (a): the web viewer over HTTP at full width")
+    ply = os.path.join(tmp, "bench.ply")
+    save_gaussian_ply(ply, **arrays)
+    t0 = time.perf_counter()
+    rec = {"3dgs": serve_and_edit("viewer 3DGS", ply, SERVE_KERNELS, tmp)}
+    torch.cuda.empty_cache()
+    rec["2dgs"] = serve_and_edit("viewer 2DGS", os.path.join(
+        tmp, "runs", "gs2d"), SURFEL_SERVE_KERNELS, tmp)
+    torch.cuda.empty_cache()
+    rec["training_viewer"] = phase_training_viewer(tmp)
+    torch.cuda.empty_cache()
+    rec["parsers"] = phase_parser_fits(tmp, arrays)
+    torch.cuda.empty_cache()
+    rec["lpips"] = phase_lpips(tmp)
+    torch.cuda.empty_cache()
+    rec["tools"] = phase_tools(tmp)
+    log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
 def tensors_of(x):
     """The tensors and numbers of nested dicts, in key order."""
     if isinstance(x, dict):
@@ -4704,7 +5292,7 @@ def main():
         torch.cuda.empty_cache()
         plain_step_ms = float(np.median(training["step_ms"][5:TRAIN_STEPS]))
         with torch.no_grad():
-            wide = phase_wide_kernels(arrays)
+            wide = phase_wide_kernels(arrays, trec, srec)
         torch.cuda.empty_cache()
         phase_spotless_training(arrays, plain_step_ms)
         torch.cuda.empty_cache()
@@ -4713,6 +5301,8 @@ def main():
         phase_distill(arrays)
         torch.cuda.empty_cache()
         phase_distill_entry_points(tmp)
+        torch.cuda.empty_cache()
+        phase_serve_and_edit(tmp, arrays)
     # StopThePop beside plain 3DGS, phases 7 and 4/5 of this run
     log("StopThePop over plain 3DGS, this run: bench-pose rgb frame ms "
         f"{[round(x, 2) for x in stp_serving['rgb_frame_ms']]} vs "

@@ -42,9 +42,13 @@ from .data.dataparsers.colmap import ColmapDataParserConfig
 from .data.dataparsers.estimated_depth_colmap import \
     EstimatedDepthColmapDataParserConfig
 from .data.dataparsers.feature_3dgs import Feature3DGSColmapDataParserConfig
+from .data.dataparsers.matrix_city import MatrixCityDataParserConfig
 from .data.dataparsers.nerfies import NerfiesDataParserConfig
+from .data.dataparsers.ngp import NGPDataParserConfig
+from .data.dataparsers.nsvf import NSVFDataParserConfig
 from .data.dataparsers.phototourism import PhotoTourismDataParserConfig
 from .data.dataparsers.segany_colmap import SegAnyColmapDataParserConfig
+from .data.dataparsers.silvr import SILVRDataParserConfig
 from .data.dataparsers.spotless_colmap import SpotLessColmapDataParserConfig
 from .models.appearance import AppearanceFeatureGaussianConfig
 from .models.deform import DeformModelConfig
@@ -116,6 +120,10 @@ _REGISTRY = {
     "PhotoTourism": PhotoTourismDataParserConfig,
     "Blender": BlenderDataParserConfig,
     "Nerfies": NerfiesDataParserConfig,
+    "NSVF": NSVFDataParserConfig,
+    "NGP": NGPDataParserConfig,
+    "MatrixCity": MatrixCityDataParserConfig,
+    "SILVR": SILVRDataParserConfig,
     "SpotLessColmap": SpotLessColmapDataParserConfig,
     # the second stages' parsers (gsl_tpu_torch.seganygs and
     # gsl_tpu_torch.feature3dgs build them themselves)
@@ -127,9 +135,8 @@ _REGISTRY = {
 _PROCESSORS = {"bilagrid": BilateralGridConfig, "exposure": ExposureConfig}
 
 # components of gsl_tpu's registry that the port has not yet -> ROADMAP
-# item
-_UNPORTED_COMPONENTS = {"NSVF": 12, "MatrixCity": 12, "NGP": 12,
-                        "SILVR": 12}
+# item (every one is ported)
+_UNPORTED_COMPONENTS = {}
 
 # fields of gsl_tpu's configs that exist for the TPU's static shapes, its
 # matrix unit or its sort; the port has no knob for them
@@ -137,9 +144,6 @@ TPU_ONLY_FIELDS = ("backend", "chunk", "pallas_chunk", "max_per_tile",
                    "min_isect_capacity", "isect_capacity_factor",
                    "fast_math", "exact_sort", "matmul_precision",
                    "size_bucket")
-
-# fields of gsl_tpu's FitConfig for features not ported yet -> ROADMAP item
-_UNPORTED_FIT_FIELDS = {"viewer": 14, "viewer_port": 14}
 
 # top-level / model keys gsl_tpu's build_components reads for variants
 _UNPORTED_KEYS = {"distributed": 13}
@@ -184,8 +188,6 @@ def _build(cfg_cls, spec: Any):
     field_names = {f.name for f in dataclasses.fields(cfg_cls)}
     for k, v in (spec or {}).items():
         if k not in field_names:
-            if cfg_cls is FitConfig and k in _UNPORTED_FIT_FIELDS:
-                raise _not_ported(f"fit.{k}", _UNPORTED_FIT_FIELDS[k])
             if k in TPU_ONLY_FIELDS:
                 print(f"[cli] ignoring the TPU-only field {k}={v!r} of "
                       f"{cfg_cls.__name__}")
@@ -359,7 +361,8 @@ def main(argv=None):
     ap.add_argument("--output", default="outputs")
     ap.add_argument("--max_steps", type=int, default=None)
     ap.add_argument("--viewer", action="store_true",
-                    help="the in-training web viewer (not ported yet)")
+                    help="serve the in-training web viewer")
+    ap.add_argument("--viewer_port", type=int, default=8080)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch "
@@ -368,8 +371,6 @@ def main(argv=None):
     # key=value overrides may come before, between or after the options
     args = ap.parse_intermixed_args(argv)
     device = resolve_device(args.device)
-    if args.viewer:
-        raise _not_ported("--viewer", 14)
 
     overrides = parse_overrides(args.set)
     config_paths = list(args.config)
@@ -387,6 +388,9 @@ def main(argv=None):
         cfg.setdefault("trainer", {})["max_steps"] = args.max_steps
     cfg.setdefault("fit", {}).setdefault(
         "output_dir", os.path.join(args.output, args.name))
+    if args.viewer:
+        cfg["fit"]["viewer"] = True
+        cfg["fit"]["viewer_port"] = args.viewer_port
     cfg["fit"]["seed"] = args.seed
 
     trainer, dataparser_cfg, fit_cfg = build_components(cfg)

@@ -29,6 +29,31 @@ def sh0_to_rgb(sh0: torch.Tensor) -> torch.Tensor:
     return sh0 * C0 + 0.5
 
 
+def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
+    """Real SH basis values [..., (degree+1)^2] for unit directions
+    [..., 3], in the order of the coefficients, in the dtype of `dirs`."""
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    out = [torch.full_like(x, C0)]
+    if degree >= 1:
+        out += [-C1 * y, C1 * z, -C1 * x]
+    if degree >= 2:
+        xx, yy, zz = x * x, y * y, z * z
+        xy, yz, xz = x * y, y * z, x * z
+        out += [C2[0] * xy, C2[1] * yz, C2[2] * (2.0 * zz - xx - yy),
+                C2[3] * xz, C2[4] * (xx - yy)]
+    if degree >= 3:
+        out += [
+            C3[0] * y * (3.0 * xx - yy),
+            C3[1] * xy * z,
+            C3[2] * y * (4.0 * zz - xx - yy),
+            C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy),
+            C3[4] * x * (4.0 * zz - xx - yy),
+            C3[5] * z * (xx - yy),
+            C3[6] * x * (xx - 3.0 * yy),
+        ]
+    return torch.stack(out, dim=-1)
+
+
 def sh_to_rgb(shs: torch.Tensor, dirs: torch.Tensor, degree: int,
               normalize_dirs: bool = True) -> torch.Tensor:
     """Evaluate SH color. shs [..., K, 3] with K >= (degree+1)^2,

@@ -14,8 +14,16 @@ Port of ``gsl_tpu/training/fit.py``:
 - resume from the newest checkpoint (``resume: auto``), bit-exact on the
   CPU: the checkpoint holds the generator that draws the densify noise, and
   the loader fast-forwards its index stream,
-- validation with per-image PSNR and exact float32 SSIM, written to
-  ``metrics/<split>.csv`` with a MEAN row.
+- validation with per-image PSNR, exact float32 SSIM and LPIPS (when its
+  weights are found, ``ops/lpips.py``), written to
+  ``metrics/<split>.csv`` with a MEAN row,
+- with ``viewer``, the in-training web viewer: between the pre-density
+  hooks and the density hook of every `pump_interval`-th step the loop
+  renders the page's pending camera with the current parameters, under
+  ``no_grad`` and without drawing from the fit's generator, so the fit's
+  losses are those of the same fit without it. A failed viewer render
+  fails the fit (the JAX package catches and prints a failed warm-up
+  render).
 
 The JAX package's loop also grows a tile-intersection slot capacity and
 pads images to a size bucket, both for the TPU's static shapes; the port
@@ -37,12 +45,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..data.cameras import make_camera
 from ..data.dataparsers.dataparser import DataParserOutputs, camera_centers
 from ..data.dataset import (CachedDataset, DataLoader, add_background_sphere,
                             image_to_float)
 from ..models.gaussian import GaussianState, grow_capacity
 from ..models.gaussian_2d import Gaussian2DConfig
 from ..models.mip_splatting import MipSplattingConfig, compute_3d_filter
+from ..ops.lpips import get_lpips_fn
 from ..ops.sh import num_sh_bases
 from ..ops.ssim import ssim as ssim_fn
 from ..utils.checkpoint import (find_latest_checkpoint, load_checkpoint,
@@ -50,6 +60,8 @@ from ..utils.checkpoint import (find_latest_checkpoint, load_checkpoint,
 from ..utils.device import resolve_device
 from ..utils.gaussian_model_loader import GaussianModelLoader
 from ..utils.ply import save_state_ply
+from ..viewer.camera_path import orbit_c2w
+from ..viewer.training_viewer import TrainingViewer
 from .hooks import FitContext, build_hooks
 from .loggers import make_logger
 from .trainer import Trainer, TrainState
@@ -59,9 +71,7 @@ from .trainer import Trainer, TrainState
 class FitConfig:
     """The JAX package's FitConfig without its TPU-only fields
     (``min_isect_capacity``, ``matmul_precision``: the port computes in
-    float32 always; ``size_bucket``: no padding). ``viewer`` /
-    ``viewer_port`` (ROADMAP item 14) are not ported; the CLI raises for
-    them."""
+    float32 always; ``size_bucket``: no padding)."""
 
     max_steps: int = 30_000
     save_iterations: Sequence[int] = (7_000, 30_000)
@@ -95,6 +105,10 @@ class FitConfig:
     lg_prune_percent: float = 0.6
     lg_prune_decay: float = 0.6
     lg_n_cameras: int = 8
+    viewer: bool = False
+    """serve the in-training web viewer (``viewer/training_viewer.py``);
+    the loop pumps its render requests"""
+    viewer_port: int = 8080
 
 
 def _round_capacity(n: int) -> int:
@@ -158,6 +172,31 @@ def setup_state(trainer: Trainer, outputs: DataParserOutputs,
         state = trainer.init_output_processor(state,
                                               len(outputs.train_set))
     return state
+
+
+def _make_viewer(trainer: Trainer, outputs: DataParserOutputs,
+                 cfg: FitConfig, bg: torch.Tensor, dev: torch.device):
+    """The started in-training viewer and its render closure: an orbit
+    around the mean train camera centre, 60° field of view."""
+    viewer = TrainingViewer(port=cfg.viewer_port).start()
+    target = camera_centers(outputs.train_set.cameras).mean(0)
+
+    def render_fn(state: TrainState, sh_degree: int):
+        @torch.no_grad()
+        def render(yaw, pitch, dist):
+            S = viewer.image_size
+            w2c = np.linalg.inv(orbit_c2w(yaw, pitch, dist, target))
+            f = 0.5 * S / np.tan(np.deg2rad(30.0))
+            cam = make_camera(R=w2c[:3, :3], T=w2c[:3, 3], fx=f, fy=f,
+                              cx=S / 2, cy=S / 2, width=S, height=S,
+                              device=dev)
+            out = trainer.renderer.forward(state.gaussians, cam, S, S, bg,
+                                           sh_degree)
+            return (torch.clamp(out.render, 0.0, 1.0) * 255).to(
+                torch.uint8).cpu().numpy()
+        return render
+
+    return viewer, render_fn
 
 
 def _sync(dev: torch.device):
@@ -230,11 +269,18 @@ def fit(trainer: Trainer, outputs: DataParserOutputs, cfg: FitConfig,
     logger = csv.writer(log_f)
     if start_step == 1:
         logger.writerow(["step", "loss", "n_gaussians", "steps_per_s"])
+    training_viewer = None
     cameras = {}              # per image name, on the device
     loader_wait, densify_ms, densify_counts = 0.0, [], []
-    t_start = t_last = time.perf_counter()
 
     try:
+        if cfg.viewer:
+            training_viewer, tv_render_fn = _make_viewer(
+                trainer, outputs, cfg, bg, dev)
+            # a first render, so a viewer that cannot render fails here
+            tv_render_fn(state, trainer.sh_degree_at(start_step))(
+                0.0, -15.0, 6.0)
+        t_start = t_last = time.perf_counter()
         for step in range(start_step, cfg.max_steps + 1):
             t0 = time.perf_counter()
             cam, name, img_u8, img_mask = next(loader)
@@ -252,6 +298,13 @@ def fit(trainer: Trainer, outputs: DataParserOutputs, cfg: FitConfig,
                 state = plugin.after_step(state, step)
             for hook in pre_density:
                 state = hook.periodic(state, generator, step)
+            if training_viewer is not None \
+                    and step % training_viewer.pump_interval == 0:
+                # reading the scalars syncs the device: pump steps only
+                training_viewer.pump(
+                    step, tv_render_fn(state, sh_degree),
+                    {"loss": float(scalars["loss"]),
+                     "n_gaussians": state.gaussians.n_alive})
             timed = density_hook.densifies_at(step)
             if timed:
                 counts = {"step": step, "before": state.gaussians.n_alive,
@@ -286,6 +339,8 @@ def fit(trainer: Trainer, outputs: DataParserOutputs, cfg: FitConfig,
     finally:
         loader.close()
         log_f.close()
+        if training_viewer is not None:
+            training_viewer.stop()
     _sync(dev)
     timing = {"start_step": start_step, "end_step": cfg.max_steps,
               "wall_s": time.perf_counter() - t_start,
@@ -316,14 +371,14 @@ def validate(trainer: Trainer, state: TrainState,
              outputs: DataParserOutputs, cfg: FitConfig,
              split: str = "val", save_images: bool = False,
              exp_logger=None):
-    """Per-image PSNR / SSIM and ``metrics/<split>.csv`` with a MEAN row,
-    on the state's device. With `save_images`, GT|render PNGs go to
-    ``<output_dir>/<split>/``; with an `exp_logger`, the first
+    """Per-image PSNR / SSIM / LPIPS and ``metrics/<split>.csv`` with a
+    MEAN row, on the state's device. With `save_images`, GT|render PNGs go
+    to ``<output_dir>/<split>/``; with an `exp_logger`, the first
     `cfg.log_val_images` of them are logged. The renders are the
     trainer's `eval_step`: SH colours, without an appearance network or an
-    output processor, as gsl_tpu validates. LPIPS is not ported (ROADMAP
-    item 14): its column is written empty, as the JAX package writes it
-    when its weights are missing."""
+    output processor, as gsl_tpu validates. Without LPIPS weights
+    (``ops/lpips.py``) the column is headed ``lpips(unavailable)`` and left
+    empty, and the returned lpips is NaN, as in the JAX package."""
     image_set = outputs.val_set if split == "val" else outputs.test_set
     dev = state.alive.device
     background = np.asarray(trainer.config.background_color, np.float32)
@@ -335,8 +390,10 @@ def validate(trainer: Trainer, state: TrainState,
     img_dir = os.path.join(cfg.output_dir, split)
     if save_images:
         os.makedirs(img_dir, exist_ok=True)
-    print("[validate] lpips is not ported (ROADMAP item 14); "
-          "lpips column will be empty")
+    lpips_fn = get_lpips_fn()
+    if lpips_fn is None:
+        print("[validate] lpips unavailable (no exported weights); "
+              "lpips column will be empty")
     for i in range(len(dataset)):
         cam, name, img_u8, img_mask = dataset.get(i)
         img = image_to_float(img_u8.to(dev))
@@ -355,7 +412,8 @@ def validate(trainer: Trainer, state: TrainState,
         else:
             psnr = float(m["psnr"])
         s = float(ssim_fn(gt.permute(2, 0, 1), render.permute(2, 0, 1)))
-        rows.append([name, psnr, s])
+        lp = float(lpips_fn(render, gt)) if lpips_fn is not None else ""
+        rows.append([name, psnr, s, lp])
         log_this = exp_logger is not None and i < cfg.log_val_images
         if save_images or log_this:
             side = torch.cat([img, render], dim=1).cpu().numpy()
@@ -372,10 +430,15 @@ def validate(trainer: Trainer, state: TrainState,
     csv_path = os.path.join(metrics_dir, f"{split}.csv")
     mean_psnr = float(np.mean([r[1] for r in rows]))
     mean_ssim = float(np.mean([r[2] for r in rows]))
+    have_lpips = lpips_fn is not None
+    mean_lpips = (float(np.mean([r[3] for r in rows])) if have_lpips
+                  else float("nan"))
     with open(csv_path, "w", newline="") as f:
         wr = csv.writer(f)
-        wr.writerow(["name", "psnr", "ssim", "lpips(unavailable)"])
-        wr.writerows([r + [""] for r in rows])
-        wr.writerow(["MEAN", mean_psnr, mean_ssim, ""])
-    return {"psnr": mean_psnr, "ssim": mean_ssim, "lpips": float("nan"),
+        wr.writerow(["name", "psnr", "ssim",
+                     "lpips" if have_lpips else "lpips(unavailable)"])
+        wr.writerows(rows)
+        wr.writerow(["MEAN", mean_psnr, mean_ssim,
+                     mean_lpips if have_lpips else ""])
+    return {"psnr": mean_psnr, "ssim": mean_ssim, "lpips": mean_lpips,
             "csv": csv_path}

@@ -8,15 +8,20 @@ checkpoint of the JAX package (an orbax tree) cannot be read here, and
 loading it raises: pass that run's PLY path instead.
 
 Rows are not padded to a capacity: a PLY gives every row alive, and a
-checkpoint gives its alive rows only. A checkpoint whose scales have two
-columns is a surfel (2DGS) state and comes with a ``SurfelRenderer``.
+checkpoint gives its alive rows only, with the optional properties it
+holds (appearance features, metalness, PVG's temporal fields), as the
+JAX package's loader keeps every property of a checkpoint. The renderer
+is a plain one whatever the run trained, as the JAX package's. A state
+whose scales have two columns is a surfel (2DGS) state and comes with a
+``SurfelRenderer``.
 """
 from __future__ import annotations
 
 import os
 from typing import Tuple, Union
 
-from ..models.gaussian import PARAM_FIELDS, GaussianParams, GaussianState
+from ..models.gaussian import (OPTIONAL_FIELDS, PARAM_FIELDS, GaussianParams,
+                               GaussianState)
 from ..renderers.surfel_renderer import SurfelRenderer, SurfelRendererConfig
 from ..renderers.tile_renderer import TileRenderer, TileRendererConfig
 from .checkpoint import find_latest_checkpoint, read_state_dict
@@ -44,9 +49,11 @@ def _newest_ply(path: str):
 def _state_from_checkpoint(path: str, device) -> GaussianState:
     raw = read_state_dict(path, resolve_device(device))
     alive = raw["alive"]
+    names = PARAM_FIELDS + tuple(k for k in OPTIONAL_FIELDS
+                                 if raw["params"].get(k) is not None)
     return GaussianState(
         params=GaussianParams(**{k: raw["params"][k][alive].contiguous()
-                                 for k in PARAM_FIELDS}),
+                                 for k in names}),
         alive=alive[alive])
 
 

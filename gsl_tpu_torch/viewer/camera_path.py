@@ -3,6 +3,7 @@
 ``gsl_tpu/viewer/panels.py`` (``CameraPath``) that rendering uses."""
 from __future__ import annotations
 
+import io
 from typing import List, Tuple
 
 import numpy as np
@@ -28,10 +29,17 @@ def orbit_c2w(yaw_deg: float, pitch_deg: float, dist: float,
 
 
 class CameraPath:
-    """Keyframed orbit path -> interpolated (yaw, pitch, dist) poses."""
+    """Keyframed orbit path -> interpolated (yaw, pitch, dist) poses -> an
+    animated GIF."""
 
     def __init__(self):
         self.keyframes: List[Tuple[float, float, float]] = []
+
+    def add(self, yaw: float, pitch: float, dist: float):
+        self.keyframes.append((float(yaw), float(pitch), float(dist)))
+
+    def clear(self):
+        self.keyframes = []
 
     def interpolate(self, n_frames: int):
         if len(self.keyframes) < 2:
@@ -41,3 +49,16 @@ class CameraPath:
         i0 = np.clip(t.astype(int), 0, len(kf) - 2)
         frac = (t - i0)[:, None]
         return [tuple(v) for v in kf[i0] * (1 - frac) + kf[i0 + 1] * frac]
+
+    def render_gif(self, render_fn, n_frames: int = 60,
+                   duration_ms: int = 50) -> bytes:
+        """render_fn(yaw, pitch, dist) -> uint8 HWC image."""
+        from PIL import Image
+
+        frames = [Image.fromarray(render_fn(*pose))
+                  for pose in self.interpolate(n_frames)]
+        buf = io.BytesIO()
+        frames[0].save(buf, "GIF", save_all=True,
+                       append_images=frames[1:], duration=duration_ms,
+                       loop=0)
+        return buf.getvalue()

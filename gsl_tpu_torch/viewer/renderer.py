@@ -11,6 +11,7 @@ import torch
 
 from ..data.cameras import make_camera
 from ..models.gaussian import GaussianState
+from ..renderers.surfel_renderer import SurfelRenderer
 from ..utils.visualizers import visualize_output
 
 
@@ -24,6 +25,10 @@ class ViewerRenderer:
             state.device)
         self.output_type = "rgb"
 
+    def available_output_types(self):
+        """The names of the renderer's outputs, in its order."""
+        return list(self.renderer.get_available_outputs().keys())
+
     def _camera(self, c2w, width, height, fov_y):
         w2c = np.linalg.inv(np.asarray(c2w, np.float64))
         f = 0.5 * height / np.tan(0.5 * np.deg2rad(fov_y))
@@ -34,12 +39,15 @@ class ViewerRenderer:
     @torch.no_grad()
     def get_depth(self, c2w: np.ndarray, width: int, height: int,
                   fov_y: float = 60.0) -> np.ndarray:
-        """Expected-depth map [H, W]."""
+        """Expected-depth map [H, W]; a surfel renderer's surface depth
+        (the JAX package serves no surfel model)."""
         out = self.renderer.forward(
             self.state, self._camera(c2w, width, height, fov_y), height,
             width, self.bg, self.sh_degree,
             render_types=frozenset({"rgb", "exp_depth"}))
-        return out.exp_depth.cpu().numpy()
+        depth = (out.surf_depth if isinstance(self.renderer, SurfelRenderer)
+                 else out.exp_depth)
+        return depth.cpu().numpy()
 
     @torch.no_grad()
     def get_outputs(self, c2w: np.ndarray, width: int, height: int,

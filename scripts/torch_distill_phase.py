@@ -6,8 +6,10 @@ entry points on a colmap.yaml run) on one CUDA card.
 
     python3 scripts/torch_distill_phase.py
 
-The plain 3DGS step that phase 14 (b) prints beside its steps is phase
-5's, which this script does not run: it prints 25.0 ms in its place
+K3s's and K7's bounds at their wide C come from phase 3's counts at the
+bench pose, so this script runs phase 3's StopThePop and surfel kernel
+checks first. The plain 3DGS step that phase 14 (b) prints beside its
+steps is phase 5's, which this script does not run: it prints 25.0 ms in its place
 (phase 5's median at capacity 1M on an NVIDIA H100 80GB HBM3 at 700 W,
 PERF.md). Phase 14 (b) and (c) need phase 8's scene and colmap.yaml run,
 which this script makes first with phase 8 itself.
@@ -42,7 +44,14 @@ def main():
     CS.cuda_build.build(CS.UNCONTRACTED, CS.cuda_build.NO_CONTRACTION)
     arrays = CS.scene_arrays(CS.N_GAUSSIANS)
     with torch.no_grad():
-        CS.phase_wide_kernels(arrays)
+        trec = CS.phase_stp_kernels(
+            CS.state_from_raw_arrays(arrays, device="cuda"),
+            CS.TileRendererConfig().instantiate())
+        torch.cuda.empty_cache()
+        srec = CS.phase_surfel_kernels(CS.state_from_raw_arrays(
+            CS.surfel_arrays(arrays), device="cuda"))
+        torch.cuda.empty_cache()
+        CS.phase_wide_kernels(arrays, trec, srec)
     torch.cuda.empty_cache()
     CS.phase_spotless_training(arrays, PLAIN_STEP_MS)
     torch.cuda.empty_cache()

@@ -64,8 +64,8 @@ def _assert_common_fields_equal(got, want, path):
     gf = {f.name for f in dataclasses.fields(got)}
     wf = {f.name for f in dataclasses.fields(want)}
     assert gf <= wf, f"{path}: fields the JAX config lacks {gf - wf}"
-    assert wf - gf <= set(cli.TPU_ONLY_FIELDS) | set(
-        cli._UNPORTED_FIT_FIELDS), f"{path}: unported fields {wf - gf}"
+    assert wf - gf <= set(cli.TPU_ONLY_FIELDS), \
+        f"{path}: unported fields {wf - gf}"
     for name in sorted(gf):
         g, w = getattr(got, name), getattr(want, name)
         if dataclasses.is_dataclass(g):
@@ -110,16 +110,10 @@ def test_unknown_field_raises():
         cli.build_components({"model": {"renderer": {"class_path": "Nope"}}})
 
 
-# Every preset but distributed.yaml is ported; with a component still to
-# come (a parser of item 12c, the viewer of item 14) a ported preset
-# raises for that component
+# Every preset but distributed.yaml is ported, and it raises naming its
+# item
 @pytest.mark.parametrize("preset,overrides,item", [
-    ("deformable.yaml", {"data": {"parser": {"class_path": "NSVF"}}}, 12),
-    ("gs4d.yaml", {"data": {"parser": {"class_path": "MatrixCity"}}}, 12),
-    ("distributed.yaml", {}, 13),
-    ("pvg.yaml", {"data": {"parser": {"class_path": "NGP"}}}, 12),
-    ("spotless.yaml", {"data": {"parser": {"class_path": "SILVR"}}}, 12),
-    ("segany.yaml", {"fit": {"viewer": True}}, 14)])
+    ("distributed.yaml", {}, 13)])
 def test_unported_presets_raise_naming_their_item(preset, overrides, item):
     cfg = cli.load_config([os.path.join(REPO, "gsl_tpu", "configs", preset)],
                           overrides)
@@ -128,9 +122,48 @@ def test_unported_presets_raise_naming_their_item(preset, overrides, item):
         cli.build_components(cfg)
 
 
-def test_viewer_flag_raises():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["fit", "--viewer", "--device", "cpu"])
+# The components that raised naming their item until they were ported (the
+# parsers of item 12c, the viewer of item 14d) now build in ported presets
+@pytest.mark.parametrize("preset,overrides,want", [
+    ("deformable.yaml", {"data": {"parser": {"class_path": "NSVF"}}},
+     "NSVFDataParserConfig"),
+    ("gs4d.yaml", {"data": {"parser": {"class_path": "MatrixCity"}}},
+     "MatrixCityDataParserConfig"),
+    ("pvg.yaml", {"data": {"parser": {"class_path": "NGP"}}},
+     "NGPDataParserConfig"),
+    ("spotless.yaml", {"data": {"parser": {"class_path": "SILVR"}}},
+     "SILVRDataParserConfig"),
+    ("segany.yaml", {"fit": {"viewer": True}}, "viewer")])
+def test_formerly_unported_components_build(preset, overrides, want):
+    cfg = cli.load_config([os.path.join(REPO, "gsl_tpu", "configs", preset)],
+                          overrides)
+    _, dp_cfg, fit_cfg = cli.build_components(cfg)
+    if want == "viewer":
+        assert fit_cfg.viewer is True and fit_cfg.viewer_port == 8080
+    else:
+        assert type(dp_cfg).__name__ == want
+        assert type(dp_cfg).__module__.startswith("gsl_tpu_torch.")
+        jcfg = jcli.build_components(jcli.load_config(
+            [os.path.join(REPO, "gsl_tpu", "configs", preset)],
+            overrides))[1]
+        _assert_common_fields_equal(dp_cfg, jcfg, "dataparser")
+
+
+def test_viewer_flag_reaches_fit_config(tmp_path, monkeypatch):
+    _make_dataset(str(tmp_path / "scene"), n_views=2)
+    seen = {}
+
+    def no_fit(trainer, outputs, fit_cfg, device=None):
+        seen["fit"] = fit_cfg
+        return None, None
+
+    monkeypatch.setattr(cli, "fit", no_fit)
+    cli.main(["fit", "--config", os.path.join(REPO, "gsl_tpu_torch",
+                                              "configs", "blender.yaml"),
+              "--data.path", str(tmp_path / "scene"), "--output",
+              str(tmp_path / "out"), "--viewer", "--viewer_port", "0",
+              "--device", "cpu"])
+    assert seen["fit"].viewer is True and seen["fit"].viewer_port == 0
 
 
 # ---- checkpoints ---------------------------------------------------------
