@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch port's render and training paths (3DGS, 2DGS,
 StopThePop, Mip-Splatting, MCMC, the depth, normal and ground
 regularisers, the appearance slice, the density variants, Glossy and the
-dynamic scenes), of its fit through the CLI, of 2DGS mesh extraction and
-of serving and editing a trained scene (the web and in-training viewers,
-the parsers, LPIPS and the tools) on one CUDA card.
+dynamic scenes), of its fit through the CLI, of 2DGS mesh extraction, of
+serving and editing a trained scene (the web and in-training viewers,
+the parsers, LPIPS and the tools) and of a city by partitions (the
+partition tools and the level-of-detail renderer) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -137,19 +138,19 @@ package is not beside this script. Phases, each fatal on failure:
    gsl_tpu_torch.cli.main(["fit", "--config",
    "gsl_tpu_torch/configs/colmap.yaml", ...]) for 300 steps with
    densify_from_iter=100 and densification_interval=100 (every other
-   field at the preset's value), and again to 600 steps, which must resume
+   field at the preset's value), and again to 400 steps, which must resume
    at 301; then "validate", and GaussianModelLoader.load on the run, which
-   must pick the step-600 checkpoint and render a frame; then 100-step fits
+   must pick the step-400 checkpoint and render a frame; then 100-step fits
    of gs2d.yaml and stp.yaml on the same data. Each command runs with the
    launch counters zeroed just before: the fits must launch every kernel
    of their path (K1-K4; K5-K7 and K4; K1, K2s, K3s and K4) and no other.
-   Fatal on a non-finite loss, a val PSNR at step 600 not above the
+   Fatal on a non-finite loss, a val PSNR at step 400 not above the
    initial cloud's, or a missing checkpoint, PLY or CSV. Prints ms per
    step in each log window (and the median over the windows after each
    run's first), the share of wall time spent waiting on next(loader), ms
    per densify and the rows it cloned, split and pruned, the Gaussian count
    per window, peak memory, the val PSNR
-   of the initial cloud and at steps 300 and 600, and each fit's launches.
+   of the initial cloud and at steps 300 and 400, and each fit's launches.
 9. Mip-Splatting and MCMC through K1-K4. (a) At full width, on the bench
    scene: compute_3d_filter over phase 8's 24 cameras (timed); 5 rgb
    frames through ViewerRenderer over MipSplattingRenderer (K1 and K2
@@ -350,7 +351,7 @@ package is not beside this script. Phases, each fatal on failure:
    must stop its server, and every logged loss must be equal. Prints ms
    per step with and without the viewer and the frames served. (c) Phase
    8's 24 views written as an NSVF, an instant-ngp (scene box 8), a
-   MatrixCity (no depth files) and a SiLVR capture, each fitted 100 steps
+   MatrixCity (no depth files) and a SiLVR capture, each fitted 50 steps
    through the CLI with blender.yaml and the parser's class_path: finite
    losses, K1-K4 only, val PSNR above the initial cloud's; prints ms per
    step and val PSNR. (d) LPIPS with a seeded random-weights file (the
@@ -361,6 +362,39 @@ package is not beside this script. Phases, each fatal on failure:
    phase 8's colmap.yaml run on the card, each file read back by the
    port's readers (the exported means equal to the loader's, the .splat
    holding the run's means); prints seconds per tool.
+
+16. the city-scale slice, on the existing kernels. (a) Four copies of the
+   bench scene (4M rows, SH degree 3) 8 apart on a 2 x 2 grid in x and z,
+   partitions.npz from build_partitions over 3 x 3 synthesised camera
+   centres a copy (one copy a cell), each copy's PLY a partition's finest
+   level, prune_partitions --mode opacity --percent 0.6 writing lod1;
+   PartitionLoDRenderer(names [".", "lod1"], lod_distances [1.0],
+   visibility_filter) over a 40-frame fly-over at 1088x1920 whose
+   selection must change at least 3 times and reach all 4M rows; every
+   frame finite with alpha, one K1 and one K2 a frame and no other
+   kernel; then merge_partitions of the 4M, which must keep every row.
+   Prints ms per frame with the selection unchanged, ms per re-assembly,
+   rows per selection, peak memory, the merge's seconds. (b) The same
+   copies as a COLMAP city: 12 views a copy on a ring around it at
+   1088x1920, 100,000 of each copy's means as SfM points, and a copy of
+   the model with two strays registered far off, of which
+   sfm_outlier_detection must flag exactly the two; the native
+   points3D.bin reader against the plain one (equal arrays, seconds);
+   train_partitions --n-partitions 4 --max-steps 100 with colmap.yaml and
+   fit.capacity_multiplier 1.0, one `cli fit` process a partition on the
+   card, each of which must end TRAINED having launched K1-K4 and no other
+   kernel (its fit_timing.json); prune_partitions --mode blend (K1-K4);
+   finetune_partition of partition 0 from lod1 for 50 steps (K1-K4);
+   merge_partitions; eval_scenes over the four runs (K1 + K2);
+   meganerf2colmap of a Mega-NeRF layout of the same cameras, whose poses
+   must come back within 1e-9; val_partition_lod --names . lod1
+   --lod-distances 1 --visibility-filter on the val split (one K1 and one
+   K2 a frame), whose mean PSNR must be above that of the initial clouds
+   through the same renderer, and whose frames must be finite with alpha.
+   Prints per partition its images, wall seconds and the
+   seconds before its first step, ms per step and val PSNR; the blend
+   prune's ms and kept rows; the LoD's PSNR and rows; the readers'
+   seconds.
 
 Bounds in the kernels line: the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM f32 without tensor cores). K1 moves 52
@@ -417,6 +451,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -434,8 +469,9 @@ from gsl_tpu_torch.data.dataparsers.nerfies import NerfiesDataParserConfig
 from gsl_tpu_torch.data.dataset import CachedDataset, image_to_float
 from gsl_tpu_torch.data.colmap_io import (ColmapCamera, ColmapImage,
                                           ColmapModel, qvec_to_rotmat,
-                                          read_model, rotmat_to_qvec,
-                                          write_model_bin)
+                                          read_model, read_points3d_bin,
+                                          read_points3d_bin_plain,
+                                          rotmat_to_qvec, write_model_bin)
 from gsl_tpu_torch.ops import cuda_build
 from gsl_tpu_torch.ops import lpips as lpips_module
 from gsl_tpu_torch.ops import rasterize as R
@@ -456,11 +492,17 @@ from gsl_tpu_torch.models.mip_splatting import (MipSplattingConfig,
 from gsl_tpu_torch.models.pvg import PVGConfig, PVGRendererConfig
 from gsl_tpu_torch.renderers.mip_splatting_renderer import \
     MipSplattingRendererConfig
+from gsl_tpu_torch.renderers.partition_lod import (PartitionLoDConfig,
+                                                   PartitionLoDRenderer)
 from gsl_tpu_torch.renderers.surfel_renderer import SurfelRendererConfig
 from gsl_tpu_torch.renderers.tile_renderer import TileRendererConfig
-from gsl_tpu_torch.tools import (ckpt2ply, convert2splat, fuse_mip_filter,
+from gsl_tpu_torch.tools import (ckpt2ply, convert2splat, eval_scenes,
+                                 finetune_partition, fuse_mip_filter,
                                  gaussian_transform, get_depth_scales,
-                                 gs2d_mesh_extraction)
+                                 gs2d_mesh_extraction, meganerf2colmap,
+                                 merge_partitions, prune_partitions,
+                                 sfm_outlier_detection, train_partitions,
+                                 val_partition_lod)
 from gsl_tpu_torch.training import fit as fit_module
 from gsl_tpu_torch.training.appearance_trainer import (
     AppearanceOptimizationConfig, AppearanceTrainer, leaves_of)
@@ -516,6 +558,8 @@ from gsl_tpu_torch.utils.convert import (state_from_jax_arrays,
                                          state_from_raw_arrays)
 from gsl_tpu_torch.utils.device import float32_math
 from gsl_tpu_torch.utils.gaussian_model_loader import GaussianModelLoader
+from gsl_tpu_torch.utils.partitioning import (PartitionedScene,
+                                              build_partitions)
 from gsl_tpu_torch.utils.ply import load_gaussian_ply, save_gaussian_ply
 from gsl_tpu_torch.viewer.camera_path import orbit_c2w
 from gsl_tpu_torch.viewer.panels import transform_state
@@ -2057,7 +2101,7 @@ def phase_surfel_main_path(arrays):
 
 
 FIT_VIEWS, SFM_POINTS = 24, 100_000
-FIT_STEPS, RESUME_STEPS, VARIANT_STEPS = 300, 600, 100
+FIT_STEPS, RESUME_STEPS, VARIANT_STEPS = 300, 400, 100
 LOG_INTERVAL = 100                 # FitConfig's, which the presets keep
 FIT_OVERRIDES = ("model.density.init_args.densify_from_iter=100",
                  "model.density.init_args.densification_interval=100")
@@ -4680,7 +4724,7 @@ SERVE_KERNELS = ("expand", "rasterize_fwd")
 SURFEL_SERVE_KERNELS = ("surfel_expand", "surfel_fwd")
 VIEWER_FIT_STEPS = 100
 PAGE_POLL_S = 0.5           # the training viewer page's /status interval
-PARSER_FIT_STEPS = 100      # 50 if the whole script passes ~800 s
+PARSER_FIT_STEPS = 50       # cut from 100 to make room for phase 16
 LPIPS_RTOL = 1e-4
 PARSER_CAPTURES = ("NSVF", "NGP", "MatrixCity", "SILVR")
 
@@ -5169,6 +5213,440 @@ def phase_serve_and_edit(tmp, arrays):
     return rec
 
 
+CITY_SPACING = 8.0          # the copies' offsets in x and z: 2 x 2, apart
+CITY_OFFSETS = [np.array([CITY_SPACING * i, 0.0, CITY_SPACING * j])
+                for j in (0, 1) for i in (0, 1)]
+CITY_FRAMES = 40            # the LoD fly-over at 1088x1920
+CITY_VIEWS = 12             # COLMAP views per copy in (b)
+CITY_STEPS, CITY_FINETUNE_STEPS = 100, 50
+
+
+def city_arrays(arrays):
+    """The bench scene's four copies, at CITY_OFFSETS."""
+    return {k: np.concatenate([
+        v + o.astype(np.float32) if k == "means" else v
+        for o in CITY_OFFSETS]) for k, v in arrays.items()}
+
+
+def fly_over():
+    """CITY_FRAMES camera-to-world poses: 14 units behind and 7 above a
+    target gliding along z over the grid at x = 3, looking down at it."""
+    return [orbit_c2w(0.0, 30.0, 14.0, np.array([3.0, 2.0, z]))
+            for z in np.linspace(-12.0, 22.0, CITY_FRAMES)]
+
+
+def phase_lod_serving(arrays, tmp):
+    """Phase 16 (a): the four 1M copies as the finest level, an opacity
+    prune as the coarse one, a fly-over through PartitionLoDRenderer, and
+    the merge of the 4M."""
+    log("== phase 16 (a): a 4M-row city served through "
+        "PartitionLoDRenderer at 1088x1920")
+    parts = os.path.join(tmp, "city_lod")
+    t0 = time.perf_counter()
+    # each copy's footprint under a 3 x 3 grid of camera centres
+    centres = np.stack([o + [u, 0.0, 5.0 + w] for o in CITY_OFFSETS
+                        for u in (-3.0, 0.0, 3.0) for w in (-4.0, 0.0, 4.0)])
+    scene = build_partitions(centres, n_partitions_hint=4)
+    scene.save(os.path.join(parts, "partitions.npz"))
+    for pi, part in enumerate(scene.partitions):
+        copy = dict(arrays)
+        owner = [i for i, o in enumerate(CITY_OFFSETS)
+                 if np.all((o[[0, 2]] + [0.0, 5.0] >= part.xy_min)
+                           & (o[[0, 2]] + [0.0, 5.0] < part.xy_max))]
+        if len(owner) != 1:
+            fail(f"partition {pi} ({part.xy_min}, {part.xy_max}) holds "
+                 f"copies {owner}, not one")
+        copy["means"] = arrays["means"] + CITY_OFFSETS[owner[0]].astype(
+            np.float32)
+        save_gaussian_ply(os.path.join(
+            parts, f"partition_{pi:03d}", "point_cloud", "iteration_1",
+            "point_cloud.ply"), **copy)
+    written = time.perf_counter() - t0
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, prune_s = timed(lambda: prune_partitions.main(
+            [parts, "--dst", "lod1", "--mode", "opacity", "--percent",
+             "0.6"]))
+    prune_s /= 1e3
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lod, setup_ms = timed(lambda: PartitionLoDConfig(
+        data=parts, names=[".", "lod1"], lod_distances=[1.0],
+        visibility_filter=True).instantiate().setup())
+    assembly_ms = []
+    assemble = lod._assemble
+
+    def timed_assemble(lods, visible):
+        out, ms = timed(lambda: assemble(lods, visible))
+        assembly_ms.append(ms)
+        return out
+    lod._assemble = timed_assemble
+    bg = torch.zeros(3, device="cuda")
+    frame_ms, rows, keys, changed = [], {}, [], []
+    reset_launches()
+    for c2w in fly_over():
+        cam = camera(c2w)
+        n_before = len(assembly_ms)
+        with torch.no_grad():
+            (out, stats), ms = timed(lambda: lod.forward(
+                cam, H, W, bg, render_types=frozenset({"rgb", "alpha"})))
+        alpha = float(out.alpha.mean())
+        if not (bool(torch.isfinite(out.render).all()) and alpha > 0.0):
+            fail(f"LoD frame {len(frame_ms)} ({stats}): a non-finite value, "
+                 f"or mean alpha {alpha}")
+        # levels / visibility of the four partitions, e.g. "0011/1110"
+        key = ("".join(str(int(x)) for x in stats["partition_lods"]) + "/"
+               + "".join(str(int(x)) for x in stats["visible"]))
+        rows[key] = stats["n_gaussians"]
+        keys.append(key)
+        changed.append(len(assembly_ms) > n_before)
+        frame_ms.append(ms)
+    expect_launches("the LoD fly-over", {"expand": CITY_FRAMES,
+                                         "rasterize_fwd": CITY_FRAMES})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_changes = sum(a != b for a, b in zip(keys, keys[1:]))
+    if n_changes < 3 or max(rows.values()) < 4 * N_GAUSSIANS:
+        fail(f"the fly-over changed its selection {n_changes} times and "
+             f"assembled at most {max(rows.values())} rows")
+    steady = [ms for ms, c in zip(frame_ms[1:], changed[1:]) if not c]
+    by_key = {k: round(float(np.median([ms for ms, c, kk in zip(
+        frame_ms, changed, keys) if kk == k and not c])), 2)
+        for k in rows if any(kk == k and not c
+                             for c, kk in zip(changed, keys))}
+    log(f"LoD: 4 partitions of {N_GAUSSIANS} (SH degree {SH_DEGREE}), lod1 "
+        f"the opacity prune at 0.6; PLYs written in {written:.1f} s, "
+        f"prune_partitions --mode opacity {prune_s:.2f} s, setup "
+        f"{setup_ms / 1e3:.2f} s; on {CARD}")
+    log(f"LoD fly-over of {CITY_FRAMES} frames: ms per frame with the "
+        f"selection unchanged, median {float(np.median(steady)):.2f} "
+        f"(min {min(steady):.2f}, max {max(steady):.2f}, {len(steady)} "
+        f"frames); ms per re-assembly "
+        f"{[round(x, 2) for x in assembly_ms]}; the selection changed "
+        f"{n_changes} times; rows per selection (levels, visible) {rows}; "
+        f"median ms per selection with it unchanged {by_key}; K1/K2 "
+        f"launches per frame 1/1; peak {peak:.3f} GiB")
+    del lod
+    torch.cuda.empty_cache()
+    with contextlib.redirect_stdout(io.StringIO()):
+        merged, merge_ms = timed(lambda: merge_partitions.main([parts]))
+    n_merged = load_gaussian_ply(merged)["means"].shape[0]
+    if n_merged != 4 * N_GAUSSIANS:
+        fail(f"merge_partitions kept {n_merged} of {4 * N_GAUSSIANS} rows")
+    log(f"merge_partitions of the 4M: {merge_ms / 1e3:.2f} s, {n_merged} "
+        "rows (each copy inside its own cell)")
+    shutil.rmtree(parts)
+    return {"frame_ms": float(np.median(steady)), "by_selection": by_key,
+            "assembly_ms": assembly_ms,
+            "peak_gib": peak, "merge_s": merge_ms / 1e3}
+
+
+STRAYS = {"stray_0.png": np.array([400.0, -300.0, -500.0]),
+          "stray_1.png": np.array([-350.0, -250.0, 600.0])}
+
+
+def city_poses():
+    """{name: camera-to-world}: per copy CITY_VIEWS views on a ring around
+    its TARGET, 30 degrees down from 8 away, so that the cameras' centres,
+    which the partitions are cut from, surround every copy."""
+    return {f"c{c}_view_{k:02d}.png": orbit_c2w(
+        360.0 * k / CITY_VIEWS, 30.0, 8.0, TARGET + o)
+        for c, o in enumerate(CITY_OFFSETS) for k in range(CITY_VIEWS)}
+
+
+def write_city_scene(root, arrays):
+    """The city as a COLMAP scene: CITY_VIEWS views of each copy rendered
+    at HxW, and SFM_POINTS of each copy's means as the SfM cloud; and
+    beside it `registered/`, the same model with the two STRAYS images
+    registered far off the grid, as an SfM run could leave them."""
+    city = city_arrays(arrays)
+    state = state_from_raw_arrays(city, device="cuda")
+    del city
+    renderer = TileRendererConfig().instantiate()
+    bg = torch.zeros(3, device="cuda")
+    os.makedirs(os.path.join(root, "scene", "images"))
+    images = {}
+    # PNG encodes on 8 threads (zlib lets go of the GIL) while the card
+    # renders the next view
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        saves = []
+        for name, c2w in sorted(city_poses().items()):
+            with torch.no_grad():
+                out = renderer.forward(state, camera(c2w), H, W, bg,
+                                       SH_DEGREE)
+            img = (out.render.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+            saves.append(pool.submit(
+                Image.fromarray(img).save, os.path.join(
+                    root, "scene", "images", name), compress_level=1))
+            w2c = np.linalg.inv(c2w)
+            images[len(images) + 1] = ColmapImage(
+                len(images) + 1, rotmat_to_qvec(w2c[:3, :3]), w2c[:3, 3], 1,
+                name)
+        for f in saves:
+            f.result()
+    del state
+    pick = np.random.RandomState(3).choice(N_GAUSSIANS, SFM_POINTS,
+                                           replace=False)
+    rgb = np.clip(0.5 + SH_C0 * arrays["shs_dc"][pick, 0], 0.0, 1.0)
+    cam = {1: ColmapCamera(1, "PINHOLE", W, H,
+                           np.array([FOCAL, FOCAL, W / 2, H / 2]))}
+    write_model_bin(ColmapModel(
+        cameras=cam, images=images, points_xyz=np.concatenate(
+            [arrays["means"][pick] + o for o in CITY_OFFSETS]).astype(
+                np.float64),
+        points_rgb=np.tile((rgb * 255 + 0.5).astype(np.uint8), (4, 1)),
+        points_err=np.zeros(4 * SFM_POINTS)),
+        os.path.join(root, "scene", "sparse", "0"))
+    registered = dict(images)
+    for name, pos in STRAYS.items():
+        i = len(registered) + 1
+        registered[i] = ColmapImage(i, np.array([1.0, 0.0, 0.0, 0.0]), -pos,
+                                    1, name)
+    write_model_bin(ColmapModel(cameras=cam, images=registered,
+                                points_xyz=np.zeros((0, 3)),
+                                points_rgb=np.zeros((0, 3), np.uint8),
+                                points_err=np.zeros(0)),
+                    os.path.join(root, "registered", "sparse", "0"))
+    shutil.copy(os.path.join(root, "scene", "sparse", "0", "points3D.bin"),
+                os.path.join(root, "registered", "sparse", "0"))
+
+
+def mega_capture(root, poses, image_dir, scale=2.0,
+                 origin=np.array([1.0, -2.0, 3.0])):
+    """The city's cameras as a Mega-NeRF capture: coordinates.pt, and
+    train/metadata/<name>.pt with the c2w that meganerf2colmap turns back
+    into each pose; the images linked under train/rgbs."""
+    os.makedirs(os.path.join(root, "train", "rgbs"))
+    torch.save({"pose_scale_factor": scale,
+                "origin_drb": torch.tensor(origin, dtype=torch.float64)},
+               os.path.join(root, "coordinates.pt"))
+    os.makedirs(os.path.join(root, "train", "metadata"))
+    M = meganerf2colmap.C2W_TRANSFORM @ meganerf2colmap.RDF_TO_DRB
+    mega = {}
+    for name, c2w in poses.items():
+        c = meganerf2colmap.RDF_TO_DRB @ c2w @ np.linalg.inv(M)
+        c[:3, 3] = (c[:3, 3] - origin) / scale
+        stem = name[:-4]
+        torch.save({"c2w": torch.tensor(c[:3], dtype=torch.float64),
+                    "intrinsics": torch.tensor([FOCAL, FOCAL, W / 2, H / 2],
+                                               dtype=torch.float64),
+                    "W": W, "H": H},
+                   os.path.join(root, "train", "metadata", stem + ".pt"))
+        os.symlink(os.path.join(image_dir, name),
+                   os.path.join(root, "train", "rgbs", name))
+        mega[name] = c[:3]
+    return mega
+
+
+def run_tool(main, argv):
+    """main(argv) with its standard output kept; -> (result, said, s)."""
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out, ms = timed(lambda: main(argv))
+    return out, tee.kept.getvalue(), ms / 1e3
+
+
+def lod_val_psnr(parts, names, scene_cfg, out_csv):
+    """val_partition_lod's MEAN PSNR over the val split, K1 and K2 launched
+    once a frame and nothing else, every frame finite with alpha."""
+    forward = PartitionLoDRenderer.forward
+
+    def checked(self, cam, height, width, bg, render_types=frozenset({"rgb"})):
+        out, stats = forward(self, cam, height, width, bg,
+                             render_types=render_types | {"alpha"})
+        alpha = float(out.alpha.mean())
+        if not (bool(torch.isfinite(out.render).all()) and alpha > 0.0):
+            fail(f"val_partition_lod {names}: a frame ({stats}) with a "
+                 f"non-finite value, or mean alpha {alpha}")
+        return out, stats
+    reset_launches()
+    PartitionLoDRenderer.forward = checked
+    try:
+        rows, _, s = run_tool(val_partition_lod.main, [
+            parts, "--names", *names, "--lod-distances", "1",
+            "--visibility-filter", "--config", scene_cfg, "--output",
+            out_csv])
+    finally:
+        PartitionLoDRenderer.forward = forward
+    expect_launches(f"val_partition_lod {names}",
+                    {k: len(rows) for k in SERVE_KERNELS})
+    if not all(math.isfinite(r[1]) for r in rows):
+        fail(f"val_partition_lod {names}: a non-finite PSNR in {rows}")
+    return float(np.mean([r[1] for r in rows])), rows, s
+
+
+def phase_partition_pipeline(arrays, tmp):
+    """Phase 16 (b): the partition pipeline through the tools."""
+    log("== phase 16 (b): a COLMAP city through the partition tools at "
+        "1088x1920")
+    root = os.path.join(tmp, "city")
+    t0 = time.perf_counter()
+    write_city_scene(root, arrays)
+    data = os.path.join(root, "scene")
+    log(f"city: {len(CITY_OFFSETS) * CITY_VIEWS} views and "
+        f"{len(CITY_OFFSETS) * SFM_POINTS} SfM points written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    flagged, _, sfm_s = run_tool(sfm_outlier_detection.main,
+                                 [os.path.join(root, "registered")])
+    if flagged != sorted(STRAYS):
+        fail(f"sfm_outlier_detection flagged {flagged}, not {sorted(STRAYS)}")
+
+    points = os.path.join(data, "sparse", "0", "points3D.bin")
+    native_got, native_ms = timed(lambda: read_points3d_bin(points))
+    plain_got, plain_ms = timed(lambda: read_points3d_bin_plain(points))
+    if not all(np.array_equal(a, b) for a, b in zip(native_got, plain_got)):
+        fail("the native points3D.bin reader disagrees with the plain one")
+    n_points = native_got[0].shape[0]
+    log(f"sfm_outlier_detection flagged {flagged} ({sfm_s:.2f} s); "
+        f"points3D.bin of {n_points} points: native reader "
+        f"{native_ms / 1e3:.3f} s, plain {plain_ms / 1e3:.3f} s, arrays "
+        "equal")
+
+    # the SfM cloud's LoD, initialised as each partition's fit initialises
+    # it, for the PSNR to beat
+    scene_cfg = os.path.join(root, "scene.yaml")
+    with open(scene_cfg, "w") as f:
+        f.write(f"data:\n  path: {data}\n  parser:\n    class_path: "
+                "Colmap\n")
+    city_cfg = os.path.join(root, "city.yaml")
+    with open(city_cfg, "w") as f:
+        f.write("fit:\n  capacity_multiplier: 1.0\n")
+    colmap = os.path.join(PRESETS, "colmap.yaml")
+    trainer, dp_cfg, fit_cfg = cli.build_components(cli.load_config(
+        [colmap, city_cfg], cli.parse_overrides((f"data.path={data}",))))
+    outputs = dp_cfg.instantiate().get_outputs()
+    init, init_ms = timed(lambda: _init_gaussians(trainer, outputs, fit_cfg,
+                                                  "cuda"))
+    log(f"the initial cloud of {outputs.point_cloud.xyz.shape[0]} points, "
+        f"as each partition's fit builds it (the k-NN scales included), "
+        f"in {init_ms / 1e3:.2f} s")
+    parts = os.path.join(root, "parts")
+    save_gaussian_ply(os.path.join(
+        parts, "initial", "partition_000", "point_cloud", "iteration_1",
+        "point_cloud.ply"), *(getattr(init.params, k)[init.alive].cpu()
+                              .numpy() for k in PARAM_FIELDS))
+    del trainer, init
+
+    _, said, train_s = run_tool(train_partitions.main, [
+        data, "-o", parts, "--n-partitions", "4", "--max-steps",
+        str(CITY_STEPS), "--config", colmap, "--config", city_cfg])
+    scene = PartitionedScene.load(os.path.join(parts, "partitions.npz"))
+    if len(scene.partitions) != 4:
+        fail(f"{len(scene.partitions)} partitions, not 4")
+    for pi in range(1, 4):          # the initial cloud at every partition
+        shutil.copytree(os.path.join(parts, "initial", "partition_000"),
+                        os.path.join(parts, "initial", f"partition_{pi:03d}"))
+    per = {}
+    for pi in range(4):
+        run = os.path.join(parts, f"partition_{pi:03d}")
+        if not os.path.isfile(os.path.join(run, "TRAINED")):
+            fail(f"partition {pi} did not end TRAINED:\n{said}")
+        with open(os.path.join(run, "fit_timing.json")) as f:
+            t = json.load(f)
+        if set(t["launches"]) != set(GAUSSIAN_KERNELS):
+            fail(f"partition {pi}'s fit launched {t['launches']}")
+        wall = re.search(rf"partition {pi}: TRAINED in ([0-9.]+) s, "
+                         r"([0-9.]+) s of it before", said)
+        with open(os.path.join(run, "image_list.txt")) as f:
+            n_images = len(f.read().split())
+        per[pi] = {"images": n_images, "wall_s": float(wall.group(1)),
+                   "before_s": float(wall.group(2)),
+                   "ms": 1e3 * t["wall_s"] / CITY_STEPS,
+                   "psnr": eval_scenes.read_mean_row(os.path.join(
+                       run, "metrics", "val.csv"))[0],
+                   "launches": t["launches"]}
+        log(f"partition {pi}: {n_images} images, {per[pi]['wall_s']:.1f} s "
+            f"wall ({per[pi]['before_s']:.1f} s before the first step), "
+            f"{per[pi]['ms']:.2f} ms per step over {CITY_STEPS} steps, val "
+            f"PSNR {per[pi]['psnr']:.3f} dB, launches {t['launches']}")
+
+    reset_launches()
+    _, said, blend_s = run_tool(prune_partitions.main,
+                                [parts, "--dst", "lod1"])
+    launches = {k: v for k, v in read_launches().items() if v}
+    if set(launches) != set(GAUSSIAN_KERNELS):
+        fail(f"prune_partitions --mode blend launched {launches}")
+    kept = [int(x) for x in re.findall(r"-> (\d+) kept", said)]
+    log(f"prune_partitions --mode blend: {1e3 * blend_s:.1f} ms for the "
+        f"four partitions, kept {kept}, launches {launches}")
+
+    _, _, ft_s = run_tool(finetune_partition.main, [
+        parts, "0", "--src", "lod1", "--steps", str(CITY_FINETUNE_STEPS)])
+    with open(os.path.join(parts, "lod1_ft", "partition_000",
+                           "fit_timing.json")) as f:
+        t = json.load(f)
+    if set(t["launches"]) != set(GAUSSIAN_KERNELS):
+        fail(f"finetune_partition launched {t['launches']}")
+    ft_psnr = eval_scenes.read_mean_row(os.path.join(
+        parts, "lod1_ft", "partition_000", "metrics", "val.csv"))[0]
+    log(f"finetune_partition 0 from lod1: {ft_s:.1f} s wall, "
+        f"{1e3 * t['wall_s'] / CITY_FINETUNE_STEPS:.2f} ms per step over "
+        f"{CITY_FINETUNE_STEPS} steps, val PSNR "
+        f"{ft_psnr:.3f} dB")
+
+    merged, _, merge_s = run_tool(merge_partitions.main, [parts])
+    log(f"merge_partitions: {merge_s:.2f} s, "
+        f"{load_gaussian_ply(merged)['means'].shape[0]} rows")
+
+    reset_launches()
+    scenes = [f"partition_{pi:03d}" for pi in range(4)]
+    results, _, eval_s = run_tool(eval_scenes.main,
+                                  ["--output", parts, "--scenes", *scenes])
+    launches = {k: v for k, v in read_launches().items() if v}
+    if set(launches) != set(SERVE_KERNELS):
+        fail(f"eval_scenes launched {launches}")
+    log(f"eval_scenes over the four partitions: {eval_s:.2f} s, PSNR "
+        f"{[round(r[1], 3) for r in results]}")
+
+    mega = os.path.join(root, "mega")
+    poses = city_poses()
+    want = mega_capture(mega, poses, os.path.join(data, "images"))
+    sparse, _, mega_s = run_tool(meganerf2colmap.main, [mega])
+    model = read_model(sparse)
+    err = 0.0
+    for im in model.images.values():
+        w2c = np.eye(4)
+        w2c[:3, :3] = qvec_to_rotmat(im.qvec)
+        w2c[:3, 3] = im.tvec
+        c = meganerf2colmap.RDF_TO_DRB @ np.linalg.inv(w2c) @ np.linalg.inv(
+            meganerf2colmap.C2W_TRANSFORM @ meganerf2colmap.RDF_TO_DRB)
+        c[:3, 3] = (c[:3, 3] - [1.0, -2.0, 3.0]) / 2.0
+        err = max(err, float(np.abs(c[:3] - want[im.name]).max()),
+                  float(np.abs(np.linalg.inv(w2c) - poses[im.name]).max()))
+    if len(model.images) != len(poses) or err > 1e-9:
+        fail(f"meganerf2colmap: {len(model.images)} images, poses off by "
+             f"{err:.3e}")
+    log(f"meganerf2colmap: {len(model.images)} images, poses round-trip "
+        f"within {err:.3e}, {mega_s:.2f} s")
+    psnr0, _, _ = lod_val_psnr(parts, ["initial"], scene_cfg,
+                               os.path.join(root, "lod_initial.csv"))
+    lod_psnr, rows, val_s = lod_val_psnr(parts, [".", "lod1"], scene_cfg,
+                                         os.path.join(root, "lod_val.csv"))
+    if not lod_psnr > psnr0:
+        fail(f"the LoD's val PSNR {lod_psnr:.3f} dB is not above the "
+             f"initial clouds' {psnr0:.3f}")
+    log(f"val_partition_lod (levels . and lod1 at 1 x partition size, "
+        f"visibility filter): mean PSNR {lod_psnr:.3f} dB over {len(rows)} "
+        f"val views against {psnr0:.3f} for the initial clouds; rows "
+        f"assembled {[r[3] for r in rows]}, levels {[r[4] for r in rows]}; "
+        f"{val_s:.2f} s")
+    return {"partitions": per, "blend_s": blend_s, "kept": kept,
+            "lod_psnr": lod_psnr, "initial_psnr": psnr0,
+            "native_s": native_ms / 1e3, "plain_s": plain_ms / 1e3,
+            "points": n_points}
+
+
+def phase_partitions(arrays, tmp):
+    """Phase 16: (a) serving a 4M city by levels of detail; (b) the
+    partition pipeline through the tools."""
+    t0 = time.perf_counter()
+    rec = {"serving": phase_lod_serving(arrays, tmp)}
+    torch.cuda.empty_cache()
+    rec["pipeline"] = phase_partition_pipeline(arrays, tmp)
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
 def tensors_of(x):
     """The tensors and numbers of nested dicts, in key order."""
     if isinstance(x, dict):
@@ -5303,6 +5781,9 @@ def main():
         phase_distill_entry_points(tmp)
         torch.cuda.empty_cache()
         phase_serve_and_edit(tmp, arrays)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_partitions(arrays, tmp)
     # StopThePop beside plain 3DGS, phases 7 and 4/5 of this run
     log("StopThePop over plain 3DGS, this run: bench-pose rgb frame ms "
         f"{[round(x, 2) for x in stp_serving['rgb_frame_ms']]} vs "

@@ -1,8 +1,8 @@
 """COLMAP sparse model reader (bin + txt) and binary writer.
 
 Port of ``gsl_tpu/data/colmap_io.py`` (numpy only). ``points3D.bin`` is
-read in Python; the JAX package's optional C++ reader of that file is not
-carried over.
+read by the C++ reader of ``gsl_tpu_torch/native`` (built on first use);
+`read_points3d_bin_plain`, the Python loop, is its plain version.
 
 Supported camera models: SIMPLE_PINHOLE, PINHOLE, SIMPLE_RADIAL, RADIAL,
 OPENCV, OPENCV_FISHEYE (params retained; undistortion handled downstream).
@@ -179,6 +179,14 @@ def read_images_bin(path: str) -> Dict[int, ColmapImage]:
 
 
 def read_points3d_bin(path: str):
+    """points3D.bin -> (xyz [n, 3] float64, rgb [n, 3] uint8, err [n]
+    float64), by the native reader; raises if it cannot be built."""
+    from ..native import read_points3d_native
+    return read_points3d_native(path)
+
+
+def read_points3d_bin_plain(path: str):
+    """The same arrays as `read_points3d_bin`, read in Python."""
     with open(path, "rb") as f:
         (n,) = _read("<Q", f)
         xyz = np.empty((n, 3), np.float64)

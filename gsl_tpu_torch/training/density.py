@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -150,15 +150,20 @@ def background_removal_step(gstate: GaussianState, scene_center,
 
 def update_stats(dstate: DensityControlState, m2d_grad: torch.Tensor,
                  radii: torch.Tensor, grad_scale: torch.Tensor,
+                 distance_factors: Optional[torch.Tensor] = None,
                  accurate_visibility: bool = False) -> DensityControlState:
     """m2d_grad [CAP, 2] = dL/dmeans2d in pixels (or the AbsGS statistic);
-    radii [CAP] int; grad_scale [2] = 0.5 * [W, H]. With
-    `accurate_visibility` a row counts only where its gradient is
-    nonzero."""
+    radii [CAP] int; grad_scale [2] = 0.5 * [W, H]. `distance_factors`
+    [CAP] (optional, `PartitionStore.distance_factors`) damps each row's
+    gradient by exp(-distance) to its partition, so densification stays
+    inside the cell. With `accurate_visibility` a row counts only where
+    its gradient is nonzero."""
     visible = radii > 0
     if accurate_visibility:
         visible = visible & torch.any(m2d_grad != 0.0, dim=-1)
     g = torch.linalg.norm(m2d_grad * grad_scale[None, :], dim=-1)
+    if distance_factors is not None:
+        g = g * torch.exp(-distance_factors)
     zero = torch.zeros_like(g)
     return DensityControlState(
         grad_accum=dstate.grad_accum + torch.where(visible, g, zero),

@@ -28,10 +28,13 @@ Port of ``gsl_tpu/training/fit.py``:
 The JAX package's loop also grows a tile-intersection slot capacity and
 pads images to a size bucket, both for the TPU's static shapes; the port
 sizes its slot buffers per call and renders images at their own size.
-Each fit also writes ``fit_timing.json`` beside ``train_log.csv``: wall
-time, time spent waiting on the loader, and the milliseconds and counts
-of each densify (alive before and after; cloned, split and pruned rows,
-or for MCMC the dead rows relocated and the rows added).
+Each fit also writes ``fit_timing.json`` beside ``train_log.csv``: the
+loop's wall time and its start (``time.time()``), time spent waiting on
+the loader, the milliseconds and counts of each densify (alive before
+and after; cloned, split and pruned rows, or for MCMC the dead rows
+relocated and the rows added), and the CUDA kernels the loop launched,
+with their counts (a fit run as a subprocess, as train_partitions
+runs them, shows its kernels there).
 """
 from __future__ import annotations
 
@@ -199,6 +202,22 @@ def _make_viewer(trainer: Trainer, outputs: DataParserOutputs,
     return viewer, render_fn
 
 
+def _kernel_launches() -> dict:
+    """Each CUDA kernel wrapper's launch count, by its source's name."""
+    from ..ops import rasterize as R
+    from ..ops import rasterize_stp as STP
+    from ..ops import surfel_rasterize as SR
+    return {"expand": R.expand.launches,
+            "rasterize_fwd": R.rasterize_fwd.launches,
+            "rasterize_bwd": R.rasterize_bwd.launches,
+            "reduce_grads": R.reduce_grads.launches,
+            "surfel_expand": SR.surfel_expand.launches,
+            "surfel_fwd": SR.rasterize_surfels_fwd.launches,
+            "surfel_bwd": SR.rasterize_surfels_bwd.launches,
+            "rasterize_fwd_stp": STP.rasterize_fwd_stp.launches,
+            "rasterize_bwd_stp": STP.rasterize_bwd_stp.launches}
+
+
 def _sync(dev: torch.device):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -280,6 +299,8 @@ def fit(trainer: Trainer, outputs: DataParserOutputs, cfg: FitConfig,
             # a first render, so a viewer that cannot render fails here
             tv_render_fn(state, trainer.sh_degree_at(start_step))(
                 0.0, -15.0, 6.0)
+        launches = _kernel_launches()
+        loop_start_time = time.time()
         t_start = t_last = time.perf_counter()
         for step in range(start_step, cfg.max_steps + 1):
             t0 = time.perf_counter()
@@ -343,9 +364,13 @@ def fit(trainer: Trainer, outputs: DataParserOutputs, cfg: FitConfig,
             training_viewer.stop()
     _sync(dev)
     timing = {"start_step": start_step, "end_step": cfg.max_steps,
+              "loop_start_time": loop_start_time,
               "wall_s": time.perf_counter() - t_start,
               "loader_wait_s": loader_wait, "densify_ms": densify_ms,
-              "densify": densify_counts}
+              "densify": densify_counts,
+              "launches": {k: v - launches[k]
+                           for k, v in _kernel_launches().items()
+                           if v > launches[k]}}
     with open(os.path.join(cfg.output_dir, "fit_timing.json"), "w") as f:
         json.dump(timing, f)
     n_steps = cfg.max_steps - start_step + 1

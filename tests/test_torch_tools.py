@@ -402,10 +402,14 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(run_with_ply,
                                                        tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device works")
-    from gsl_tpu_torch.tools import (ckpt2ply, convert2splat,
+    from gsl_tpu_torch.renderers.partition_lod import PartitionLoDConfig
+    from gsl_tpu_torch.tools import (ckpt2ply, convert2splat, eval_scenes,
+                                     finetune_partition,
                                      fuse_appearance_embeddings,
                                      fuse_mip_filter, gaussian_transform,
-                                     merge_ply)
+                                     merge_partitions, merge_ply,
+                                     prune_partitions, train_partitions,
+                                     val_partition_lod)
     from gsl_tpu_torch.viewer import __main__ as viewer_main
 
     run, ply = run_with_ply
@@ -416,6 +420,16 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(run_with_ply,
             (gaussian_transform.main, [ply, out]),
             (fuse_mip_filter.main, [run, "--dataset_path", run]),
             (fuse_appearance_embeddings.main, [run]),
-            (viewer_main.main, [run, "--port", "0"])):
+            (viewer_main.main, [run, "--port", "0"]),
+            (train_partitions.main, [run]),
+            (train_partitions.main, [run, "--dry-run"]),
+            (prune_partitions.main, [run, "--dst", "lod1"]),
+            (finetune_partition.main, [run, "0"]),
+            (merge_partitions.main, [run]),
+            (val_partition_lod.main, [run, "--names", ".", "--config",
+                                      ply]),
+            (eval_scenes.main, ["--output", run, "--scenes", "a"]),
+            (lambda _: PartitionLoDConfig(data=run).instantiate().setup(),
+             None)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
