@@ -232,9 +232,9 @@ package is not beside this script. Phases, each fatal on failure:
    feature rows bit for bit and whose embedding rows of the test views
    must stay untrained, resumed to 300 (must continue at 201, with 201
    network updates at the end); appearance_visibility_map_hash.yaml for
-   150 steps at capacity 524,288 = 2^19, where every densify must leave
+   100 steps at capacity 524,288 = 2^19, where every densify must leave
    the hash tables and both networks' Adam states as they were; swag.yaml,
-   bilagrid.yaml, exposure.yaml and grad_acc.yaml for 150 steps each
+   bilagrid.yaml, exposure.yaml and grad_acc.yaml for 100 steps each
    (each above the initial cloud's val PSNR; a processor's parameters for
    the 24 train images). Each launches K1-K4 and nothing else. Prints what
    phase 9 (b) prints, beside phase 8's colmap.yaml of the same run.
@@ -381,11 +381,12 @@ package is not beside this script. Phases, each fatal on failure:
    sfm_outlier_detection must flag exactly the two; the native
    points3D.bin reader against the plain one (equal arrays, seconds);
    train_partitions --n-partitions 4 --max-steps 100 with colmap.yaml and
-   fit.capacity_multiplier 1.0, one `cli fit` process a partition on the
-   card, each of which must end TRAINED having launched K1-K4 and no other
+   fit.capacity_multiplier 1.0 as two concurrent --hosts 2 processes, one
+   `cli fit` process a partition on the card, each of which must end
+   TRAINED having launched K1-K4 and no other
    kernel (its fit_timing.json); prune_partitions --mode blend (K1-K4);
    finetune_partition of partition 0 from lod1 for 50 steps (K1-K4);
-   merge_partitions; eval_scenes over the four runs (K1 + K2);
+   merge_partitions; eval_scenes over two of the four runs (K1 + K2);
    meganerf2colmap of a Mega-NeRF layout of the same cameras, whose poses
    must come back within 1e-9; val_partition_lod --names . lod1
    --lod-distances 1 --visibility-filter on the val split (one K1 and one
@@ -395,6 +396,36 @@ package is not beside this script. Phases, each fatal on failure:
    seconds before its first step, ms per step and val PSNR; the blend
    prune's ms and kept rows; the LoD's PSNR and rows; the readers'
    seconds.
+17. distributed training (gsl_tpu_torch.parallel): (a) the sharded step
+   of make_mp_train_step on 4 ranks (dp 2 x mp 2) spawned on the one card,
+   over gloo with the exchange staged through the host, at phase 5's
+   perturbed 1M scene (capacity 1M, 500,000 rows a shard), SH degree 3,
+   four views (the bench pose and three orbits) at 1088x1920, one a rank,
+   with the compact_k the fit would probe: its first step's loss must
+   equal the single-device mean loss of the port's Trainer over the same
+   four cameras within 1e-5, and its gathered tap sums and Adam moments
+   the Trainer's gradients summed over the four (n_dev times the mean
+   loss's, as gsl_tpu applies) within rtol 5e-3 and an atol of 1e-4 of
+   each field's own max |ref| (the first moments as g, the second as
+   |g|), |g| / |mean-loss g| within 1e-3 of 4; every rank must launch K1,
+   K2, K3 and K4 once a step and drop no splat in the exchange. Then one
+   step from the same state on four views from inside the scene at the
+   least top-K budget that drops no visible splat, which must be below the
+   shard: held as the first step, against the Trainer over those views.
+   Prints ms per step (host clock, synchronised, the median of
+   10 steps after the first), the exchange's forward and backward ms with
+   their host staging, exchange_bytes_per_step, peak memory per rank, and
+   the same step at world 1 (dp 1 x mp 1, in this process) beside them.
+   (b) phase 8's scene through `cli fit` with colmap.yaml +
+   distributed.yaml and distributed: {dp: 2, mp: 2} (4 ranks spawned by
+   the CLI), densifying every 50 steps, for 100 steps and then resumed to
+   150: every rank must launch K1-K4 once a step and nothing else, the
+   resume must continue at 101 and its mp_log.csv go on, `cli validate`
+   must read the run's checkpoint and score above the initial cloud's
+   PSNR; then distributed.yaml as shipped (a world of one on this card)
+   for 10 steps. Prints ms per step of each log window, the seconds
+   before the first step, each densify and re-balance, the mp_log.csv rows
+   and the val PSNR.
 
 Bounds in the kernels line: the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM f32 without tensor cores). K1 moves 52
@@ -473,6 +504,10 @@ from gsl_tpu_torch.data.colmap_io import (ColmapCamera, ColmapImage,
                                           read_points3d_bin_plain,
                                           rotmat_to_qvec, write_model_bin)
 from gsl_tpu_torch.ops import cuda_build
+from gsl_tpu_torch.parallel import gaussian_sharded as GS
+from gsl_tpu_torch.parallel.fit_distributed import (auto_compact_k,
+                                                    max_visible_per_shard)
+from gsl_tpu_torch.parallel.launch import spawn
 from gsl_tpu_torch.ops import lpips as lpips_module
 from gsl_tpu_torch.ops import rasterize as R
 from gsl_tpu_torch.ops import rasterize_stp as STP
@@ -571,6 +606,10 @@ H, W, FOCAL = 1088, 1920, 1600.0
 N_GAUSSIANS = 1_000_000
 SH_DEGREE = 3
 TILE = 16
+STARTED = time.perf_counter()
+# the scenes' PNGs uncompressed: the fits' first epochs wait on decoding
+# them, three times faster than at level 1 (lossless either way)
+PNG_LEVEL = 0
 TARGET = np.array([0.0, 0.0, 5.0])    # middle of the scene's z range
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -619,6 +658,10 @@ def fail(msg):
 
 
 def log(msg):
+    """Print `msg`; a phase's heading also gets the seconds since the
+    script started."""
+    if msg.startswith("== phase"):
+        msg += f" [{time.perf_counter() - STARTED:.1f} s]"
     print(msg, flush=True)
 
 
@@ -2148,7 +2191,7 @@ def write_colmap_scene(root, arrays):
         img = (out.render.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
         name = f"view_{i:03d}.png"
         Image.fromarray(img).save(os.path.join(root, "images", name),
-                                  compress_level=1)
+                                  compress_level=PNG_LEVEL)
         w2c = np.linalg.inv(c2w)
         images[i + 1] = ColmapImage(i + 1, rotmat_to_qvec(w2c[:3, :3]),
                                     w2c[:3, 3], 1, name)
@@ -3027,7 +3070,7 @@ APPEARANCE_IMAGES = 1024     # gsl_tpu's visibility network's image count
 GRAD_ACC_K = 5
 APPEARANCE_WARM_UP = 100     # set in Python: no config key reaches it
 APPEARANCE_FIT_STEPS, APPEARANCE_RESUME_STEPS = 200, 300
-SLICE_FIT_STEPS = 150
+SLICE_FIT_STEPS = 100
 TEST_VIEWS = (0, 8, 16)      # colmap.yaml's own val views (eval_step 8)
 
 
@@ -4042,7 +4085,7 @@ def write_nerfies_scene(root, arrays):
         img = (out.render.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
         Image.fromarray(img).save(os.path.join(root, "rgb", "2x",
                                                f"{iid}.png"),
-                                  compress_level=1)
+                                  compress_level=PNG_LEVEL)
         w2c = np.linalg.inv(c2w)
         with open(os.path.join(root, "camera", f"{iid}.json"), "w") as f:
             json.dump({"orientation": w2c[:3, :3].tolist(),
@@ -5219,6 +5262,8 @@ CITY_OFFSETS = [np.array([CITY_SPACING * i, 0.0, CITY_SPACING * j])
 CITY_FRAMES = 40            # the LoD fly-over at 1088x1920
 CITY_VIEWS = 12             # COLMAP views per copy in (b)
 CITY_STEPS, CITY_FINETUNE_STEPS = 100, 50
+EVAL_PARTITIONS = 2            # the partitions eval_scenes re-validates
+CITY_HOSTS = 2                 # train_partitions processes run at once
 
 
 def city_arrays(arrays):
@@ -5376,7 +5421,8 @@ def write_city_scene(root, arrays):
             img = (out.render.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
             saves.append(pool.submit(
                 Image.fromarray(img).save, os.path.join(
-                    root, "scene", "images", name), compress_level=1))
+                    root, "scene", "images", name),
+                compress_level=PNG_LEVEL))
             w2c = np.linalg.inv(c2w)
             images[len(images) + 1] = ColmapImage(
                 len(images) + 1, rotmat_to_qvec(w2c[:3, :3]), w2c[:3, 3], 1,
@@ -5443,6 +5489,26 @@ def run_tool(main, argv):
     with contextlib.redirect_stdout(tee):
         out, ms = timed(lambda: main(argv))
     return out, tee.kept.getvalue(), ms / 1e3
+
+
+def train_partitions_as_hosts(argv):
+    """train_partitions over CITY_HOSTS processes at once, each with its
+    own --host-id (after a --dry-run writes the partitions both read);
+    -> (their output in host order, seconds). Fails on a nonzero exit."""
+    run_tool(train_partitions.main, argv + ["--dry-run"])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", "-m", "gsl_tpu_torch.tools.train_partitions",
+         *argv, "--hosts", str(CITY_HOSTS), "--host-id", str(h)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=train_partitions.fit_env()) for h in range(CITY_HOSTS)]
+    said = [p.communicate(timeout=900)[0] for p in procs]
+    seconds = time.perf_counter() - t0
+    for h, (p, text) in enumerate(zip(procs, said)):
+        log(text.rstrip())
+        if p.returncode != 0:
+            fail(f"train_partitions --host-id {h} exited {p.returncode}")
+    return "\n".join(said), seconds
 
 
 def lod_val_psnr(parts, names, scene_cfg, out_csv):
@@ -5527,9 +5593,11 @@ def phase_partition_pipeline(arrays, tmp):
                               .numpy() for k in PARAM_FIELDS))
     del trainer, init
 
-    _, said, train_s = run_tool(train_partitions.main, [
-        data, "-o", parts, "--n-partitions", "4", "--max-steps",
-        str(CITY_STEPS), "--config", colmap, "--config", city_cfg])
+    said, train_s = train_partitions_as_hosts(
+        [data, "-o", parts, "--n-partitions", "4", "--max-steps",
+         str(CITY_STEPS), "--config", colmap, "--config", city_cfg])
+    log(f"train_partitions as {CITY_HOSTS} concurrent hosts on the card: "
+        f"{train_s:.1f} s")
     scene = PartitionedScene.load(os.path.join(parts, "partitions.npz"))
     if len(scene.partitions) != 4:
         fail(f"{len(scene.partitions)} partitions, not 4")
@@ -5589,13 +5657,13 @@ def phase_partition_pipeline(arrays, tmp):
         f"{load_gaussian_ply(merged)['means'].shape[0]} rows")
 
     reset_launches()
-    scenes = [f"partition_{pi:03d}" for pi in range(4)]
+    scenes = [f"partition_{pi:03d}" for pi in range(EVAL_PARTITIONS)]
     results, _, eval_s = run_tool(eval_scenes.main,
                                   ["--output", parts, "--scenes", *scenes])
     launches = {k: v for k, v in read_launches().items() if v}
     if set(launches) != set(SERVE_KERNELS):
         fail(f"eval_scenes launched {launches}")
-    log(f"eval_scenes over the four partitions: {eval_s:.2f} s, PSNR "
+    log(f"eval_scenes over partitions {scenes}: {eval_s:.2f} s, PSNR "
         f"{[round(r[1], 3) for r in results]}")
 
     mega = os.path.join(root, "mega")
@@ -5644,6 +5712,364 @@ def phase_partitions(arrays, tmp):
     torch.cuda.empty_cache()
     rec["pipeline"] = phase_partition_pipeline(arrays, tmp)
     log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+# ---- phase 17: distributed training ----------------------------------------
+
+DIST_DP, DIST_MP = 2, 2
+DIST_STEPS = 10                # timed steps after the first
+DIST_FIT_STEPS, DIST_RESUME_STEPS = 100, 150
+DIST_PRESET_STEPS = 10
+DIST_OVERRIDES = ("model.density.init_args.densify_from_iter=50",
+                  "model.density.init_args.densification_interval=50",
+                  "fit.log_interval=25")
+DIST_LOSS_RTOL = 1e-5
+# ROADMAP's gradient tolerance, rtol 5e-3 and atol 1e-4, with the atol
+# taken of each field's own scale (max |ref|, where below 1): the fields
+# but the means have gradients of ~1e-4 and less
+DIST_GRAD_RTOL, DIST_GRAD_ATOL = 5e-3, 1e-4
+DIST_RATIO_TOL = 1e-3          # |g| / |mean-loss g| within n_dev +- this
+
+
+def dist_views():
+    """The bench pose and three orbits: one view a rank."""
+    return list(views().values()) + [orbit_c2w(35.0, -5.0, 5.0, TARGET)]
+
+
+def compaction_views():
+    """Views that each leave rows of every shard unseen, so that a top-K
+    budget below a shard drops no visible splat: the bench pose and three
+    orbits from inside the scene, 2.5 from its middle."""
+    return [np.eye(4)] + [orbit_c2w(yaw, 0.0, 2.5, TARGET)
+                          for yaw in (0.0, 120.0, 240.0)]
+
+
+def grads_held(got, want):
+    """(max |d|, max |want|, ok): `got` within DIST_GRAD_RTOL and
+    DIST_GRAD_ATOL of `want`'s own scale; a `want` of zeros is not held."""
+    scale = float(want.abs().max())
+    atol = DIST_GRAD_ATOL * min(1.0, scale)
+    return (float((got - want).abs().max()), scale,
+            scale > 0 and bool(torch.allclose(got, want, rtol=DIST_GRAD_RTOL,
+                                              atol=atol)))
+
+
+def moments_against(opt, total):
+    """Per field: the first step's moments against `total`, the gradient
+    they must hold (mu = (1 - b1) g, nu = (1 - b2) g^2): (max |d| of g,
+    max |g|, g held, sqrt(nu / (1 - b2)) held against |g|)."""
+    out = {}
+    for name in PARAM_FIELDS:
+        want = getattr(total, name)
+        g = grads_held(opt.exp_avg[name] / (1.0 - 0.9), want)
+        a = grads_held(torch.sqrt(opt.exp_avg_sq[name] / (1.0 - 0.999)),
+                       want.abs())
+        out[name] = g + (a[2],)
+    return out
+
+
+def reference_gradients(trainer, state, cams, targets, bg):
+    """The port's single-device Trainer over the cameras: the losses, and
+    the parameters' and the tap's gradients summed over the cameras."""
+    losses, total, tap = [], None, None
+    for cam, target in zip(cams, targets):
+        def loss_of(gstate, t, abstap, cam=cam, target=target):
+            return trainer.render_losses(gstate, cam, H, W, bg, SH_DEGREE,
+                                         target, None, t, abstap, 0)
+        g, t, _, loss, _ = trainer.gradients(state, loss_of)
+        losses.append(float(loss.detach()))
+        total = g if total is None else total.map(
+            lambda k, x: x + getattr(g, k))
+        tap = t if tap is None else tap + t
+    return losses, total, tap
+
+
+def sharded_rank(dp, mp, n_steps):
+    """One rank of phase 17 (a): the sharded step on its view. Returns its
+    step times, launches per step, exchange cost and peak memory; then,
+    in a world of more than one, a step from the same state at a top-K
+    budget below the shard on `compaction_views`. Rank 0 also holds the
+    first step and that step against the single-device Trainer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = GS.make_mesh(dp * mp, dp=dp, mp=mp, device="cuda")
+    arrays = scene_arrays(N_GAUSSIANS)
+    trainer = Trainer(model=VanillaGaussianConfig(sh_degree=SH_DEGREE))
+    bg = torch.zeros(3, device="cuda")
+    cams = [camera(c2w) for c2w in dist_views()][:dp * mp]
+    truth = state_from_raw_arrays(arrays, device="cuda")
+    with torch.no_grad():
+        targets = [trainer.renderer.forward(truth, cam, H, W, bg,
+                                            SH_DEGREE).render
+                   for cam in cams]
+    del truth
+    state = trainer.setup(
+        state_from_raw_arrays(perturbed(arrays), device="cuda"),
+        cameras_extent=TRAIN_EXTENT)
+    k = auto_compact_k(state.gaussians, cams, H, W, mp)
+    step = GS.make_mp_train_step(
+        mesh, trainer.tx, H, W, SH_DEGREE,
+        compact_k=None if k >= state.params.capacity // mp else k)
+    j = mesh.dp_index * mp + mesh.mp_index
+    params, alive, opt = GS.shard_params(mesh, state.params, state.alive,
+                                         state.opt_state)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = step(params, alive, opt, cams[j], targets[j], bg)
+    first = {"loss": float(out[2]), "overflow": int(out[5]),
+             "launches": read_launches()}
+    # the first step's moments are its raw gradients: mu = (1 - b1) g
+    _, _, opt1 = GS.gather_params(mesh, out[0], alive, out[1])
+    tap1 = GS.gather_rows(mesh, out[3])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    mesh.stats.reset()
+    ms, overflow = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        out = step(out[0], alive, out[1], cams[j], targets[j], bg)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        overflow.append(out[5])
+    rec = {"rank": mesh.rank, "backend": mesh.backend, "ms": ms,
+           "launches": read_launches(), "exchange": mesh.stats.snapshot(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "overflow": [int(x) for x in overflow], "first": first,
+           "compact_k": k, "cap_local": state.params.capacity // mp}
+    if mesh.size == 1:
+        return rec
+    # a budget below the shard: one step from the same state on views that
+    # leave rows of each shard unseen, at the least budget that drops none
+    ccams = [camera(c2w) for c2w in compaction_views()][:dp * mp]
+    ctargets = bench_targets(arrays, ccams, bg)
+    k_tight = max_visible_per_shard(state.gaussians, ccams, H, W, mp)
+    cout = GS.make_mp_train_step(mesh, trainer.tx, H, W, SH_DEGREE,
+                                 compact_k=k_tight)(
+        params, alive, opt, ccams[j], ctargets[j], bg)
+    _, _, copt = GS.gather_params(mesh, cout[0], alive, cout[1])
+    ctap = GS.gather_rows(mesh, cout[3])
+    rec["compaction"] = {"k": k_tight, "loss": float(cout[2]),
+                         "overflow": int(cout[5])}
+    if mesh.rank != 0:
+        return rec
+    losses, total, tap = reference_gradients(trainer, state, cams, targets,
+                                             bg)
+    ratio = float(torch.linalg.norm(opt1.exp_avg["means"] / (1.0 - 0.9))
+                  / torch.linalg.norm(total.means / len(cams)))
+    rec["reference"] = {"losses": losses, "mean": float(np.mean(losses)),
+                        "errs": moments_against(opt1, total), "ratio": ratio,
+                        "tap": grads_held(tap1, tap)}
+    losses, total, tap = reference_gradients(trainer, state, ccams,
+                                             ctargets, bg)
+    rec["compaction"].update(
+        losses=losses, mean=float(np.mean(losses)),
+        errs=moments_against(copt, total), tap=grads_held(ctap, tap))
+    return rec
+
+
+def hold_sharded(what, loss, ref, n_dev):
+    """Fail unless the sharded step's `loss`, moments and tap sums hold
+    the single-device reference `ref` (loss the mean, gradients the sums
+    over the views, each field held to its own scale)."""
+    if abs(loss - ref["mean"]) > DIST_LOSS_RTOL * abs(ref["mean"]):
+        fail(f"{what}: sharded loss {loss} != the single-device mean "
+             f"{ref['mean']} ({ref['losses']})")
+    bad = [k for k, e in ref["errs"].items() if not (e[2] and e[3])]
+    if bad or not ref["tap"][2]:
+        fail(f"{what}: sharded gradients off the single-device sums: {bad},"
+             f" tap {ref['tap']}; {ref['errs']}")
+    log(f"{what}: loss {loss:.7f} vs the single-device mean "
+        f"{ref['mean']:.7f} over {ref['losses']}; first moments / (1 - b1) "
+        f"against the Trainer's gradients summed over the {n_dev} views, "
+        f"max |d| (max |ref|): "
+        + ", ".join(f"{k} {e[0]:.3e} ({e[1]:.3e})"
+                    for k, e in ref["errs"].items())
+        + f"; tap sums {ref['tap'][0]:.3e} ({ref['tap'][1]:.3e}); each "
+        f"field within rtol {DIST_GRAD_RTOL} and {DIST_GRAD_ATOL} of its "
+        "max |ref|, and sqrt(nu / (1 - b2)) so against |g|")
+
+
+def phase_distributed_step():
+    """Phase 17 (a)."""
+    log(f"== phase 17 (a): the sharded step, {DIST_DP * DIST_MP} ranks "
+        f"(dp {DIST_DP} x mp {DIST_MP}) on {torch.cuda.device_count()} "
+        f"card(s), {N_GAUSSIANS} Gaussians, {H}x{W}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = spawn(sharded_rank, DIST_DP * DIST_MP, "cuda",
+                 args=(DIST_DP, DIST_MP, DIST_STEPS))
+    spawn_s = time.perf_counter() - t0
+    ref = recs[0]["reference"]
+    first = recs[0]["first"]
+    n_dev = DIST_DP * DIST_MP
+    hold_sharded("distributed gradients", first["loss"], ref, n_dev)
+    if abs(ref["ratio"] - n_dev) > DIST_RATIO_TOL:
+        fail(f"|g| / |mean-loss g| {ref['ratio']:.6f}, not {n_dev}")
+    log(f"distributed gradients: |g| / |mean-loss g| {ref['ratio']:.6f} "
+        f"(n_dev = {n_dev})")
+    comp = recs[0]["compaction"]
+    cap_local = recs[0]["cap_local"]
+    if not comp["k"] < cap_local:
+        fail(f"the compaction views see {comp['k']} rows of a shard of "
+             f"{cap_local}: the top-K would drop nothing")
+    if any(r["compaction"]["overflow"] for r in recs):
+        fail(f"compaction at k {comp['k']} dropped splats: "
+             f"{[r['compaction']['overflow'] for r in recs]}")
+    hold_sharded(f"distributed compaction (compact_k {comp['k']} of "
+                 f"{cap_local} rows a shard, overflow 0)", comp["loss"], comp,
+                 n_dev)
+    for r in recs:
+        for name in GAUSSIAN_KERNELS:
+            if r["launches"][name] != DIST_STEPS \
+                    or r["first"]["launches"][name] != 1:
+                fail(f"rank {r['rank']} launched {name} "
+                     f"{r['launches'][name]} times in {DIST_STEPS} steps")
+        others = {k: v for k, v in r["launches"].items()
+                  if v and k not in GAUSSIAN_KERNELS}
+        if others:
+            fail(f"rank {r['rank']} launched {others}")
+        if any(r["overflow"]) or r["first"]["overflow"]:
+            fail(f"the exchange dropped splats: {r['overflow']}")
+    k = recs[0]["compact_k"]
+    k_eff = min(k, recs[0]["cap_local"])
+    xbytes = GS.exchange_bytes_per_step(n_dev, DIST_MP, k_eff)
+    ex = recs[0]["exchange"]
+    log(f"distributed step: {n_dev} ranks on {torch.cuda.device_count()} x "
+        f"{CARD}, backend "
+        f"{recs[0]['backend']}, compact_k {k} of {recs[0]['cap_local']} "
+        f"rows a shard, overflow 0; spawn to results {spawn_s:.1f} s")
+    log(f"distributed step: ms per step (host clock, synchronised, steps "
+        f"2-{DIST_STEPS + 1}), median per rank "
+        f"{[round(float(np.median(r['ms'])), 2) for r in recs]}; rank 0 "
+        f"{[round(x, 2) for x in recs[0]['ms']]}")
+    log(f"distributed step: exchange per step on rank 0: forward "
+        f"{1e3 * ex['fwd_s'] / DIST_STEPS:.2f} ms, backward "
+        f"{1e3 * ex['bwd_s'] / DIST_STEPS:.2f} ms (staging included); "
+        f"host staging of every collective {1e3 * ex['staging_s'] / DIST_STEPS:.2f}"
+        f" ms and {ex['staged_bytes'] / DIST_STEPS / 1e6:.1f} MB a step in "
+        f"{ex['staged_copies'] // DIST_STEPS} copies; "
+        f"exchange_bytes_per_step {xbytes} ({xbytes / 1e6:.1f} MB)")
+    log(f"distributed step: peak memory per rank "
+        f"{[round(r['peak_gib'], 3) for r in recs]} GiB; launches per rank "
+        f"in {DIST_STEPS} steps {[r['launches'] for r in recs][:1]} (each "
+        f"rank the same)")
+    torch.cuda.synchronize()
+    one = sharded_rank(1, 1, DIST_STEPS)
+    for name in GAUSSIAN_KERNELS:
+        if one["launches"][name] != DIST_STEPS:
+            fail(f"world 1 launched {name} {one['launches'][name]} times")
+    log(f"distributed step at world 1 (dp 1 x mp 1, no process group, "
+        f"bench pose): ms per step median "
+        f"{float(np.median(one['ms'])):.2f} ({[round(x, 2) for x in one['ms']]})"
+        f", peak {one['peak_gib']:.3f} GiB; beside {n_dev} ranks: "
+        f"{float(np.median(recs[0]['ms'])):.2f}")
+    return {"ranks": recs, "one": one, "exchange_bytes": xbytes,
+            "launches": [r["launches"] for r in recs]}
+
+
+def phase_distributed_fit(tmp, colmap_fit):
+    """Phase 17 (b), on phase 8's scene in `tmp`."""
+    log("== phase 17 (b): colmap.yaml + distributed.yaml through `cli fit`"
+        f", dp {DIST_DP} x mp {DIST_MP} spawned by the CLI, at {H}x{W}")
+    colmap = os.path.join(PRESETS, "colmap.yaml")
+    dist_preset = os.path.join(PRESETS, "distributed.yaml")
+    data, runs = os.path.join(tmp, "scene"), os.path.join(tmp, "runs")
+    run = os.path.join(runs, "dist")
+
+    def fit(steps, name="dist", extra=DIST_OVERRIDES + (
+            f"distributed={{dp: {DIST_DP}, mp: {DIST_MP}}}",)):
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        _, results = cli.main(
+            ["fit", "--config", colmap, "--config", dist_preset,
+             "--data.path", data, "--output", runs, "-n", name,
+             "--max_steps", str(steps), *extra])
+        with open(os.path.join(runs, name, "fit_timing.json")) as f:
+            timing = json.load(f)
+        n = timing["end_step"] - timing["start_step"] + 1
+        for r, rank in enumerate(timing["ranks"]):
+            if {k: v for k, v in rank["launches"].items()} != {
+                    k: n for k in GAUSSIAN_KERNELS}:
+                fail(f"{name}: rank {r} launched {rank['launches']} in "
+                     f"{n} steps")
+        with open(os.path.join(runs, name, "mp_log.csv")) as f:
+            rows = list(csv.reader(f))[1:]
+        if not all(math.isfinite(float(r[1])) for r in rows):
+            fail(f"{name}: a non-finite loss in {rows}")
+        return results, timing, rows, timing["loop_start_time"] - t0
+
+    res1, t1, rows1, before1 = fit(DIST_FIT_STEPS)
+    res2, t2, rows2, before2 = fit(DIST_RESUME_STEPS)
+    if t2["start_step"] != DIST_FIT_STEPS + 1:
+        fail(f"the resumed fit started at {t2['start_step']}")
+    if rows2[:len(rows1)] != rows1 or [int(r[0]) for r in rows2] != list(
+            range(25, DIST_RESUME_STEPS + 1, 25)):
+        fail(f"mp_log.csv holds {rows2}, not {rows1} and then the resumed "
+             "run's rows")
+    for rel in [f"checkpoints/step_{s}/{f}"
+                for s in (DIST_FIT_STEPS, DIST_RESUME_STEPS)
+                for f in ("state.pt", "fit_meta.json")] + [
+            f"point_cloud/iteration_{DIST_RESUME_STEPS}/point_cloud.ply",
+            "metrics/val.csv", "config.yaml"]:
+        if not os.path.isfile(os.path.join(run, rel)):
+            fail(f"the distributed fit wrote no {rel}")
+    if not any(d["after"] != d["before"] for d in t1["densify"] +
+               t2["densify"]):
+        fail(f"no densify changed the count: {t1['densify']}")
+    val = run_cli(["validate", "--output", runs, "-n", "dist"],
+                  ("expand", "rasterize_fwd"))
+    psnr0 = colmap_fit["psnr0"]
+    if not val["results"]["psnr"] > psnr0:
+        fail(f"val PSNR {val['results']['psnr']:.3f} of the distributed fit "
+             f"is not above the initial cloud's {psnr0:.3f}")
+    for tag, t, rows, before in (("steps 1-100", t1, rows1, before1),
+                                 ("resumed to 150", t2, rows2, before2)):
+        ms = {int(r[0]): round(1e3 / float(r[8]), 2) for r in rows}
+        log(f"fit distributed.yaml {tag}: {before:.1f} s before the first "
+            f"step (4 rank start-ups, parse, init); loop "
+            f"{t['wall_s']:.1f} s, {1e3 * t['wall_s'] / (t['end_step'] - t['start_step'] + 1):.1f}"
+            f" ms per step; ms per step in each log window {ms}; backend "
+            f"{t['backend']}; loader wait on rank 0 {t['loader_wait_s']:.2f} s;"
+            f" peak per rank "
+            f"{[round(r['peak_bytes'] / 2 ** 30, 3) for r in t['ranks']]} GiB"
+            f"; exchange fwd/bwd s per rank "
+            f"{[(round(r['exchange']['fwd_s'], 2), round(r['exchange']['bwd_s'], 2)) for r in t['ranks']]}")
+        for d in t["densify"]:
+            log(f"fit distributed.yaml: densify at step {d['step']}: "
+                f"{d['before']} -> {d['after']} alive, capacity "
+                f"{d['capacity']}, shards {d['shards']}, rebalanced to "
+                f"{d['rebalanced']}, "
+                f"{t['densify_ms'][t['densify'].index(d)]:.1f} ms")
+    log(f"fit distributed.yaml mp_log.csv rows {rows2}")
+    log(f"fit distributed.yaml: val PSNR at step {DIST_FIT_STEPS} "
+        f"{res1['psnr']:.3f} dB, at {DIST_RESUME_STEPS} {res2['psnr']:.3f}, "
+        f"`cli validate` of the run {val['results']['psnr']:.3f}, the "
+        f"initial cloud's {psnr0:.3f}")
+
+    res3, t3, rows3, before3 = fit(DIST_PRESET_STEPS, "dist_preset",
+                                   ("fit.log_interval=5",))
+    if t3["mesh"] != {"dp": 1, "mp": 1} or t3["backend"] is not None:
+        fail(f"distributed.yaml as shipped ran on {t3['mesh']}, "
+             f"{t3['backend']}")
+    log(f"fit distributed.yaml as shipped (distributed: true, a world of 1"
+        f" on this card): {DIST_PRESET_STEPS} steps, {before3:.1f} s before "
+        f"the first, {1e3 * t3['wall_s'] / DIST_PRESET_STEPS:.1f} ms per "
+        f"step ({t3['loader_wait_s']:.2f} s of {t3['wall_s']:.2f} waiting "
+        f"on the loader), rows {rows3}, val PSNR "
+        f"{res3['psnr']:.3f} dB")
+    return {"fit": (t1, t2), "psnr": val["results"]["psnr"]}
+
+
+def phase_distributed(tmp, colmap_fit):
+    """Phase 17: (a) the sharded step; (b) the distributed fit through the
+    CLI."""
+    t0 = time.perf_counter()
+    rec = {"step": phase_distributed_step()}
+    torch.cuda.empty_cache()
+    rec["fit"] = phase_distributed_fit(tmp, colmap_fit)
+    log(f"phase 17 took {time.perf_counter() - t0:.1f} s")
     return rec
 
 
@@ -5781,9 +6207,11 @@ def main():
         phase_distill_entry_points(tmp)
         torch.cuda.empty_cache()
         phase_serve_and_edit(tmp, arrays)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_partitions(arrays, tmp)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as city_tmp:
+            phase_partitions(arrays, city_tmp)
+        torch.cuda.empty_cache()
+        dist = phase_distributed(tmp, colmap_fit)
     # StopThePop beside plain 3DGS, phases 7 and 4/5 of this run
     log("StopThePop over plain 3DGS, this run: bench-pose rgb frame ms "
         f"{[round(x, 2) for x in stp_serving['rgb_frame_ms']]} vs "
@@ -5879,6 +6307,10 @@ def main():
                  attributes=r["bwd_attributes"])
     for e, r in ((kernels[1], rec), (kernels[5], srec), (kernels[7], trec)):
         e.update(attributes=r["fwd_attributes"])
+    # phase 17 (a): each rank's launches in its timed sharded steps
+    for e in kernels[:4]:
+        e["distributed_launches"] = [r[e["name"]]
+                                     for r in dist["step"]["launches"]]
     for e, r in ((kernels[1], rec), (kernels[7], trec)):
         e.update(near_pairs=r["near_pairs"])
     # phase 14 (a): K2, K3 and K4 at the distillation widths

@@ -9,9 +9,8 @@ checkpoint. ``--device`` (default ``cuda``) picks where it runs.
 
 The same YAML files drive both packages. Fields that exist only for the
 TPU (`TPU_ONLY_FIELDS`) are accepted and ignored with one printed line.
-Components, fields and keys of variants the port does not have yet raise
-``NotImplementedError`` naming their ROADMAP item; any other unknown field
-raises ``KeyError``. A ``class_path`` into gsl_tpu (``taming.yaml``
+Components the port does not have yet raise ``NotImplementedError``
+naming their ROADMAP item; any other unknown field raises ``KeyError``. A ``class_path`` into gsl_tpu (``taming.yaml``
 names one) resolves through the registry, or raises
 ``NotImplementedError``: it is never imported. Two variants that
 gsl_tpu's CLI combines but whose step applies only one (an appearance
@@ -26,6 +25,16 @@ replaces the trainer's, with anything that step drops) raise
 into `DeformModelConfig`) selects `DeformTrainer`.
 Without ``model.n_appearances`` the appearance embedding is sized from the
 data at fit time.
+
+``distributed:`` (true, or a mapping of ``n_devices``, ``dp``, ``mp``,
+``compact_k`` and ``backend``) routes ``fit`` to
+``parallel/fit_distributed.py``: camera data parallelism x Gaussian-sharded
+model parallelism over ``torch.distributed``. Under a launcher (``RANK``
+and ``WORLD_SIZE`` set: ``torchrun``, ``tools/launch_multihost.py``) this
+process is one rank and joins by ``env://``; otherwise the CLI spawns the
+dp x mp ranks on this host (a world of one runs in this process), and a
+rank that fails fails the command, naming the rank. ``n_devices`` is the
+world size; ranks share cards when there are more ranks than cards.
 """
 from __future__ import annotations
 
@@ -56,6 +65,7 @@ from .models.gaussian import VanillaGaussianConfig
 from .models.gaussian_2d import Gaussian2DConfig
 from .models.mip_splatting import MipSplattingConfig
 from .models.pvg import PVGConfig, PVGRendererConfig
+from .parallel import fit_distributed
 from .renderers.mip_splatting_renderer import MipSplattingRendererConfig
 from .renderers.surfel_renderer import SurfelRendererConfig
 from .renderers.tile_renderer import TileRendererConfig
@@ -145,10 +155,6 @@ TPU_ONLY_FIELDS = ("backend", "chunk", "pallas_chunk", "max_per_tile",
                    "fast_math", "exact_sort", "matmul_precision",
                    "size_bucket")
 
-# top-level / model keys gsl_tpu's build_components reads for variants
-_UNPORTED_KEYS = {"distributed": 13}
-
-
 def _not_ported(what: str, item: int):
     return NotImplementedError(
         f"{what} is not ported to gsl_tpu_torch yet (ROADMAP item {item})")
@@ -235,10 +241,6 @@ def parse_overrides(pairs) -> Dict:
 def build_components(cfg: Dict):
     """-> (trainer, dataparser config, FitConfig)."""
     model_spec = cfg.get("model", {})
-    for key, item in _UNPORTED_KEYS.items():
-        if cfg.get(key) or model_spec.get(key):
-            raise _not_ported(f"the {key!r} key", item)
-
     data_spec = cfg.get("data", {})
     parser_spec = data_spec.get("parser", {"class_path": "Colmap"})
     if isinstance(parser_spec, str):
@@ -394,6 +396,18 @@ def main(argv=None):
     cfg["fit"]["seed"] = args.seed
 
     trainer, dataparser_cfg, fit_cfg = build_components(cfg)
+    if args.subcommand == "fit" and cfg.get("distributed"):
+        os.makedirs(fit_cfg.output_dir, exist_ok=True)
+        if int(os.environ.get("RANK", "0")) == 0:
+            with open(os.path.join(fit_cfg.output_dir, "config.yaml"),
+                      "w") as f:
+                yaml.safe_dump(cfg, f)
+        # every rank builds its own components and data
+        results = fit_distributed.run(cfg, device)
+        if results:
+            print(f"val: psnr={results['psnr']:.3f} "
+                  f"ssim={results['ssim']:.4f}")
+        return None, results
     outputs = dataparser_cfg.instantiate().get_outputs()
 
     if args.subcommand == "fit":

@@ -159,24 +159,43 @@ class CachedDataset:
 
 
 class DataLoader:
-    """Infinite shuffled iterator with a one-image lookahead thread. An
-    error the thread meets reading an image is raised from `next`."""
+    """Infinite shuffled iterator, with a one-image lookahead thread when
+    `async_prefetch`. An error the thread meets reading an image is raised
+    from `next`. With `world_size` > 1 the loader of `rank` draws from the
+    images ``rank::world_size`` only, from ``RandomState(seed + rank)``
+    (gsl_tpu's per-rank slices); `shuffle` False walks them in order.
+    `skip` fast-forwards the index stream (training resume). `shuffle`,
+    `async_prefetch`, `rank` and `world_size` are gsl_tpu's options, kept
+    for API parity with its loader: the port's fits pass `seed` and `skip`
+    only (the distributed fit's ranks read their own images)."""
 
-    def __init__(self, dataset: CachedDataset, seed: int = 0, skip: int = 0):
+    def __init__(self, dataset: CachedDataset, shuffle: bool = True,
+                 seed: int = 0, async_prefetch: bool = True, rank: int = 0,
+                 world_size: int = 1, skip: int = 0):
         self.dataset = dataset
-        self.rng = np.random.RandomState(seed)
-        self.skip = skip  # fast-forward (training resume): index-only
+        self.shuffle = shuffle
+        self.rng = np.random.RandomState(seed + rank)
+        self.rank = rank
+        self.world_size = world_size
+        self.async_prefetch = async_prefetch
+        self.skip = skip
 
     def _indices(self):
         idx = np.arange(len(self.dataset))
+        if self.world_size > 1:
+            idx = idx[self.rank::self.world_size]
         while True:
-            yield from self.rng.permutation(idx)
+            yield from (self.rng.permutation(idx) if self.shuffle else idx)
 
     def __iter__(self) -> Iterator[Tuple[Cameras, str, torch.Tensor,
                                          Optional[torch.Tensor]]]:
         gen = self._indices()
         for _ in range(self.skip):
             next(gen)
+        if not self.async_prefetch:
+            for i in gen:
+                yield self.dataset.get(int(i))
+            return
 
         q: "queue.Queue" = queue.Queue(maxsize=1)
         stop = threading.Event()

@@ -40,7 +40,7 @@ PRESETS = ("colmap.yaml", "blender.yaml", "stp.yaml", "gs2d.yaml",
            "bilagrid.yaml", "exposure.yaml", "grad_acc.yaml",
            "revising.yaml", "taming.yaml", "gns.yaml", "light_gaussian.yaml",
            "glossy.yaml", "deformable.yaml", "gs4d.yaml", "pvg.yaml",
-           "spotless.yaml", "segany.yaml")
+           "spotless.yaml", "segany.yaml", "distributed.yaml")
 OVERRIDES = ["data.path=/data/scene",
              "model.density.init_args.densify_from_iter=100",
              "model.density.init_args.densification_interval=50",
@@ -108,18 +108,6 @@ def test_unknown_field_raises():
             cli.build_components(spec)
     with pytest.raises(KeyError, match="unknown component"):
         cli.build_components({"model": {"renderer": {"class_path": "Nope"}}})
-
-
-# Every preset but distributed.yaml is ported, and it raises naming its
-# item
-@pytest.mark.parametrize("preset,overrides,item", [
-    ("distributed.yaml", {}, 13)])
-def test_unported_presets_raise_naming_their_item(preset, overrides, item):
-    cfg = cli.load_config([os.path.join(REPO, "gsl_tpu", "configs", preset)],
-                          overrides)
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP item {item}\b"):
-        cli.build_components(cfg)
 
 
 # The components that raised naming their item until they were ported (the

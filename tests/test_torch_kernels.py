@@ -1168,3 +1168,42 @@ def test_surfel_backward_kernel_takes_any_channel_count(cuda):
     shares = column_shares(SR.rasterize_surfels_bwd(*bwd, group=8), rows_p)
     assert min(shares) >= SURFEL_GRAD_SHARE, shares
     assert torch.equal(rows, SR.rasterize_surfels_bwd(*bwd))  # no atomics
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_card_stages_through_the_host(cuda):
+    """gsl_tpu_torch.parallel on the card: 2 ranks (dp 1 x mp 2) share it
+    over gloo, every collective staged through page-locked host buffers;
+    the step's loss, radii and first moments agree with the same 2 ranks
+    on the CPU (the plain versions of the kernels) at the kernels' shares,
+    and the card ranks launch K1-K4 once each."""
+    import torch_parallel_ranks as ranks
+    from gsl_tpu_torch.parallel.launch import spawn
+    from gsl_tpu_torch.tools.mp_scaling_table import synthetic_arrays
+    n, cap, h, w = 3000, 4096, 64, 96
+    state = synthetic_arrays(n, cap, sh_degree=1)
+    state["params"]["means"][:n, 2] -= 1.5     # into the cameras' view
+    cams = [{"R": np.eye(3), "T": np.array([0.3 * i - 0.15, 0.0, 0.0]),
+             "fx": 90.0, "fy": 90.0, "cx": w / 2, "cy": h / 2, "width": w,
+             "height": h} for i in range(2)]
+    gts = np.random.RandomState(3).uniform(0, 1, (2, h, w, 3)).astype(
+        np.float32)
+    bg = np.zeros(3, np.float32)
+    args = (1, 2, state, cams, gts, None, bg, h, w, 1)
+    card = spawn(ranks.sharded_step, 2, "cuda", args=args + (None, "cuda"))
+    cpu = spawn(ranks.sharded_step, 2, "cpu", args=args + (None, "cpu"))
+    got, want = card[0], cpu[0]
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-4)
+    assert float(np.mean(got["radii"] == want["radii"])) >= SHARE
+    for k in PARAM_FIELDS:
+        g, r = torch.from_numpy(got["mu"][k]), torch.from_numpy(want["mu"][k])
+        scale = float(r.abs().max()) + 1e-12
+        assert close_share(g / scale, r / scale) >= SHARE, k
+    ex = got["exchange"]
+    assert ex["fwd_calls"] == ex["bwd_calls"] == 1
+    assert ex["staged_copies"] > 0 and ex["staged_bytes"] > 0
+    assert want["exchange"]["staged_copies"] == 0
+    assert all(r["launches"] == dict.fromkeys(
+        ("expand", "rasterize_fwd", "rasterize_bwd", "reduce_grads"), 1)
+        for r in card)
+    assert all(set(r["launches"].values()) == {0} for r in cpu)

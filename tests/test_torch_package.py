@@ -180,6 +180,17 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
     # on the CPU it gets past the device and on to the (missing) data
     with pytest.raises(FileNotFoundError, match="no COLMAP sparse model"):
         cli.main(argv + ["--device", "cpu"])
+    # the distributed fit (a world of one without a card) and its tools
+    argv = argv + ["--config", str(REPO / "gsl_tpu_torch" / "configs" /
+                                   "distributed.yaml")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    with pytest.raises(FileNotFoundError, match="no COLMAP sparse model"):
+        cli.main(argv + ["--device", "cpu"])
+    from gsl_tpu_torch.tools import mp_scaling_table, mp_stage_split
+    for tool in (mp_scaling_table, mp_stage_split):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tool.main(["--worlds", "1"])
 
     from gsl_tpu_torch.tools import get_depth_scales, gs2d_mesh_extraction
     with pytest.raises(RuntimeError, match="device='cpu'"):
