@@ -4,7 +4,8 @@ regularisers, the appearance slice, the density variants, Glossy and the
 dynamic scenes), of its fit through the CLI, of 2DGS mesh extraction, of
 serving and editing a trained scene (the web and in-training viewers,
 the parsers, LPIPS and the tools) and of a city by partitions (the
-partition tools and the level-of-detail renderer) on one CUDA card.
+partition tools and the level-of-detail renderer), of distributed
+training and of the quality protocol and stage profile on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -290,8 +291,8 @@ package is not beside this script. Phases, each fatal on failure:
    originals; scene scale 0.5 and a centre; 100,000 of the means as
    points.npy; views 4, 12 and 20 to val), parsed at downsample 2:
    deformable.yaml, gs4d.yaml (warm-up 50) and pvg.yaml, densifying from
-   50 every 50, each fitted for 150 steps and resumed to 200 (must
-   continue at 151; the field must have taken 151 updates). Each launches
+   50 every 50, each fitted for 100 steps and resumed to 150 (must
+   continue at 101; the field must have taken 101 updates). Each launches
    K1-K4 and nothing else and must end above the initial cloud's val
    PSNR (for the deform presets the canonical set's, as gsl_tpu
    validates). Prints what phase 9 (b) prints and, for the deform
@@ -337,7 +338,7 @@ package is not beside this script. Phases, each fatal on failure:
    /measure finite; /path/add twice, /path/save, /path/render.gif of 30
    frames that decode (30 launches each), /path/clear. Then the same on
    phase 8's gs2d.yaml run through SurfelRenderer (K5, K6). Prints ms per
-   rgb /render request (median of 10, the HTTP round trip with the PNG
+   rgb /render request (median of 5, the HTTP round trip with the PNG
    encode) beside get_outputs alone and the encode alone, ms of
    /transform, seconds of the GIF, peak memory and launches per request;
    four /render requests sent at once must peak no higher (within 1%)
@@ -381,12 +382,12 @@ package is not beside this script. Phases, each fatal on failure:
    sfm_outlier_detection must flag exactly the two; the native
    points3D.bin reader against the plain one (equal arrays, seconds);
    train_partitions --n-partitions 4 --max-steps 100 with colmap.yaml and
-   fit.capacity_multiplier 1.0 as two concurrent --hosts 2 processes, one
+   fit.capacity_multiplier 1.0 as four concurrent --hosts 4 processes, one
    `cli fit` process a partition on the card, each of which must end
    TRAINED having launched K1-K4 and no other
    kernel (its fit_timing.json); prune_partitions --mode blend (K1-K4);
    finetune_partition of partition 0 from lod1 for 50 steps (K1-K4);
-   merge_partitions; eval_scenes over two of the four runs (K1 + K2);
+   merge_partitions; eval_scenes over one of the four runs (K1 + K2);
    meganerf2colmap of a Mega-NeRF layout of the same cameras, whose poses
    must come back within 1e-9; val_partition_lod --names . lod1
    --lod-distances 1 --visibility-filter on the val split (one K1 and one
@@ -418,14 +419,29 @@ package is not beside this script. Phases, each fatal on failure:
    the same step at world 1 (dp 1 x mp 1, in this process) beside them.
    (b) phase 8's scene through `cli fit` with colmap.yaml +
    distributed.yaml and distributed: {dp: 2, mp: 2} (4 ranks spawned by
-   the CLI), densifying every 50 steps, for 100 steps and then resumed to
-   150: every rank must launch K1-K4 once a step and nothing else, the
-   resume must continue at 101 and its mp_log.csv go on, `cli validate`
+   the CLI), densifying every 25 steps, for 50 steps and then resumed to
+   75: every rank must launch K1-K4 once a step and nothing else, the
+   resume must continue at 51 and its mp_log.csv go on, `cli validate`
    must read the run's checkpoint and score above the initial cloud's
    PSNR; then distributed.yaml as shipped (a world of one on this card)
    for 10 steps. Prints ms per step of each log window, the seconds
    before the first step, each densify and re-balance, the mp_log.csv rows
    and the val PSNR.
+18. the quality tools: (a) gsl_tpu_torch.tools.profile_stages at the bench
+   scene (__graft_entry__._synthetic_state, 1M, SH degree 3, 1088x1920,
+   the bench pose), each stage timed by CUDA events over 5 calls after
+   one, printed beside phase 4's stage_times or phase 3's kernel time;
+   it must launch K1-K4 and nothing else, and every stage time and e2e
+   gradient must be finite. (b) gsl_tpu_torch.tools.quality_benchmark in
+   process, cut in views and steps only (QUALITY_ARGV): a 1M SH-3
+   teacher's 16 views at 512^2 (and at 256^2 for 2DGS) rendered through
+   K1 and K2, a student from 20,000 random points through the vanilla
+   schedule for 1,202 steps (one densify, at 600), a 50-step run,
+   stp.yaml for 200 steps and gs2d.yaml for 100 at 256^2: every run's val
+   PSNR must be above that of its initial cloud through the same
+   renderer, its count positive, the report must hold its rows, and all
+   nine kernels must be launched. Prints each run's PSNR, SSIM, count and
+   seconds.
 
 Bounds in the kernels line: the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM f32 without tensor cores). K1 moves 52
@@ -467,9 +483,11 @@ CUDA events. In the kernels line, `launches` is a kernel's count
 on the training path of its own model (K1-K4: phase 5; K5-K7: phase
 6; K2s, K3s: phase 7) and `serving_launches` on the serving path; K4 also
 carries its surfel-layout numbers under `surfel_*` keys, and K1 its
-StopThePop numbers (phase 7's counts) under `stp_*` keys. All nine
-kernels (K4 with R = 9 and, under `surfel_attributes`, R = 19) carry their
-`attributes` as the card's runtime reports them.
+StopThePop numbers (phase 7's counts) under `stp_*` keys; every kernel
+carries its phase-18 counts under `profile_launches` and
+`quality_launches`. All nine kernels (K4 with R = 9 and, under
+`surfel_attributes`, R = 19) carry their `attributes` as the card's
+runtime reports them.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -535,7 +553,8 @@ from gsl_tpu_torch.tools import (ckpt2ply, convert2splat, eval_scenes,
                                  finetune_partition, fuse_mip_filter,
                                  gaussian_transform, get_depth_scales,
                                  gs2d_mesh_extraction, meganerf2colmap,
-                                 merge_partitions, prune_partitions,
+                                 merge_partitions, profile_stages,
+                                 prune_partitions, quality_benchmark,
                                  sfm_outlier_detection, train_partitions,
                                  val_partition_lod)
 from gsl_tpu_torch.training import fit as fit_module
@@ -3873,7 +3892,7 @@ NERFIES_H, NERFIES_W = 540, 960        # a capture's 2x images of 1080x1920
 NERFIES_SCALE = 0.5
 NERFIES_CENTER = np.array([0.2, -0.1, 0.3])
 NERFIES_VAL = (4, 12, 20)              # the views dataset.json gives val
-DYNAMIC_FIT_STEPS, DYNAMIC_RESUME_STEPS = 150, 200
+DYNAMIC_FIT_STEPS, DYNAMIC_RESUME_STEPS = 100, 150
 DYNAMIC_WARM_UP = 50                   # the deform presets' warm-up, cut
 
 
@@ -4760,8 +4779,8 @@ def phase_distill_entry_points(tmp):
 # ---- phase 15: serve and edit ----------------------------------------------
 
 VIEWER_SIZE = 1088          # the served frame's side when the camera rests
-RENDER_REPS = 10            # /render requests timed, and get_outputs calls
-GIF_FRAMES = 30             # the viewer's camera-path GIF
+RENDER_REPS = 5             # /render requests timed, and get_outputs calls
+GIF_FRAMES = 30             # the viewer's camera-path GIF (its length)
 CONCURRENT = 4              # /render requests sent at once
 SERVE_KERNELS = ("expand", "rasterize_fwd")
 SURFEL_SERVE_KERNELS = ("surfel_expand", "surfel_fwd")
@@ -5262,8 +5281,8 @@ CITY_OFFSETS = [np.array([CITY_SPACING * i, 0.0, CITY_SPACING * j])
 CITY_FRAMES = 40            # the LoD fly-over at 1088x1920
 CITY_VIEWS = 12             # COLMAP views per copy in (b)
 CITY_STEPS, CITY_FINETUNE_STEPS = 100, 50
-EVAL_PARTITIONS = 2            # the partitions eval_scenes re-validates
-CITY_HOSTS = 2                 # train_partitions processes run at once
+EVAL_PARTITIONS = 1            # the partitions eval_scenes re-validates
+CITY_HOSTS = 4                 # train_partitions processes run at once
 
 
 def city_arrays(arrays):
@@ -5719,11 +5738,12 @@ def phase_partitions(arrays, tmp):
 
 DIST_DP, DIST_MP = 2, 2
 DIST_STEPS = 10                # timed steps after the first
-DIST_FIT_STEPS, DIST_RESUME_STEPS = 100, 150
+DIST_FIT_STEPS, DIST_RESUME_STEPS = 50, 75
 DIST_PRESET_STEPS = 10
-DIST_OVERRIDES = ("model.density.init_args.densify_from_iter=50",
-                  "model.density.init_args.densification_interval=50",
-                  "fit.log_interval=25")
+DIST_LOG_INTERVAL = 25
+DIST_OVERRIDES = ("model.density.init_args.densify_from_iter=25",
+                  "model.density.init_args.densification_interval=25",
+                  f"fit.log_interval={DIST_LOG_INTERVAL}")
 DIST_LOSS_RTOL = 1e-5
 # ROADMAP's gradient tolerance, rtol 5e-3 and atol 1e-4, with the atol
 # taken of each field's own scale (max |ref|, where below 1): the fields
@@ -6005,7 +6025,8 @@ def phase_distributed_fit(tmp, colmap_fit):
     if t2["start_step"] != DIST_FIT_STEPS + 1:
         fail(f"the resumed fit started at {t2['start_step']}")
     if rows2[:len(rows1)] != rows1 or [int(r[0]) for r in rows2] != list(
-            range(25, DIST_RESUME_STEPS + 1, 25)):
+            range(DIST_LOG_INTERVAL, DIST_RESUME_STEPS + 1,
+                  DIST_LOG_INTERVAL)):
         fail(f"mp_log.csv holds {rows2}, not {rows1} and then the resumed "
              "run's rows")
     for rel in [f"checkpoints/step_{s}/{f}"
@@ -6024,8 +6045,9 @@ def phase_distributed_fit(tmp, colmap_fit):
     if not val["results"]["psnr"] > psnr0:
         fail(f"val PSNR {val['results']['psnr']:.3f} of the distributed fit "
              f"is not above the initial cloud's {psnr0:.3f}")
-    for tag, t, rows, before in (("steps 1-100", t1, rows1, before1),
-                                 ("resumed to 150", t2, rows2, before2)):
+    for tag, t, rows, before in (
+            (f"steps 1-{DIST_FIT_STEPS}", t1, rows1, before1),
+            (f"resumed to {DIST_RESUME_STEPS}", t2, rows2, before2)):
         ms = {int(r[0]): round(1e3 / float(r[8]), 2) for r in rows}
         log(f"fit distributed.yaml {tag}: {before:.1f} s before the first "
             f"step (4 rank start-ups, parse, init); loop "
@@ -6073,6 +6095,135 @@ def phase_distributed(tmp, colmap_fit):
     return rec
 
 
+# phase 18 (b): the quality protocol, cut in views and steps only
+# (1,202 steps: densify_until 601, so one densify, at 600; a densify runs
+# at from < step < until)
+QUALITY_ARGV = ["--views", "16", "--res", "512", "--steps", "1202",
+                "--fast-steps", "50", "--variant-steps", "200",
+                "--gs2d-steps", "100", "--gs2d-res", "256"]
+# profile_stages' rows beside phase 4's stage_times and phase 3's kernels
+PROFILE_BESIDE = {"project": ("stage", "project"),
+                  "sh_colors": ("stage", "sh"),
+                  "isect_encode": ("stage", "expand"),
+                  "expand": ("kernel", "expand_ms"),
+                  "sort": ("stage", "sort"),
+                  "tile ranges": ("stage", "ranges"),
+                  "raster_fwd": ("stage", "forward"),
+                  "raster_bwd": ("kernel", "bwd_ms"),
+                  "reduce": ("kernel", "reduce_ms")}
+
+
+def phase_profile_stages(stage_ms, kernel_rec):
+    """Phase 18 (a): profile_stages at the bench scene, each stage beside
+    phase 4's stage_times (isect_encode beside its expand, which holds
+    isect_encode and K1) or phase 3's kernel time (`kernel_rec`, None
+    when phase 3 did not run)."""
+    log("== phase 18 (a): gsl_tpu_torch.tools.profile_stages at the bench "
+        f"scene ({N_GAUSSIANS}, {H}x{W})")
+    t0 = time.perf_counter()
+    reset_launches()
+    prof = profile_stages.main([])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_launches().items() if v}
+    if set(launches) != set(GAUSSIAN_KERNELS):
+        fail(f"profile_stages launched {launches}, not K1-K4 alone")
+    for name, ms in prof["ms"].items():
+        if not (math.isfinite(ms) and ms > 0):
+            fail(f"profile_stages: stage {name} took {ms} ms")
+    if not all(bool(torch.isfinite(g).all()) for g in prof["e2e_grads"]):
+        fail("profile_stages: non-finite e2e gradients")
+    for name, (where, key) in PROFILE_BESIDE.items():
+        if where == "stage":
+            other = f"phase 4 stage_times {key} {stage_ms[key]:.4f} ms"
+        elif kernel_rec is None:
+            other = "phase 3 not run"
+        else:
+            other = f"phase 3 {key[:-3]} (CUDA graph) {kernel_rec[key]:.4f} ms"
+        log(f"profile {name:<14} {prof['ms'][name]:9.4f} ms; {other}")
+    log(f"profile e2e raster fwd+bwd {prof['ms'][profile_stages.E2E]:.4f} "
+        f"ms, {prof['pixels_per_s'] / 1e6:.2f}M pixels/s; n_isects "
+        f"{prof['n_isects']}, slots {prof['slots']}; launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def quality_initial_psnr(trainer, outputs, out_dir):
+    """Val PSNR of a run's initial cloud, built as its fit builds it."""
+    cfg = quality_benchmark.protocol_fit_config(1, out_dir)
+    with contextlib.redirect_stdout(io.StringIO()):
+        gaussians = _init_gaussians(trainer, outputs, cfg, "cuda")
+        return validate(trainer, trainer.setup(
+            gaussians, outputs.camera_extent), outputs, cfg)["psnr"]
+
+
+def phase_quality(tmp):
+    """Phase 18 (b): the quality protocol in process, cut in views and
+    steps: every run's PSNR must be above its initial cloud's, its count
+    positive, and all nine kernels launched."""
+    log("== phase 18 (b): gsl_tpu_torch.tools.quality_benchmark "
+        + " ".join(QUALITY_ARGV))
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "quality")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    result = quality_benchmark.main(QUALITY_ARGV + ["--workdir", work])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    t_run = time.perf_counter() - t0
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        fail(f"quality protocol: kernels {missing} were never launched")
+    args = quality_benchmark.parse_args(QUALITY_ARGV + ["--device", "cuda",
+                                                        "--workdir", work])
+    outputs = {r: quality_benchmark.build_outputs(args, r)
+               for r in (args.res, args.gs2d_res)}
+    presets = {tag: cli.build_components(cli.load_config(
+        [os.path.join(PRESETS, f"{tag}.yaml")], {}))[0]
+        for tag in ("stp", "gs2d")}
+    runs = {"full": (result["full"], args.steps,
+                     quality_benchmark.protocol_trainer(args.steps),
+                     outputs[args.res]),
+            "short": (result["exact_short"], args.fast_steps,
+                      quality_benchmark.protocol_trainer(args.fast_steps),
+                      outputs[args.res]),
+            "stp": (result["variants"]["stp"], args.variant_steps,
+                    presets["stp"], outputs[args.res]),
+            "gs2d": (result["variants"]["gs2d"], args.gs2d_steps,
+                     presets["gs2d"], outputs[args.gs2d_res])}
+    for tag, (rec, steps, trainer, outs) in runs.items():
+        psnr0 = quality_initial_psnr(trainer, outs,
+                                     os.path.join(work, f"initial_{tag}"))
+        log(f"quality {tag}: {steps} steps, val PSNR {rec['psnr']:.3f} dB "
+            f"(initial cloud {psnr0:.3f}), SSIM {rec['ssim']:.4f}, "
+            f"{rec['n_gaussians']} Gaussians, {60 * rec['minutes']:.1f} s")
+        if not (math.isfinite(rec["psnr"]) and rec["psnr"] > psnr0):
+            fail(f"quality {tag}: val PSNR {rec['psnr']} is not above the "
+                 f"initial cloud's {psnr0}")
+        if not rec["n_gaussians"] > 0:
+            fail(f"quality {tag}: no Gaussian left")
+    with open(os.path.join(work, "QUALITY.md")) as f:
+        report = f.read()
+    if (f"| full | {args.steps} |" not in report
+            or "| 2DGS (gs2d.yaml" not in report):
+        fail(f"quality protocol: the report lacks a row:\n{report}")
+    log(f"quality protocol: launches {launches}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; "
+        f"{t_run:.1f} s, {time.perf_counter() - t0:.1f} s with the initial "
+        "clouds' PSNR")
+    return launches
+
+
+def phase_quality_tools(tmp, stage_ms, kernel_rec):
+    """Phase 18: (a) the stage profile; (b) the quality protocol."""
+    t0 = time.perf_counter()
+    rec = {"profile": phase_profile_stages(stage_ms, kernel_rec)}
+    torch.cuda.empty_cache()
+    rec["quality"] = phase_quality(tmp)
+    log(f"phase 18 took {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
 def tensors_of(x):
     """The tensors and numbers of nested dicts, in key order."""
     if isinstance(x, dict):
@@ -6093,13 +6244,9 @@ def main():
     count = torch.cuda.device_count()
 
     log("== phase 1: device and build")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    log(smi[0])
     global CARD
-    CARD = smi[0]
+    CARD = quality_benchmark.card_name("cuda")
+    log(CARD)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {kind} "
         f"x{count}")
     t0 = time.perf_counter()
@@ -6212,6 +6359,8 @@ def main():
             phase_partitions(arrays, city_tmp)
         torch.cuda.empty_cache()
         dist = phase_distributed(tmp, colmap_fit)
+        torch.cuda.empty_cache()
+        quality = phase_quality_tools(tmp, serving["stage_ms"], rec)
     # StopThePop beside plain 3DGS, phases 7 and 4/5 of this run
     log("StopThePop over plain 3DGS, this run: bench-pose rgb frame ms "
         f"{[round(x, 2) for x in stp_serving['rgb_frame_ms']]} vs "
@@ -6311,6 +6460,10 @@ def main():
     for e in kernels[:4]:
         e["distributed_launches"] = [r[e["name"]]
                                      for r in dist["step"]["launches"]]
+    # phase 18: launches in the stage profile and the quality protocol
+    for e in kernels:
+        e["quality_launches"] = quality["quality"][e["name"]]
+        e["profile_launches"] = quality["profile"].get(e["name"], 0)
     for e, r in ((kernels[1], rec), (kernels[7], trec)):
         e.update(near_pairs=r["near_pairs"])
     # phase 14 (a): K2, K3 and K4 at the distillation widths

@@ -192,6 +192,14 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tool.main(["--worlds", "1"])
 
+    # the quality protocol and the stage profile
+    from gsl_tpu_torch.tools import profile_stages, quality_benchmark
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quality_benchmark.main(["--workdir", str(tmp_path / "q")])
+    assert not (tmp_path / "q").exists()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        profile_stages.main(["--n", "10"])
+
     from gsl_tpu_torch.tools import get_depth_scales, gs2d_mesh_extraction
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_depth_scales.main([str(tmp_path / "no_scene")])
