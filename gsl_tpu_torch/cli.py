@@ -5,7 +5,9 @@ Port of ``gsl_tpu/cli.py``: YAML presets select component classes by
 ``key=value`` overrides win over earlier ones; ``-n/--name`` builds the
 output dir; ``fit`` snapshots the resolved config into it, and
 ``validate`` / ``test`` load that snapshot first and then the newest
-checkpoint. ``--device`` (default ``cuda``) picks where it runs.
+checkpoint. ``--device`` (default ``cuda``) picks where it runs;
+``fit --trace_steps FIRST LAST`` profiles those steps into the run's
+``trace_FIRST-LAST.json`` (``training/fit.py``).
 
 The same YAML files drive both packages. Fields that exist only for the
 TPU (`TPU_ONLY_FIELDS`) are accepted and ignored with one printed line.
@@ -369,10 +371,16 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch "
                          "versions of the kernels")
+    ap.add_argument("--trace_steps", type=int, nargs=2, default=None,
+                    metavar=("FIRST", "LAST"),
+                    help="fit: torch.profiler over steps FIRST to LAST, "
+                         "written as trace_FIRST-LAST.json in the run")
     ap.add_argument("set", nargs="*", help="key=value overrides")
     # key=value overrides may come before, between or after the options
     args = ap.parse_intermixed_args(argv)
     device = resolve_device(args.device)
+    if args.trace_steps and args.subcommand != "fit":
+        raise ValueError("--trace_steps profiles a fit")
 
     overrides = parse_overrides(args.set)
     config_paths = list(args.config)
@@ -397,6 +405,8 @@ def main(argv=None):
 
     trainer, dataparser_cfg, fit_cfg = build_components(cfg)
     if args.subcommand == "fit" and cfg.get("distributed"):
+        if args.trace_steps:
+            raise ValueError("--trace_steps profiles a single-device fit")
         os.makedirs(fit_cfg.output_dir, exist_ok=True)
         if int(os.environ.get("RANK", "0")) == 0:
             with open(os.path.join(fit_cfg.output_dir, "config.yaml"),
@@ -415,7 +425,8 @@ def main(argv=None):
         with open(os.path.join(fit_cfg.output_dir, "config.yaml"),
                   "w") as f:
             yaml.safe_dump(cfg, f)
-        state, results = fit(trainer, outputs, fit_cfg, device=device)
+        state, results = fit(trainer, outputs, fit_cfg, device=device,
+                             trace_steps=args.trace_steps)
         if results:
             print(f"val: psnr={results['psnr']:.3f} "
                   f"ssim={results['ssim']:.4f}")

@@ -15,6 +15,7 @@ from typing import Union
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.tracing import span
 
 _TENSOR_FIELDS = ("R", "T", "fx", "fy", "cx", "cy", "appearance_id", "time")
 
@@ -64,11 +65,14 @@ class Cameras:
         return Cameras(width=w, height=h, **fields)
 
     def to(self, device) -> "Cameras":
-        moved = {k: getattr(self, k).to(device) for k in _TENSOR_FIELDS}
-        if not isinstance(self.width, int):
-            moved.update(width=self.width.to(device),
-                         height=self.height.to(device))
-        return dataclasses.replace(self, **moved)
+        # from the host, each field a copy from pageable memory, which
+        # waits on the stream (the fit loop's first visit of a view)
+        with span("wait.camera_to"):
+            moved = {k: getattr(self, k).to(device) for k in _TENSOR_FIELDS}
+            if not isinstance(self.width, int):
+                moved.update(width=self.width.to(device),
+                             height=self.height.to(device))
+            return dataclasses.replace(self, **moved)
 
     @property
     def device(self) -> torch.device:

@@ -20,6 +20,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.tracing import span
 from .cameras import Cameras
 from .dataparsers.dataparser import ImageSet, PointCloud
 from .dataparsers.estimated_depth_colmap import load_depth
@@ -46,7 +47,8 @@ def load_image(path: str, background: Optional[np.ndarray] = None
 
 def image_to_float(img_u8: torch.Tensor) -> torch.Tensor:
     """Cached uint8 HWC -> float32 in [0, 1], the JAX package's values."""
-    return img_u8.to(torch.float32) / 255.0
+    with span("data.to_float"):
+        return img_u8.to(torch.float32) / 255.0
 
 
 def _undistort(img: np.ndarray, K: np.ndarray, dist: np.ndarray, path: str
@@ -219,7 +221,10 @@ class DataLoader:
         t.start()
         try:
             while True:
-                item, error = q.get()
+                # the lookahead thread is not traced: this wait is what
+                # the step feels of it
+                with span("data.wait"):
+                    item, error = q.get()
                 if error is not None:
                     raise error
                 yield item

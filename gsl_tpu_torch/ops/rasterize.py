@@ -44,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.tracing import span
 from . import cuda_build
 from .projection import Projections, tile_rect
 from .rasterize_reference import (ALPHA_THRESHOLD, MAX_ALPHA,
@@ -78,18 +79,23 @@ def _tiles(img_height, img_width, tile_size):
 
 def isect_encode(projections: Projections, img_height: int, img_width: int,
                  tile_size: int) -> Isects:
-    tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
-    rect_min, rect_max = tile_rect(projections, tile_size, tiles_x, tiles_y)
-    size = rect_max - rect_min
-    hits = (size[:, 0] * size[:, 1]).to(torch.int64)
-    slots = torch.clamp(hits, min=1)
-    ends = torch.cumsum(slots, 0)
-    total, n_isects = (torch.stack([ends[-1], hits.sum()]).tolist()
-                       if hits.numel() else (0, 0))
-    return Isects(offsets=ends - slots,
-                  rect=torch.cat([rect_min, size], 1).to(torch.int32)
-                  .contiguous(),
-                  total=total, n_isects=n_isects)
+    with span("raster.isect_encode"):
+        tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
+        rect_min, rect_max = tile_rect(projections, tile_size, tiles_x,
+                                       tiles_y)
+        size = rect_max - rect_min
+        hits = (size[:, 0] * size[:, 1]).to(torch.int64)
+        slots = torch.clamp(hits, min=1)
+        ends = torch.cumsum(slots, 0)
+        total, n_isects = 0, 0
+        if hits.numel():
+            counts = torch.stack([ends[-1], hits.sum()])
+            with span("wait.slot_count"):
+                total, n_isects = counts.tolist()
+        return Isects(offsets=ends - slots,
+                      rect=torch.cat([rect_min, size], 1).to(torch.int32)
+                      .contiguous(),
+                      total=total, n_isects=n_isects)
 
 
 def slot_tiles(isects: Isects, tiles_y: int):
@@ -851,21 +857,25 @@ class _Rasterize(torch.autograd.Function):
         proj = Projections(means2d=means2d, depths=depths, radii=radii,
                            conics=conics, compensations=None, mask=None)
         isects = isect_encode(proj, img_height, img_width, tile_size)
-        keys, gids = expand(isects, means2d, conics, opacities, depths,
-                            tiles_x, tiles_y, tile_size, tile_based_culling,
-                            stp_resort, depth_grads)
-        sorted_keys, gids_sorted, order = sort_slots(keys, gids)
-        bounds = tile_bounds(sorted_keys, tiles_x * tiles_y)
+        with span("raster.expand"):
+            keys, gids = expand(isects, means2d, conics, opacities, depths,
+                                tiles_x, tiles_y, tile_size,
+                                tile_based_culling, stp_resort, depth_grads)
+        with span("raster.sort"):
+            sorted_keys, gids_sorted, order = sort_slots(keys, gids)
+        with span("raster.tile_bounds"):
+            bounds = tile_bounds(sorted_keys, tiles_x * tiles_y)
         ckpt = None
-        if stp_resort:
-            out, t_fin, i_stop, ckpt = _stp().rasterize_fwd_stp(
-                means2d, conics, opacities, channels, depths, depth_grads,
-                gids_sorted, bounds, img_height, img_width, tile_size,
-                checkpoints=checkpoints)
-        else:
-            out, t_fin, i_stop = rasterize_fwd(
-                means2d, conics, opacities, channels, gids_sorted, bounds,
-                img_height, img_width, tile_size)
+        with span("raster.fwd"):
+            if stp_resort:
+                out, t_fin, i_stop, ckpt = _stp().rasterize_fwd_stp(
+                    means2d, conics, opacities, channels, depths,
+                    depth_grads, gids_sorted, bounds, img_height, img_width,
+                    tile_size, checkpoints=checkpoints)
+            else:
+                out, t_fin, i_stop = rasterize_fwd(
+                    means2d, conics, opacities, channels, gids_sorted,
+                    bounds, img_height, img_width, tile_size)
         info.update(n_isects=isects.n_isects, t_final=t_fin, i_stop=i_stop)
         ctx.save_for_backward(means2d, conics, opacities, channels,
                               gids_sorted, bounds, t_fin, i_stop, order,
@@ -880,22 +890,26 @@ class _Rasterize(torch.autograd.Function):
          i_stop, order, offsets, depths, depth_grads,
          ckpt) = ctx.saved_tensors
         n = means2d.shape[0]
-        # invalid keys sort last: the valid slots are the first bounds[-1],
-        # and the rows behind them stay zero
-        if ctx.stp_resort:
-            rows = _stp().rasterize_bwd_stp(
-                means2d, conics, opacities, channels, depths, depth_grads,
-                gids_sorted, bounds, g_out.contiguous(),
-                g_alpha.contiguous(), t_fin, ckpt, ctx.tile_size)
-        else:
-            rows = rasterize_bwd(means2d, conics, opacities, channels,
-                                 gids_sorted, bounds, g_out.contiguous(),
-                                 g_alpha.contiguous(), t_fin, i_stop,
-                                 ctx.tile_size)
-        summed = reduce_grads(rows, gids_sorted, offsets,
-                              invert_order(order), bounds[-1:], n)
-        return (summed[:, 0:2], summed[:, 2:5], summed[:, 5],
-                summed[:, 8:], summed[:, 6:8]) + (None,) * 10
+        # on autograd's own thread where the tensors are on the card
+        with span("raster.backward"):
+            # invalid keys sort last: the valid slots are the first
+            # bounds[-1], and the rows behind them stay zero
+            with span("raster.bwd"):
+                if ctx.stp_resort:
+                    rows = _stp().rasterize_bwd_stp(
+                        means2d, conics, opacities, channels, depths,
+                        depth_grads, gids_sorted, bounds, g_out.contiguous(),
+                        g_alpha.contiguous(), t_fin, ckpt, ctx.tile_size)
+                else:
+                    rows = rasterize_bwd(
+                        means2d, conics, opacities, channels, gids_sorted,
+                        bounds, g_out.contiguous(), g_alpha.contiguous(),
+                        t_fin, i_stop, ctx.tile_size)
+            with span("raster.reduce"):
+                summed = reduce_grads(rows, gids_sorted, offsets,
+                                      invert_order(order), bounds[-1:], n)
+            return (summed[:, 0:2], summed[:, 2:5], summed[:, 5],
+                    summed[:, 8:], summed[:, 6:8]) + (None,) * 10
 
 
 def rasterize(projections: Projections, opacities, channels,

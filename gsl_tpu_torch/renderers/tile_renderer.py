@@ -26,6 +26,7 @@ from ..ops.rasterize import rasterize
 from ..ops.sh import sh_to_rgb
 from ..ops.transforms import normalize_quat, quat_to_rotmat
 from ..utils.device import float32_math
+from ..utils.tracing import span
 from .renderer import RendererOutputInfo, RendererOutputType
 
 
@@ -114,70 +115,79 @@ class TileRenderer:
         times the compensations when anti-aliased, in place of
         `get_opacities`."""
         cfg = self.config
-        with float32_math():   # the camera transform's matrix product
-            proj = project_gaussians(
-                self.get_means(gaussians, camera),
-                self.get_scales(gaussians, camera) * scaling_modifier,
-                gaussians.get_rotations(), camera.world_to_camera,
-                camera.fx, camera.fy, camera.cx, camera.cy, img_width,
-                img_height, filter_2d=cfg.filter_2d_kernel_size)
-        if means2d_tap is not None:
-            proj = proj._replace(means2d=proj.means2d + means2d_tap)
-        if opacity_offset is not None:
-            op = gaussians.get_opacities() + opacity_offset * gaussians.alive
-            op = torch.minimum(op, op.new_ones(()))  # jnp.minimum's ties
-            opacities = (op * proj.compensations if cfg.anti_aliased
-                         else op)
-        else:
-            opacities = self.get_opacities(gaussians, camera, proj)
-        rgbs = (rgbs_override if rgbs_override is not None
-                else self.get_rgbs(gaussians, camera, sh_degree))
+        with span("render.project"):
+            with float32_math():   # the camera transform's matrix product
+                proj = project_gaussians(
+                    self.get_means(gaussians, camera),
+                    self.get_scales(gaussians, camera) * scaling_modifier,
+                    gaussians.get_rotations(), camera.world_to_camera,
+                    camera.fx, camera.fy, camera.cx, camera.cy, img_width,
+                    img_height, filter_2d=cfg.filter_2d_kernel_size)
+            if means2d_tap is not None:
+                proj = proj._replace(means2d=proj.means2d + means2d_tap)
+            if opacity_offset is not None:
+                op = (gaussians.get_opacities()
+                      + opacity_offset * gaussians.alive)
+                op = torch.minimum(op, op.new_ones(()))  # jnp.minimum's ties
+                opacities = (op * proj.compensations if cfg.anti_aliased
+                             else op)
+            else:
+                opacities = self.get_opacities(gaussians, camera, proj)
+        with span("render.colors"):
+            rgbs = (rgbs_override if rgbs_override is not None
+                    else self.get_rgbs(gaussians, camera, sh_degree))
 
         # extra composited channels next to rgb
-        channels = [rgbs]
-        bg = [bg_color.to(rgbs)]
-        idx = {}
-        c = 3
-        if {"alpha", "acc_depth", "exp_depth"} & render_types:
-            channels.append(proj.depths[:, None])
-            idx["acc_depth"] = c
-            c += 1
-        if "inverse_depth" in render_types:
-            channels.append(1.0 / torch.clamp(proj.depths[:, None], min=1e-8))
-            idx["inverse_depth"] = c
-            c += 1
-        if "normal" in render_types:
-            # per-gaussian normal = local z axis (third rotation column),
-            # flipped to face the camera
-            normals = quat_to_rotmat(
-                normalize_quat(gaussians.get_rotations()))[:, :, 2]
-            dirs = (self.get_means(gaussians, camera).detach()
-                    - camera.camera_center)
-            away = torch.sum(normals * dirs, dim=-1) > 0.0
-            normals = normals * torch.where(away, -1.0, 1.0)[:, None]
-            channels.append(normals)
-            idx["normal"] = c
-            c += 3
-        ch = torch.cat(channels, dim=-1)
-        bg.append(torch.zeros(c - 3, dtype=rgbs.dtype, device=rgbs.device))
-        bgv = torch.cat(bg)
+        with span("render.channels"):
+            channels = [rgbs]
+            bg = [bg_color.to(rgbs)]
+            idx = {}
+            c = 3
+            if {"alpha", "acc_depth", "exp_depth"} & render_types:
+                channels.append(proj.depths[:, None])
+                idx["acc_depth"] = c
+                c += 1
+            if "inverse_depth" in render_types:
+                channels.append(
+                    1.0 / torch.clamp(proj.depths[:, None], min=1e-8))
+                idx["inverse_depth"] = c
+                c += 1
+            if "normal" in render_types:
+                # per-gaussian normal = local z axis (third rotation
+                # column), flipped to face the camera
+                normals = quat_to_rotmat(
+                    normalize_quat(gaussians.get_rotations()))[:, :, 2]
+                dirs = (self.get_means(gaussians, camera).detach()
+                        - camera.camera_center)
+                away = torch.sum(normals * dirs, dim=-1) > 0.0
+                normals = normals * torch.where(away, -1.0, 1.0)[:, None]
+                channels.append(normals)
+                idx["normal"] = c
+                c += 3
+            ch = torch.cat(channels, dim=-1)
+            bg.append(torch.zeros(c - 3, dtype=rgbs.dtype,
+                                  device=rgbs.device))
+            bgv = torch.cat(bg)
 
-        img_nobg, alpha, aux = rasterize(
-            proj, opacities, ch, img_height, img_width, cfg.tile_size,
-            cfg.tile_based_culling, absgrad_tap, cfg.stp_resort)
-        img = img_nobg + (1.0 - alpha)[..., None] * bgv
+        with span("render.rasterize"):
+            img_nobg, alpha, aux = rasterize(
+                proj, opacities, ch, img_height, img_width, cfg.tile_size,
+                cfg.tile_based_culling, absgrad_tap, cfg.stp_resort)
+            img = img_nobg + (1.0 - alpha)[..., None] * bgv
 
         hard_inv = None
         if "hard_inverse_depth" in render_types:
             # hard blending: every visible splat fully opaque, with the
             # reference's straight-through gradient
-            hard_op = opacities + (1.0 - opacities).detach()
-            hard_op = hard_op * (opacities > 0.0)
-            inv_d = 1.0 / torch.clamp(proj.depths[:, None], min=1e-8)
-            hd_img, _, _ = rasterize(
-                proj, hard_op, inv_d, img_height, img_width, cfg.tile_size,
-                cfg.tile_based_culling, stp_resort=cfg.stp_resort)
-            hard_inv = hd_img[..., 0]
+            with span("render.rasterize"):
+                hard_op = opacities + (1.0 - opacities).detach()
+                hard_op = hard_op * (opacities > 0.0)
+                inv_d = 1.0 / torch.clamp(proj.depths[:, None], min=1e-8)
+                hd_img, _, _ = rasterize(
+                    proj, hard_op, inv_d, img_height, img_width,
+                    cfg.tile_size, cfg.tile_based_culling,
+                    stp_resort=cfg.stp_resort)
+                hard_inv = hd_img[..., 0]
 
         acc_depth = img[..., idx["acc_depth"]] if "acc_depth" in idx else None
         exp_depth = None

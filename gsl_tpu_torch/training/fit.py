@@ -35,6 +35,19 @@ and after; cloned, split and pruned rows, or for MCMC the dead rows
 relocated and the rows added), and the CUDA kernels the loop launched,
 with their counts (a fit run as a subprocess, as train_partitions
 runs them, shows its kernels there).
+
+``fit(..., trace_steps=(first, last))`` (the CLI's ``--trace_steps FIRST
+LAST``) runs ``torch.profiler`` (the host and, on the card, its kernels,
+copies and fills) over those steps and writes its Chrome trace
+``trace_<first>-<last>.json`` beside ``fit_timing.json`` (open it in
+Perfetto or ``chrome://tracing``). It is an argument, not a field of
+`FitConfig`: a profile is not part of a run's configuration, and the
+configuration's fields are gsl_tpu's. The port's spans
+(``utils/tracing.py``) name each layer in it: ``data.*``, ``train.*``
+(forward, loss, backward, Adam, the density statistics), ``render.*``,
+``raster.*`` and a ``wait.*`` span around each call that blocks the host
+on the device. The spans cost nothing measurable when no profiler
+records; the profiler's own cost is in the traced steps' time.
 """
 from __future__ import annotations
 
@@ -223,15 +236,43 @@ def _sync(dev: torch.device):
         torch.cuda.synchronize(dev)
 
 
+def _trace_window(trace_steps, max_steps: int):
+    """(first, last) of `trace_steps`, or None when it is empty."""
+    if not trace_steps:
+        return None
+    if len(trace_steps) != 2:
+        raise ValueError(f"trace_steps must be (first, last), not "
+                         f"{list(trace_steps)}")
+    first, last = (int(s) for s in trace_steps)
+    if not 1 <= first <= last <= max_steps:
+        raise ValueError(f"trace_steps ({first}, {last}) must lie in "
+                         f"1..max_steps ({max_steps}), first <= last")
+    return first, last
+
+
+def _start_profiler(dev: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    _sync(dev)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
 def fit(trainer: Trainer, outputs: DataParserOutputs, cfg: FitConfig,
-        val_at_end: bool = True, device=None):
+        val_at_end: bool = True, device=None, trace_steps=()):
     """Train on `outputs.train_set` up to `cfg.max_steps` on `device`
-    (default cuda). Returns (state, validation results or None)."""
+    (default cuda). Returns (state, validation results or None).
+    `trace_steps` (first, last), 1-based and at most `cfg.max_steps`:
+    profile those steps into ``trace_<first>-<last>.json``."""
     if cfg.resume not in ("auto", "never", "", None) \
             and not os.path.isdir(cfg.resume):
         raise FileNotFoundError(
             f"fit.resume checkpoint not found: {cfg.resume}")
     dev = resolve_device(device)
+    trace_window = _trace_window(trace_steps, cfg.max_steps)
     os.makedirs(cfg.output_dir, exist_ok=True)
     generator = torch.Generator(device=dev)
     generator.manual_seed(cfg.seed)
@@ -291,6 +332,7 @@ def fit(trainer: Trainer, outputs: DataParserOutputs, cfg: FitConfig,
     training_viewer = None
     cameras = {}              # per image name, on the device
     loader_wait, densify_ms, densify_counts = 0.0, [], []
+    profiler = None
 
     try:
         if cfg.viewer:
@@ -303,6 +345,9 @@ def fit(trainer: Trainer, outputs: DataParserOutputs, cfg: FitConfig,
         loop_start_time = time.time()
         t_start = t_last = time.perf_counter()
         for step in range(start_step, cfg.max_steps + 1):
+            if (trace_window is not None and profiler is None
+                    and trace_window[0] <= step <= trace_window[1]):
+                profiler = _start_profiler(dev)
             t0 = time.perf_counter()
             cam, name, img_u8, img_mask = next(loader)
             loader_wait += time.perf_counter() - t0
@@ -353,11 +398,19 @@ def fit(trainer: Trainer, outputs: DataParserOutputs, cfg: FitConfig,
 
             if step in cfg.save_iterations:
                 save_at(step)
+            if profiler is not None and step == trace_window[1]:
+                _sync(dev)
+                profiler.stop()
+                profiler.export_chrome_trace(os.path.join(
+                    cfg.output_dir, "trace_%d-%d.json" % trace_window))
+                profiler = None
 
         if cfg.max_steps not in cfg.save_iterations \
                 and start_step <= cfg.max_steps:
             save_at(cfg.max_steps)
     finally:
+        if profiler is not None:    # a step raised inside the window
+            profiler.stop()
         loader.close()
         log_f.close()
         if training_viewer is not None:

@@ -32,6 +32,7 @@ from ..models.gaussian import (GaussianParams, GaussianState,
 from ..renderers.tile_renderer import (TileRendererConfig,
                                        viewspace_grad_scale)
 from ..utils.device import float32_math
+from ..utils.tracing import span
 from .density import (AccurateVisibilityFilterDensityControllerConfig,
                       DensityControlState, VanillaDensityControllerConfig,
                       densify_and_prune, init_density_state, reset_opacities,
@@ -162,10 +163,11 @@ class Trainer:
         if op_params is not None:
             render, op_reg = apply_processor(self.output_processor,
                                              op_params, image_idx, render)
-        loss, scalars = train_loss(
-            render, gt_image, mask,
-            lambda_dssim=self.metrics_cfg.lambda_dssim,
-            rgb_diff_loss=self.metrics_cfg.rgb_diff_loss)
+        with span("train.loss"):
+            loss, scalars = train_loss(
+                render, gt_image, mask,
+                lambda_dssim=self.metrics_cfg.lambda_dssim,
+                rgb_diff_loss=self.metrics_cfg.rgb_diff_loss)
         loss = loss + op_reg
         # MCMC opacity / scale L1 regularizers
         m = self.metrics_cfg
@@ -205,14 +207,16 @@ class Trainer:
         # full float32 for the projection's matrix product, the SSIM
         # convolutions and their gradients
         with float32_math():
-            loss, aux = loss_of(GaussianState(params=leaves,
-                                              alive=state.alive,
-                                              extra=state.extra),
-                                tap, abstap)
+            with span("train.forward"):
+                loss, aux = loss_of(GaussianState(params=leaves,
+                                                  alive=state.alive,
+                                                  extra=state.extra),
+                                    tap, abstap)
             fields = leaves.fields()
             wrt = ([getattr(leaves, k) for k in fields]
                    + [abstap if use_absgrad else tap] + list(others))
-            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, wrt, allow_unused=True)
         grads = [torch.zeros_like(w) if g is None else g
                  for g, w in zip(grads, wrt)]
         n = len(fields)
@@ -224,14 +228,18 @@ class Trainer:
                       img_width: int, img_height: int):
         """The density statistics after a step whose tap gradient is
         `stat_grad`."""
-        gscale = viewspace_grad_scale(
-            img_width, img_height,
-            self.renderer_cfg.max_viewspace_grad_scale, state.alive.device)
-        return update_stats(
-            state.density, stat_grad, radii, gscale,
-            accurate_visibility=isinstance(
-                self.density_cfg,
-                AccurateVisibilityFilterDensityControllerConfig))
+        with span("train.density_stats"):
+            # a host list uploaded: the copy waits on the stream
+            with span("wait.grad_scale"):
+                gscale = viewspace_grad_scale(
+                    img_width, img_height,
+                    self.renderer_cfg.max_viewspace_grad_scale,
+                    state.alive.device)
+            return update_stats(
+                state.density, stat_grad, radii, gscale,
+                accurate_visibility=isinstance(
+                    self.density_cfg,
+                    AccurateVisibilityFilterDensityControllerConfig))
 
     @torch.no_grad()
     def adam_step(self, state: TrainState, pgrads: GaussianParams,
@@ -239,14 +247,15 @@ class Trainer:
         """-> (parameters, Adam state) after one step with `pgrads`;
         `update_scale` multiplies the named properties' updates after Adam
         (its moments stay as Adam left them)."""
-        updates, opt_state = self.tx.update(pgrads, state.opt_state)
-        scale = update_scale or {}
+        with span("train.adam"):
+            updates, opt_state = self.tx.update(pgrads, state.opt_state)
+            scale = update_scale or {}
 
-        def step(k, x):
-            u = getattr(updates, k)
-            return x + (u * scale[k] if k in scale else u)
+            def step(k, x):
+                u = getattr(updates, k)
+                return x + (u * scale[k] if k in scale else u)
 
-        return state.params.map(step), opt_state
+            return state.params.map(step), opt_state
 
     def apply_gradients(self, state: TrainState, pgrads: GaussianParams,
                         stat_grad, radii, img_width: int, img_height: int,
@@ -272,46 +281,48 @@ class Trainer:
         them. A density controller's own terms (GNS's): `extra_loss`
         (gstate -> 0-d tensor) joins the loss, and `update_scale` scales
         properties' Adam updates (see `adam_step`)."""
-        use_absgrad = (getattr(self.density_cfg, "absgrad", False)
-                       and self.renderer.supports_absgrad())
-        has_op = (self.output_processor is not None
-                  and state.extra is not None
-                  and "__outproc__" in state.extra)
-        others, op_kwargs = [], {}
-        if has_op:
-            others = [state.extra["__outproc__"].detach().requires_grad_(
-                True)]
-            op_kwargs = dict(op_params=others[0],
-                             image_idx=0 if image_idx is None else image_idx)
+        with span("train.step"):
+            use_absgrad = (getattr(self.density_cfg, "absgrad", False)
+                           and self.renderer.supports_absgrad())
+            has_op = (self.output_processor is not None
+                      and state.extra is not None
+                      and "__outproc__" in state.extra)
+            others, op_kwargs = [], {}
+            if has_op:
+                others = [state.extra["__outproc__"].detach().requires_grad_(
+                    True)]
+                op_kwargs = dict(
+                    op_params=others[0],
+                    image_idx=0 if image_idx is None else image_idx)
 
-        def loss_of(gstate, tap, abstap):
-            loss, aux = self.render_losses(
-                gstate, camera, img_height, img_width, bg_color, sh_degree,
-                gt_image, mask, tap, abstap, state.step,
-                aux_inputs=aux_inputs, **op_kwargs)
-            if extra_loss is not None:
-                loss = loss + extra_loss(gstate)
-            return loss, aux
+            def loss_of(gstate, tap, abstap):
+                loss, aux = self.render_losses(
+                    gstate, camera, img_height, img_width, bg_color, sh_degree,
+                    gt_image, mask, tap, abstap, state.step,
+                    aux_inputs=aux_inputs, **op_kwargs)
+                if extra_loss is not None:
+                    loss = loss + extra_loss(gstate)
+                return loss, aux
 
-        pgrads, stat_grad, op_grads, _, (scalars, radii, n_dropped) = \
-            self.gradients(state, loss_of, others, use_absgrad)
-        params, opt_state, density = self.apply_gradients(
-            state, pgrads, stat_grad, radii, img_width, img_height,
-            update_scale)
-        extra = state.extra
-        if has_op:
-            with torch.no_grad():
-                new, op_opt = self.op_tx.update(
-                    {"__outproc__": state.extra["__outproc__"]},
-                    {"__outproc__": op_grads[0]},
-                    state.extra["__outproc_opt__"])
-            extra = dict(state.extra, __outproc__=new["__outproc__"],
-                         __outproc_opt__=op_opt)
-        scalars = {k: v.detach() for k, v in scalars.items()}
-        scalars["n_dropped_isects"] = n_dropped
-        return TrainState(params=params, alive=state.alive,
-                          opt_state=opt_state, density=density,
-                          step=state.step + 1, extra=extra), scalars
+            pgrads, stat_grad, op_grads, _, (scalars, radii, n_dropped) = \
+                self.gradients(state, loss_of, others, use_absgrad)
+            params, opt_state, density = self.apply_gradients(
+                state, pgrads, stat_grad, radii, img_width, img_height,
+                update_scale)
+            extra = state.extra
+            if has_op:
+                with torch.no_grad():
+                    new, op_opt = self.op_tx.update(
+                        {"__outproc__": state.extra["__outproc__"]},
+                        {"__outproc__": op_grads[0]},
+                        state.extra["__outproc_opt__"])
+                extra = dict(state.extra, __outproc__=new["__outproc__"],
+                             __outproc_opt__=op_opt)
+            scalars = {k: v.detach() for k, v in scalars.items()}
+            scalars["n_dropped_isects"] = n_dropped
+            return TrainState(params=params, alive=state.alive,
+                              opt_state=opt_state, density=density,
+                              step=state.step + 1, extra=extra), scalars
 
     @torch.no_grad()
     def density_step(self, state: TrainState, noise, use_size_prune):
@@ -371,27 +382,30 @@ class Trainer:
         cfg = self.density_cfg
         if step < cfg.densify_until_iter:
             if self.densifies_at(step):
-                use_size_prune = step > cfg.opacity_reset_interval
-                prev = state
-                state, n_trunc = self.density_step(state, noise,
-                                                   use_size_prune)
-                tries = 0
-                while int(n_trunc) > 0 and tries < 3:
-                    # out of free slots: grow 2x from the snapshot before
-                    # the densify and redo the pass, so this round's
-                    # children are not dropped
-                    prev = self.grow_state(prev, 2 * prev.params.capacity)
-                    state, n_trunc = self.density_step(prev, noise,
+                with span("train.density"):
+                    use_size_prune = step > cfg.opacity_reset_interval
+                    prev = state
+                    state, n_trunc = self.density_step(state, noise,
                                                        use_size_prune)
-                    tries += 1
-                if int(n_trunc) > 0:  # pathological single round
-                    print(f"[trainer] densify at step {step} still "
-                          f"truncating {int(n_trunc)} after {tries} "
-                          f"capacity growths")
+                    tries = 0
+                    while int(n_trunc) > 0 and tries < 3:
+                        # out of free slots: grow 2x from the snapshot
+                        # before the densify and redo the pass, so this
+                        # round's children are not dropped
+                        prev = self.grow_state(prev,
+                                               2 * prev.params.capacity)
+                        state, n_trunc = self.density_step(prev, noise,
+                                                           use_size_prune)
+                        tries += 1
+                    if int(n_trunc) > 0:  # pathological single round
+                        print(f"[trainer] densify at step {step} still "
+                              f"truncating {int(n_trunc)} after {tries} "
+                              f"capacity growths")
             white_bg = all(c == 1.0 for c in self.config.background_color)
             if (step % cfg.opacity_reset_interval == 0
                     or (white_bg and step == cfg.densify_from_iter)):
-                state = self.opacity_reset_step(state)
+                with span("train.density"):
+                    state = self.opacity_reset_step(state)
         return state
 
     def densifies_at(self, step: int) -> bool:

@@ -12,6 +12,7 @@ import torch
 from ..data.cameras import make_camera
 from ..models.gaussian import GaussianState
 from ..renderers.surfel_renderer import SurfelRenderer
+from ..utils.tracing import span
 from ..utils.visualizers import visualize_output
 
 
@@ -32,22 +33,31 @@ class ViewerRenderer:
     def _camera(self, c2w, width, height, fov_y):
         w2c = np.linalg.inv(np.asarray(c2w, np.float64))
         f = 0.5 * height / np.tan(0.5 * np.deg2rad(fov_y))
-        return make_camera(R=w2c[:3, :3], T=w2c[:3, 3], fx=f, fy=f,
-                           cx=width / 2.0, cy=height / 2.0, width=width,
-                           height=height, device=self.state.device)
+        # each field a copy from pageable host memory, which waits on the
+        # stream
+        with span("wait.camera_upload"):
+            return make_camera(R=w2c[:3, :3], T=w2c[:3, 3], fx=f, fy=f,
+                               cx=width / 2.0, cy=height / 2.0, width=width,
+                               height=height, device=self.state.device)
 
     @torch.no_grad()
     def get_depth(self, c2w: np.ndarray, width: int, height: int,
                   fov_y: float = 60.0) -> np.ndarray:
         """Expected-depth map [H, W]; a surfel renderer's surface depth
         (the JAX package serves no surfel model)."""
-        out = self.renderer.forward(
-            self.state, self._camera(c2w, width, height, fov_y), height,
-            width, self.bg, self.sh_degree,
-            render_types=frozenset({"rgb", "exp_depth"}))
-        depth = (out.surf_depth if isinstance(self.renderer, SurfelRenderer)
-                 else out.exp_depth)
-        return depth.cpu().numpy()
+        with span("viewer.frame"):
+            with span("viewer.camera"):
+                camera = self._camera(c2w, width, height, fov_y)
+            with span("viewer.render"):
+                out = self.renderer.forward(
+                    self.state, camera, height, width, self.bg,
+                    self.sh_degree,
+                    render_types=frozenset({"rgb", "exp_depth"}))
+            depth = (out.surf_depth
+                     if isinstance(self.renderer, SurfelRenderer)
+                     else out.exp_depth)
+            with span("wait.frame_copy"):
+                return depth.cpu().numpy()
 
     @torch.no_grad()
     def get_outputs(self, c2w: np.ndarray, width: int, height: int,
@@ -56,13 +66,23 @@ class ViewerRenderer:
         output type."""
         render_types = (frozenset({"rgb"}) if self.output_type == "rgb"
                         else frozenset({"rgb", self.output_type}))
-        out = self.renderer.forward(
-            self.state, self._camera(c2w, width, height, fov_y), height,
-            width, self.bg, self.sh_degree, render_types=render_types)
-        if self.output_type == "rgb":
-            img = out.render
-        else:
-            info = self.renderer.get_available_outputs()[self.output_type]
-            img = visualize_output(info.type.value, getattr(out, info.key))
-        # quantize on the device: one uint8 copy to the host, not a float one
-        return (torch.clamp(img, 0.0, 1.0) * 255).to(torch.uint8).cpu().numpy()
+        with span("viewer.frame"):
+            with span("viewer.camera"):
+                camera = self._camera(c2w, width, height, fov_y)
+            with span("viewer.render"):
+                out = self.renderer.forward(
+                    self.state, camera, height, width, self.bg,
+                    self.sh_degree, render_types=render_types)
+            # visualized and quantized on the device: one uint8 copy to
+            # the host, not a float one
+            with span("viewer.quantise"):
+                if self.output_type == "rgb":
+                    img = out.render
+                else:
+                    info = self.renderer.get_available_outputs()[
+                        self.output_type]
+                    img = visualize_output(info.type.value,
+                                           getattr(out, info.key))
+                img = (torch.clamp(img, 0.0, 1.0) * 255).to(torch.uint8)
+            with span("wait.frame_copy"):
+                return img.cpu().numpy()

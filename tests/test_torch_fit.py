@@ -141,7 +141,7 @@ def test_viewer_flag_reaches_fit_config(tmp_path, monkeypatch):
     _make_dataset(str(tmp_path / "scene"), n_views=2)
     seen = {}
 
-    def no_fit(trainer, outputs, fit_cfg, device=None):
+    def no_fit(trainer, outputs, fit_cfg, device=None, trace_steps=None):
         seen["fit"] = fit_cfg
         return None, None
 
