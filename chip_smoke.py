@@ -13,7 +13,7 @@ Needs one NVIDIA H100 (sm_90a) with nvcc; exits nonzero, printing no
 result, when torch.cuda.is_available() is False or the gsl_tpu_torch
 package is not beside this script. Phases, each fatal on failure:
 
-1. device and build: the card's name and power limit; the nine kernels
+1. device and build: the card's name and power limit; the eleven kernels
    built from gsl_tpu_torch/csrc/ with nvcc, one process per source, in
    parallel, and K3, K6, K7, K2s and K3s a second time without multiply-add
    contraction for the checks of phase 3.
@@ -87,11 +87,23 @@ package is not beside this script. Phases, each fatal on failure:
    kernels the count of (slot, warp)s, 32 pixels of a tile, in which some
    pixel composites the slot: where the kernels sum a row over a warp (the
    plain versions count them).
+   The SH colour pair (csrc/sh_fwd.cu, csrc/sh_bwd.cu) at degree 3, K =
+   16, on the bench scene's 1M rows seen from the first orbit view and on
+   6.1M seeded rows (the bicycle cells' size, some colours clamped at 0),
+   the gradient read at a row stride of 11: colours and both coefficient
+   gradients must agree with sh_colors_fwd_plain / sh_colors_bwd_plain
+   within SH_TOL, the clamp's mask at >= SH_MASK_SHARE of rows, and the
+   bands above the degree must get zero gradients. Both kernels and their
+   plain versions are timed, and so is the colour pass they replaced on
+   the renderer's path (get_shs's cat, sh_to_rgb, + 0.5, the clamp) with
+   autograd's backward through it; their attributes are printed.
 4. main path: GaussianModelLoader.load(ply) -> ViewerRenderer -> orbit
    frames at 1088x1920 in rgb, then one frame with alpha, exp_depth,
    inverse_depth, normal and hard_inverse_depth (8 composited channels).
    Outputs must be finite, mean alpha above 0, and both kernels' launch
-   counters, zeroed just before, above 0. Then one viewer frame for each
+   counters, zeroed just before, above 0, with one SH forward a frame and
+   no SH backward (so on every main path of phases 4-7: one SH forward a
+   frame or step, and one SH backward a step). Then one viewer frame for each
    output type. Prints ms per frame, per-stage times from CUDA events,
    and peak memory.
 5. training main path: the 1M scene -> Trainer.setup at capacity 1M ->
@@ -487,7 +499,13 @@ StopThePop numbers (phase 7's counts) under `stp_*` keys; every kernel
 carries its phase-18 counts under `profile_launches` and
 `quality_launches`. All nine kernels (K4 with R = 9 and, under
 `surfel_attributes`, R = 19) carry their `attributes` as the card's
-runtime reports them.
+runtime reports them. The SH pair's entries (`sh_fwd`, `sh_bwd`) carry
+their launches on each main path of phases 4-7 (`launches`,
+`serving_launches`, and `stp_` and `surfel_` ones), their numbers at the
+bench scene's 1M rows, the same at 6.1M under `bicycle`, `replaced_ms`
+(the plain-torch pass and its autograd backward that they replaced on the
+renderer's path) and their attributes; their bound is their bytes a row,
+217 for either (SH_FWD_BYTES, SH_BWD_BYTES), over 3.35 TB/s.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -529,9 +547,9 @@ from gsl_tpu_torch.parallel.launch import spawn
 from gsl_tpu_torch.ops import lpips as lpips_module
 from gsl_tpu_torch.ops import rasterize as R
 from gsl_tpu_torch.ops import rasterize_stp as STP
+from gsl_tpu_torch.ops import sh as SH
 from gsl_tpu_torch.ops import surfel_rasterize as SR
 from gsl_tpu_torch.ops.projection import Projections, project_gaussians
-from gsl_tpu_torch.ops.sh import sh_to_rgb
 from gsl_tpu_torch.ops.surfel import project_surfels
 from gsl_tpu_torch.ops.transforms import normalize_quat, quat_to_rotmat
 from gsl_tpu_torch.models.gaussian import (PARAM_FIELDS, GaussianParams,
@@ -654,6 +672,18 @@ K3_COLUMNS = ("dmx", "dmy", "da", "db", "dc", "dop")
 K7_COLUMNS = ("Tu0", "Tu1", "Tu2", "Tv0", "Tv1", "Tv2", "Tw0", "Tw1", "Tw2",
               "zc0", "zc1", "zc2", "op")
 MEDIAN_OFF_SHARE = 1e-3                                  # K6's median depth
+# the SH pair: the bench scene's rows and the bicycle cells' (6.1M); its
+# plain versions normalise the direction with torch.linalg.norm, which the
+# card rounds otherwise than the kernels' chain, so colours and gradients
+# agree within SH_TOL and the clamp's mask at SH_MASK_SHARE of rows (as in
+# tests/test_torch_kernels.py)
+SH_ROWS = {"bench": N_GAUSSIANS, "bicycle": 6_100_000}
+SH_TOL, SH_MASK_SHARE = 2e-5, 0.9999
+# bytes a row at K = 16: the forward reads the mean, shs_dc and shs_rest
+# and writes the colour and the one-byte mask; the backward reads the
+# gradient, the mean and the mask and writes both coefficient gradients
+SH_FWD_BYTES = 12 + 12 + 180 + 12 + 1
+SH_BWD_BYTES = 12 + 12 + 1 + 12 + 180
 KERNELS = {"expand": R.expand, "rasterize_fwd": R.rasterize_fwd,
            "rasterize_bwd": R.rasterize_bwd, "reduce_grads": R.reduce_grads,
            "surfel_expand": SR.surfel_expand,
@@ -661,6 +691,10 @@ KERNELS = {"expand": R.expand, "rasterize_fwd": R.rasterize_fwd,
            "surfel_bwd": SR.rasterize_surfels_bwd,
            "rasterize_fwd_stp": STP.rasterize_fwd_stp,
            "rasterize_bwd_stp": STP.rasterize_bwd_stp}
+# the SH colour pair: every path launches it beside its own raster
+# kernels (one forward a render, one backward a training step), so it is
+# counted apart from KERNELS, whose launches each phase holds to its path
+SH_KERNELS = {"sh_fwd": SH.sh_colors_fwd, "sh_bwd": SH.sh_colors_bwd}
 GAUSSIAN_KERNELS = ("expand", "rasterize_fwd", "rasterize_bwd",
                     "reduce_grads")
 STP_KERNELS = ("expand", "rasterize_fwd_stp", "rasterize_bwd_stp",
@@ -838,12 +872,23 @@ def log_attributes(name, C, attrs):
 
 
 def reset_launches():
-    for wrapper in KERNELS.values():
+    for wrapper in (*KERNELS.values(), *SH_KERNELS.values()):
         wrapper.launches = 0
 
 
 def read_launches():
     return {name: w.launches for name, w in KERNELS.items()}
+
+
+def check_sh_launches(what, renders, steps):
+    """The SH pair's launches since reset_launches must be one forward a
+    render (a frame, or a step's) and one backward a training step.
+    Returns them."""
+    sh = {name: w.launches for name, w in SH_KERNELS.items()}
+    want = {"sh_fwd": renders, "sh_bwd": steps}
+    if sh != want:
+        fail(f"{what}: SH kernel launches {sh}, not {want}")
+    return sh
 
 
 def column_shares(name, got, want):
@@ -1101,6 +1146,121 @@ def phase_kernels(state, renderer):
         log_attributes("K1", None, t["expand_attributes"])
         rec.update(t)
     return rec
+
+
+def sh_inputs(state, key, n):
+    """(means, camera centre, shs_dc, shs_rest, gradient [n, 3] read at a
+    row stride of 11) for the SH pair: at the bench scene its own rows
+    seen from the first orbit view; at the bicycle cells' size seeded draws
+    on the card, of which some colours clamp at 0."""
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    if key == "bench":
+        p = state.params
+        means, dc, rest = p.means, p.shs_dc, p.shs_rest
+        centre = camera(views()["orbit_yaw20"]).camera_center
+    else:
+        k_rest = (SH_DEGREE + 1) ** 2 - 1
+        means = torch.randn((n, 3), device="cuda", generator=gen) * 2.0
+        dc = torch.randn((n, 1, 3), device="cuda", generator=gen) * 2.0
+        rest = torch.randn((n, k_rest, 3), device="cuda",
+                           generator=gen) * 0.3
+        centre = torch.tensor([0.5, -1.0, 2.0], device="cuda")
+    grad = torch.randn((n, 11), device="cuda", generator=gen)[:, 8:]
+    return means, centre.contiguous(), dc, rest, grad
+
+
+def replaced_sh_ms(means, centre, dc, rest, grad):
+    """ms of the colour pass the renderer ran before the SH pair (the cat
+    of get_shs, sh_to_rgb, + 0.5, the clamp) and of autograd's backward
+    through it, by CUDA events."""
+    dc = dc.detach().clone().requires_grad_(True)
+    rest = rest.detach().clone().requires_grad_(True)
+
+    def colours():
+        shs = torch.cat([dc, rest], dim=1)
+        return torch.clamp(SH.sh_to_rgb(shs, means - centre, SH_DEGREE)
+                           + 0.5, min=0.0)
+
+    fwd_ms = cuda_ms(colours, 5)
+    with torch.enable_grad():
+        outs = [colours() for _ in range(5)]
+    torch.autograd.grad(outs[0], [dc, rest], grad)   # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for out in outs[1:]:
+        torch.autograd.grad(out, [dc, rest], grad)
+    end.record()
+    torch.cuda.synchronize()
+    return fwd_ms, start.elapsed_time(end) / (len(outs) - 1)
+
+
+def phase_sh_kernels(state):
+    """Phase 3's SH part: the SH colour pair against its plain versions
+    and timed, at degree 3, at the bench scene's rows and the bicycle
+    cells'. Returns {"bench" | "bicycle": numbers}."""
+    log("== phase 3: SH colour kernels against their plain versions")
+    out = {}
+    for key, n in SH_ROWS.items():
+        means, centre, dc, rest, grad = sh_inputs(state, key, n)
+        n_rest = rest.shape[1]
+        rgb, mask = SH.sh_colors_fwd(means, centre, dc, rest, SH_DEGREE)
+        g_dc, g_rest = SH.sh_colors_bwd(grad, means, centre, mask,
+                                        SH_DEGREE, n_rest)
+        p_rgb, p_mask = SH.sh_colors_fwd_plain(means, centre, dc, rest,
+                                               SH_DEGREE)
+        p_dc, p_rest = SH.sh_colors_bwd_plain(grad, means, centre, mask,
+                                              SH_DEGREE, n_rest)
+        r = {"rows": n,
+             "mask_share": float((mask == p_mask).float().mean()),
+             "clamped_share": float((p_rgb == 0).float().mean()),
+             "equal_colours": float((rgb == p_rgb).float().mean()),
+             "equal_gradients": float((g_rest == p_rest).float().mean()),
+             "fwd_err": float((rgb - p_rgb).abs().max()),
+             "bwd_err": max(float((g_dc - p_dc).abs().max()),
+                            float((g_rest - p_rest).abs().max()))}
+        if r["mask_share"] < SH_MASK_SHARE:
+            fail(f"SH forward at {n} rows: the clamp's mask agrees with the "
+                 f"plain version's at {r['mask_share']:.6f} of rows")
+        for name, got, want in (("colours", rgb, p_rgb),
+                                ("grad shs_dc", g_dc, p_dc),
+                                ("grad shs_rest", g_rest, p_rest)):
+            if not torch.allclose(got, want, rtol=SH_TOL, atol=SH_TOL):
+                fail(f"SH kernels at {n} rows: {name} differ from the plain "
+                     f"version's by up to {float((got - want).abs().max())}")
+        if not bool((g_rest[:, (SH_DEGREE + 1) ** 2 - 1:] == 0).all()):
+            fail(f"SH backward at {n} rows: a band above the degree has a "
+                 "gradient")
+        del p_rgb, p_mask, p_dc, p_rest
+        r["fwd_ms"] = graph_ms(lambda: SH.sh_colors_fwd(
+            means, centre, dc, rest, SH_DEGREE), 20)
+        r["bwd_ms"] = graph_ms(lambda: SH.sh_colors_bwd(
+            grad, means, centre, mask, SH_DEGREE, n_rest), 20)
+        r["fwd_plain_ms"] = cuda_ms(lambda: SH.sh_colors_fwd_plain(
+            means, centre, dc, rest, SH_DEGREE), 5)
+        r["bwd_plain_ms"] = cuda_ms(lambda: SH.sh_colors_bwd_plain(
+            grad, means, centre, mask, SH_DEGREE, n_rest), 5)
+        r["replaced_fwd_ms"], r["replaced_bwd_ms"] = replaced_sh_ms(
+            means, centre, dc, rest, grad)
+        r["fwd_bound"] = bound(SH_FWD_BYTES * n, 0)
+        r["bwd_bound"] = bound(SH_BWD_BYTES * n, 0)
+        log(f"SH pair, {key} ({n} rows, degree {SH_DEGREE}): forward "
+            f"{r['fwd_ms']:.4f} ms, backward {r['bwd_ms']:.4f} ms against a "
+            f"bound of {r['fwd_bound'][0]:.4f} / {r['bwd_bound'][0]:.4f}; "
+            f"plain {r['fwd_plain_ms']:.3f} / {r['bwd_plain_ms']:.3f}; the "
+            f"pass they replaced {r['replaced_fwd_ms']:.3f} / "
+            f"{r['replaced_bwd_ms']:.3f}; " + json.dumps(
+                {k: r[k] for k in ("mask_share", "clamped_share",
+                                   "equal_colours", "equal_gradients",
+                                   "fwd_err", "bwd_err")}))
+        out[key] = r
+        del means, centre, dc, rest, grad, rgb, mask, g_dc, g_rest
+        torch.cuda.empty_cache()
+    out["fwd_attributes"] = SH.sh_colors_fwd_attributes(SH_DEGREE, 15)
+    out["bwd_attributes"] = SH.sh_colors_bwd_attributes(SH_DEGREE, 15)
+    log_attributes("SH forward", None, out["fwd_attributes"])
+    log_attributes("SH backward", None, out["bwd_attributes"])
+    return out
 
 
 def check_stp_kernels(vname, C, state, renderer, cam, seed, timed):
@@ -1408,9 +1568,8 @@ def surfel_inputs(state, cam, n_channels):
     proj = project_surfels(
         state.get_means(), state.get_scales(), state.get_rotations(),
         cam.world_to_camera, cam.fx, cam.fy, cam.cx, cam.cy, W, H)
-    viewdirs = state.get_means() - cam.camera_center
-    rgb = torch.clamp(sh_to_rgb(state.get_shs(), viewdirs, SH_DEGREE) + 0.5,
-                      min=0.0)
+    rgb = SH.sh_colors(state.get_means(), cam.camera_center,
+                       state.params.shs_dc, state.params.shs_rest, SH_DEGREE)
     ch = torch.cat([rgb, proj.normals, proj.zcoef][:n_channels // 3], 1)
     geom = SR.pack_surfels(proj.Tu, proj.Tv, proj.Tw, proj.zcoef,
                            state.get_opacities())
@@ -1718,6 +1877,9 @@ def phase_main_path(ply, stp=False):
              if v and k not in launches}
     if stray:
         fail(f"{what} launched kernels of another path: {stray}")
+    # the five orbit frames and the all-outputs frame (which runs K1 and
+    # K2 twice, for hard_inverse_depth, and SH once)
+    launches.update(check_sh_launches(what, len(frame_ms) + 1, 0))
     log(f"{what}: {len(frame_ms)} rgb frames, ms per frame "
         f"{[round(x, 3) for x in frame_ms]}; all-outputs frame at the bench "
         f"pose: n_isects {out.n_isects}, mean alpha {mean_alpha:.4f}; "
@@ -1956,6 +2118,7 @@ def phase_training(arrays, raster_ms, stp=False):
     stray = {k: v for k, v in counts.items() if v and k not in launches}
     if stray:
         fail(f"{what} launched kernels of another path: {stray}")
+    launches.update(check_sh_launches(what, len(losses), len(losses)))
     log(f"{what}: losses {[round(x, 5) for x in losses]}")
     log(f"{what}: mean loss steps 1-{n_mean} {first:.5f}, steps "
         f"{n_steps - n_mean + 1}-{n_steps} {last:.5f}; SH degree 3 from "
@@ -2035,6 +2198,7 @@ def phase_surfel_main_path(arrays):
     for name, count in serving.items():
         if count <= 0:
             fail(f"2DGS serving path never launched kernel {name}")
+    serving.update(check_sh_launches("2DGS serving", len(frame_ms), 0))
     cam = camera(np.eye(4))
     with torch.no_grad():
         out = renderer.forward(state, cam, H, W, bg, SH_DEGREE)
@@ -2151,6 +2315,8 @@ def phase_surfel_main_path(arrays):
     for name, count in launches.items():
         if count <= 0:
             fail(f"2DGS training path never launched kernel {name}")
+    launches.update(check_sh_launches("2DGS training", len(losses),
+                                      len(losses)))
     log(f"2DGS training: losses {[round(x, 5) for x in losses]}")
     log("2DGS training: (normal, distortion) loss terms "
         f"{[(round(n, 5), round(d, 5)) for n, d in extra]}")
@@ -6277,6 +6443,7 @@ def main():
         renderer = TileRendererConfig().instantiate()
         with torch.no_grad():
             rec = phase_kernels(state, renderer)
+            sh_rec = phase_sh_kernels(state)
             phase_small_reference()
             trec = phase_stp_kernels(state, renderer)
             phase_small_reference(stp=True)
@@ -6487,6 +6654,34 @@ def main():
         f"sums up to {rec['reduce_scale']:.3e}")
     log(f"torch.sort of {rec['slots']} int64 keys: {rec['sort_ms']:.4f} ms;"
         f" tile ranges (searchsorted): {rec['ranges_ms']:.4f} ms")
+
+    def sh_entry(name, key):
+        # launches: one forward a render and one backward a training step
+        # on every path's main run (phases 4-7)
+        b, c = sh_rec["bench"], sh_rec["bicycle"]
+        return {"name": name, "route": "cuda",
+                "source": f"gsl_tpu_torch/csrc/{name}.cu",
+                "replaces": "gsl_tpu/ops/sh.py:66",
+                "launches": train_launches[name],
+                "serving_launches": launches[name],
+                "stp_launches": stp_launches[name],
+                "stp_serving_launches": stp_serving_launches[name],
+                "surfel_launches": surfel_launches[name],
+                "surfel_serving_launches": surfel_serving[name],
+                "max_abs_err": b[f"{key}_err"], "ms": b[f"{key}_ms"],
+                "plain_ms": b[f"{key}_plain_ms"],
+                "bound_ms": b[f"{key}_bound"][0],
+                "bound_by": b[f"{key}_bound"][1], "library_ms": None,
+                "replaced_ms": b[f"replaced_{key}_ms"],
+                "attributes": sh_rec[f"{key}_attributes"],
+                "bicycle": {"rows": c["rows"], "ms": c[f"{key}_ms"],
+                            "plain_ms": c[f"{key}_plain_ms"],
+                            "replaced_ms": c[f"replaced_{key}_ms"],
+                            "bound_ms": c[f"{key}_bound"][0],
+                            "max_abs_err": c[f"{key}_err"],
+                            "mask_share": c["mask_share"]}}
+
+    kernels += [sh_entry("sh_fwd", "fwd"), sh_entry("sh_bwd", "bwd")]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -11,7 +11,8 @@ to seconds.
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; `check` raises on a nonzero
-code.
+code. `check_cuda`, `ptr`, `stream` and `kernel_attributes` are what the
+wrappers share to call them.
 """
 from __future__ import annotations
 
@@ -23,17 +24,21 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("expand", "rasterize_fwd", "rasterize_bwd", "reduce_grads",
            "surfel_expand", "surfel_fwd", "surfel_bwd", "rasterize_fwd_stp",
-           "rasterize_bwd_stp")
+           "rasterize_bwd_stp", "sh_fwd", "sh_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# expand.cu must round exactly as PyTorch's elementwise ops do (its plain
-# version is held to it bit for bit), so no multiply-add contraction there
+# expand.cu and the SH kernels must round exactly as PyTorch's elementwise
+# ops do (their plain versions are held to them bit for bit), so no
+# multiply-add contraction there
 NO_CONTRACTION = ("-fmad=false",)
-EXTRA_FLAGS = {"expand": NO_CONTRACTION}
+EXTRA_FLAGS = {"expand": NO_CONTRACTION, "sh_fwd": NO_CONTRACTION,
+               "sh_bwd": NO_CONTRACTION}
 
 
 def _nvcc() -> str:
@@ -111,3 +116,38 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.gsl_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def check_cuda(what, *tensors):
+    """The device of `tensors`; raises unless all are contiguous and on
+    the first one's device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{what}: every tensor must be contiguous and "
+                             f"on {dev}")
+    return dev
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(dev) -> ctypes.c_void_p:
+    """The current CUDA stream of `dev`, for an entry point's last
+    argument."""
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def kernel_attributes(lib, entry: str, *args: int):
+    """What the card's runtime reports for the kernel of C entry point
+    `entry` that `args` select (for the raster kernels the channel count
+    and the tile size): registers per thread, local (spill) bytes per thread
+    (cudaFuncGetAttributes), dynamic shared bytes per block, and resident
+    blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Needs a
+    card."""
+    out = (ctypes.c_int * 4)()
+    code = getattr(lib, entry)(*args, out)
+    check(lib, code, entry)
+    return {"registers": out[0], "local_bytes": out[1],
+            "shared_bytes": out[2], "blocks_per_sm": out[3]}

@@ -46,6 +46,7 @@ import torch
 
 from ..utils.tracing import span
 from . import cuda_build
+from .cuda_build import check_cuda, kernel_attributes, ptr, stream
 from .projection import Projections, tile_rect
 from .rasterize_reference import (ALPHA_THRESHOLD, MAX_ALPHA,
                                   MIN_TRANSMITTANCE)
@@ -176,23 +177,6 @@ def expand_plain(isects: Isects, means2d, conics, opacities, depths,
     return keys, gid.to(torch.int32)
 
 
-def _check_cuda(what, *tensors):
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{what}: every tensor must be contiguous and "
-                             f"on {dev}")
-    return dev
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(dev) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
 def _expand_lib():
     lib = cuda_build.load("expand")
     lib.gsl_expand.argtypes = (
@@ -230,16 +214,16 @@ def expand(isects: Isects, means2d, conics, opacities, depths,
     if any(t.dtype != torch.float32 for t in f32):
         raise TypeError("expand: means2d, conics, opacities, depths and "
                         "depth_grads must be float32")
-    dev = _check_cuda("expand", isects.offsets, isects.rect, *f32)
+    dev = check_cuda("expand", isects.offsets, isects.rect, *f32)
     keys = torch.empty(isects.total, dtype=torch.int64, device=dev)
     gids = torch.empty(isects.total, dtype=torch.int32, device=dev)
     lib = _expand_lib()
     code = lib.gsl_expand(
-        _ptr(isects.offsets), _ptr(isects.rect), _ptr(depths),
-        _ptr(means2d), _ptr(conics), _ptr(opacities),
-        _ptr(depth_grads) if stp_resort else None, means2d.shape[0],
+        ptr(isects.offsets), ptr(isects.rect), ptr(depths),
+        ptr(means2d), ptr(conics), ptr(opacities),
+        ptr(depth_grads) if stp_resort else None, means2d.shape[0],
         tile_size, tiles_x, tiles_y, int(tile_based_culling),
-        int(stp_resort), _ptr(keys), _ptr(gids), _stream(dev))
+        int(stp_resort), ptr(keys), ptr(gids), stream(dev))
     cuda_build.check(lib, code, "expand")
     if means2d.shape[0]:
         expand.launches += 1
@@ -415,7 +399,7 @@ def rasterize_fwd(means2d, conics, opacities, channels, gids, bounds,
     if gids.numel() >= NEVER_STOPPED:
         raise ValueError("rasterize_fwd: more than 2^30 sorted slots "
                          "collide with the i_stop sentinel")
-    dev = _check_cuda("rasterize_fwd", *f32, gids, bounds)
+    dev = check_cuda("rasterize_fwd", *f32, gids, bounds)
     tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
     C = channels.shape[1]
     out = torch.empty((img_height, img_width, C), dtype=torch.float32,
@@ -428,10 +412,10 @@ def rasterize_fwd(means2d, conics, opacities, channels, gids, bounds,
     group = lib.gsl_rasterize_fwd_max_group()
     for c0 in range(0, C, group):
         code = lib.gsl_rasterize_fwd(
-            _ptr(means2d), _ptr(conics), _ptr(opacities), _ptr(channels),
-            C, c0, min(group, C - c0), _ptr(gids), _ptr(bounds),
+            ptr(means2d), ptr(conics), ptr(opacities), ptr(channels),
+            C, c0, min(group, C - c0), ptr(gids), ptr(bounds),
             tiles_x * tiles_y, tiles_x, tile_size, img_height, img_width,
-            _ptr(out), _ptr(t_fin), _ptr(i_stop), _stream(dev))
+            ptr(out), ptr(t_fin), ptr(i_stop), stream(dev))
         cuda_build.check(lib, code, "rasterize_fwd")
         rasterize_fwd.launches += 1
     return out, t_fin, i_stop
@@ -590,20 +574,6 @@ def rasterize_bwd_max_group(tile_size: int = 16) -> int:
     return _bwd_lib().gsl_rasterize_bwd_max_group(tile_size)
 
 
-def kernel_attributes(lib, entry: str, *args: int):
-    """What the card's runtime reports for the kernel of C entry point
-    `entry` that `args` select (for the raster kernels the channel count
-    and the tile size): registers per thread, local (spill) bytes per thread
-    (cudaFuncGetAttributes), dynamic shared bytes per block, and resident
-    blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Needs a
-    card."""
-    out = (ctypes.c_int * 4)()
-    code = getattr(lib, entry)(*args, out)
-    cuda_build.check(lib, code, entry)
-    return {"registers": out[0], "local_bytes": out[1],
-            "shared_bytes": out[2], "blocks_per_sm": out[3]}
-
-
 def rasterize_bwd_attributes(n_channels: int, tile_size: int = 16):
     """`kernel_attributes` of the K3 kernel."""
     return kernel_attributes(_bwd_lib(), "gsl_rasterize_bwd_attributes",
@@ -689,7 +659,7 @@ def rasterize_bwd(means2d, conics, opacities, channels, gids, bounds,
     if (tile_size * tile_size) % 32:
         raise ValueError("rasterize_bwd: tile_size^2 must be a multiple of "
                          "32 (whole warps)")
-    dev = _check_cuda("rasterize_bwd", *f32, gids, bounds, i_stop)
+    dev = check_cuda("rasterize_bwd", *f32, gids, bounds, i_stop)
     img_height, img_width, C = g_out.shape
     if channels.shape[1] != C or t_final.shape != (img_height, img_width):
         raise ValueError("rasterize_bwd: cotangent shapes do not match the "
@@ -704,10 +674,10 @@ def rasterize_bwd(means2d, conics, opacities, channels, gids, bounds,
         rows = torch.zeros((gids.numel(), 6 + cg), dtype=torch.float32,
                            device=dev)
         code = lib.gsl_rasterize_bwd(
-            _ptr(means2d), _ptr(conics), _ptr(opacities), _ptr(ch), cg,
-            _ptr(gids), _ptr(bounds), tiles_x * tiles_y, tiles_x, tile_size,
-            img_height, img_width, _ptr(g_o), _ptr(g_a), _ptr(t_final),
-            _ptr(i_stop), _ptr(rows), _stream(dev))
+            ptr(means2d), ptr(conics), ptr(opacities), ptr(ch), cg,
+            ptr(gids), ptr(bounds), tiles_x * tiles_y, tiles_x, tile_size,
+            img_height, img_width, ptr(g_o), ptr(g_a), ptr(t_final),
+            ptr(i_stop), ptr(rows), stream(dev))
         cuda_build.check(lib, code, "rasterize_bwd")
         rasterize_bwd.launches += 1
         return rows
@@ -807,13 +777,13 @@ def reduce_grads(rows, gids, offsets, inv_order, n_valid, n: int,
     if n_abs and not n_abs <= N_GEOM <= rows.shape[1]:
         raise ValueError("reduce_grads: absolute sums need rows with the "
                          f"{N_GEOM} geometry columns in front")
-    dev = _check_cuda("reduce_grads", rows, offsets, inv_order, n_valid)
+    dev = check_cuda("reduce_grads", rows, offsets, inv_order, n_valid)
     out = torch.empty((n, rows.shape[1] + n_abs), dtype=torch.float32,
                       device=dev)
     lib = _reduce_lib()
     code = lib.gsl_reduce_grads(
-        _ptr(rows), rows.shape[1], n_abs, _ptr(offsets), inv_order.numel(),
-        _ptr(inv_order), _ptr(n_valid), n, _ptr(out), _stream(dev))
+        ptr(rows), rows.shape[1], n_abs, ptr(offsets), inv_order.numel(),
+        ptr(inv_order), ptr(n_valid), n, ptr(out), stream(dev))
     cuda_build.check(lib, code, "reduce_grads")
     if n:
         reduce_grads.launches += 1

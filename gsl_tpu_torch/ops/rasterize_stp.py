@@ -47,10 +47,10 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .cuda_build import check_cuda, kernel_attributes, ptr, stream
 from .rasterize import (MIN_ONE_MINUS_ALPHA, N_GEOM, NEVER_STOPPED,
-                        _check_cuda, _image_to_tiles, _ptr, _stream, _tiles,
-                        _tiles_to_image, backward_by_channel_groups,
-                        bwd_group_size, kernel_attributes, skip_cut,
+                        _image_to_tiles, _tiles, _tiles_to_image,
+                        backward_by_channel_groups, bwd_group_size, skip_cut,
                         slot_warps)
 from .rasterize_reference import ALPHA_THRESHOLD, MAX_ALPHA
 
@@ -256,7 +256,7 @@ def _check_stp_inputs(what, f32, gids, bounds, tile_size):
     if (tile_size * tile_size) % 32:
         raise ValueError(f"{what}: tile_size^2 must be a multiple of 32 "
                          "(whole warps)")
-    return _check_cuda(what, *f32, gids, bounds)
+    return check_cuda(what, *f32, gids, bounds)
 
 
 def rasterize_fwd_stp(means2d, conics, opacities, channels, depths,
@@ -300,11 +300,11 @@ def rasterize_fwd_stp(means2d, conics, opacities, channels, depths,
     group = lib.gsl_rasterize_fwd_stp_max_group()
     for c0 in range(0, C, group):
         code = lib.gsl_rasterize_fwd_stp(
-            _ptr(means2d), _ptr(conics), _ptr(opacities), _ptr(channels),
-            _ptr(depths), _ptr(depth_grads), C, c0, min(group, C - c0),
-            _ptr(gids), _ptr(bounds), n_tiles, tiles_x, tile_size,
-            img_height, img_width, _ptr(out), _ptr(t_fin), _ptr(i_stop),
-            _ptr(ckpt) if checkpoints and c0 == 0 else None, _stream(dev))
+            ptr(means2d), ptr(conics), ptr(opacities), ptr(channels),
+            ptr(depths), ptr(depth_grads), C, c0, min(group, C - c0),
+            ptr(gids), ptr(bounds), n_tiles, tiles_x, tile_size,
+            img_height, img_width, ptr(out), ptr(t_fin), ptr(i_stop),
+            ptr(ckpt) if checkpoints and c0 == 0 else None, stream(dev))
         cuda_build.check(lib, code, "rasterize_fwd_stp")
         rasterize_fwd_stp.launches += 1
     return out, t_fin, i_stop, ckpt
@@ -458,11 +458,11 @@ def rasterize_bwd_stp(means2d, conics, opacities, channels, depths,
         rows = torch.zeros((gids.numel(), 6 + cg), dtype=torch.float32,
                            device=dev)
         code = lib.gsl_rasterize_bwd_stp(
-            _ptr(means2d), _ptr(conics), _ptr(opacities), _ptr(ch),
-            _ptr(depths), _ptr(depth_grads), cg, _ptr(gids), _ptr(bounds),
-            n_tiles, tiles_x, tile_size, img_height, img_width, _ptr(g_o),
-            _ptr(g_a), _ptr(t_final), _ptr(checkpoints), _ptr(rows),
-            _stream(dev))
+            ptr(means2d), ptr(conics), ptr(opacities), ptr(ch),
+            ptr(depths), ptr(depth_grads), cg, ptr(gids), ptr(bounds),
+            n_tiles, tiles_x, tile_size, img_height, img_width, ptr(g_o),
+            ptr(g_a), ptr(t_final), ptr(checkpoints), ptr(rows),
+            stream(dev))
         cuda_build.check(lib, code, "rasterize_bwd_stp")
         rasterize_bwd_stp.launches += 1
         return rows

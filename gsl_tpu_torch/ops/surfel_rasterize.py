@@ -68,14 +68,14 @@ from typing import NamedTuple
 import torch
 
 from . import cuda_build
+from .cuda_build import check_cuda, kernel_attributes, ptr, stream
 from .projection import Projections
 from .rasterize import (MIN_ONE_MINUS_ALPHA, NEVER_STOPPED, PLAIN_CHUNK,
-                        PLAIN_TILE_GROUP, Isects, _check_cuda,
-                        _image_to_tiles, _ptr, _stream, _tiles,
+                        PLAIN_TILE_GROUP, Isects, _image_to_tiles, _tiles,
                         _tiles_to_image, backward_by_channel_groups,
                         bwd_group_size, invert_order, isect_encode,
-                        kernel_attributes, reduce_grads, slot_keys,
-                        slot_tiles, slot_warps, sort_slots, tile_bounds)
+                        reduce_grads, slot_keys, slot_tiles, slot_warps,
+                        sort_slots, tile_bounds)
 from .rasterize_reference import ALPHA_THRESHOLD, MIN_TRANSMITTANCE
 from .surfel import (FAR_2D, FILTER_INV_SQUARE, MAX_ALPHA_2D, NEAR_2D,
                      SurfelProjections, SurfelRenderResult, _map_depth)
@@ -143,14 +143,14 @@ def surfel_expand(isects: Isects, depths, tiles_x: int, tiles_y: int):
         return surfel_expand_plain(isects, depths, tiles_x, tiles_y)
     if depths.dtype != torch.float32:
         raise TypeError("surfel_expand: depths must be float32")
-    dev = _check_cuda("surfel_expand", isects.offsets, isects.rect, depths)
+    dev = check_cuda("surfel_expand", isects.offsets, isects.rect, depths)
     n = depths.shape[0]
     keys = torch.empty(isects.total, dtype=torch.int64, device=dev)
     gids = torch.empty(isects.total, dtype=torch.int32, device=dev)
     lib = _expand_lib()
     code = lib.gsl_expand_surfel(
-        _ptr(isects.offsets), _ptr(isects.rect), _ptr(depths), n, tiles_x,
-        tiles_y, _ptr(keys), _ptr(gids), _stream(dev))
+        ptr(isects.offsets), ptr(isects.rect), ptr(depths), n, tiles_x,
+        tiles_y, ptr(keys), ptr(gids), stream(dev))
     cuda_build.check(lib, code, "surfel_expand")
     if n:
         surfel_expand.launches += 1
@@ -325,7 +325,7 @@ def rasterize_surfels_fwd(geom, channels, gids, bounds, img_height: int,
     if (tile_size * tile_size) % 32:
         raise ValueError("rasterize_surfels_fwd: tile_size^2 must be a "
                          "multiple of 32 (whole warps)")
-    dev = _check_cuda("rasterize_surfels_fwd", geom, channels, gids, bounds)
+    dev = check_cuda("rasterize_surfels_fwd", geom, channels, gids, bounds)
     tiles_x, tiles_y = _tiles(img_height, img_width, tile_size)
     C = channels.shape[1]
     out = torch.empty((img_height, img_width, C), dtype=torch.float32,
@@ -338,10 +338,10 @@ def rasterize_surfels_fwd(geom, channels, gids, bounds, img_height: int,
     group = lib.gsl_rasterize_surfels_fwd_max_group()
     for c0 in range(0, C, group):
         code = lib.gsl_rasterize_surfels_fwd(
-            _ptr(geom), _ptr(channels), C, c0, min(group, C - c0),
-            _ptr(gids), _ptr(bounds), tiles_x * tiles_y, tiles_x, tile_size,
-            img_height, img_width, _ptr(out), _ptr(aux), _ptr(i_stop),
-            _stream(dev))
+            ptr(geom), ptr(channels), C, c0, min(group, C - c0),
+            ptr(gids), ptr(bounds), tiles_x * tiles_y, tiles_x, tile_size,
+            img_height, img_width, ptr(out), ptr(aux), ptr(i_stop),
+            stream(dev))
         cuda_build.check(lib, code, "rasterize_surfels_fwd")
         rasterize_surfels_fwd.launches += 1
     return out, aux, i_stop
@@ -543,7 +543,7 @@ def rasterize_surfels_bwd(geom, channels, gids, bounds, g_out, g_aux, aux,
     if (tile_size * tile_size) % 32:
         raise ValueError("rasterize_surfels_bwd: tile_size^2 must be a "
                          "multiple of 32 (whole warps)")
-    dev = _check_cuda("rasterize_surfels_bwd", *f32, gids, bounds, i_stop)
+    dev = check_cuda("rasterize_surfels_bwd", *f32, gids, bounds, i_stop)
     img_height, img_width, C = g_out.shape
     hw = (img_height, img_width)
     if (geom.ndim != 2 or geom.shape[1] != N_GEOM_S
@@ -561,10 +561,10 @@ def rasterize_surfels_bwd(geom, channels, gids, bounds, g_out, g_aux, aux,
         rows = torch.zeros((gids.numel(), N_GEOM_S + cg),
                            dtype=torch.float32, device=dev)
         code = lib.gsl_rasterize_surfels_bwd(
-            _ptr(geom), _ptr(ch), cg, _ptr(gids), _ptr(bounds),
+            ptr(geom), ptr(ch), cg, ptr(gids), ptr(bounds),
             tiles_x * tiles_y, tiles_x, tile_size, img_height, img_width,
-            _ptr(g_o), _ptr(g_a), _ptr(aux), _ptr(i_stop), _ptr(rows),
-            _stream(dev))
+            ptr(g_o), ptr(g_a), ptr(aux), ptr(i_stop), ptr(rows),
+            stream(dev))
         cuda_build.check(lib, code, "rasterize_surfels_bwd")
         rasterize_surfels_bwd.launches += 1
         return rows

@@ -53,7 +53,7 @@ from ..data.cameras import Cameras
 from ..models.gaussian import GaussianParams, GaussianState
 from ..ops.projection import Projections, project_gaussians
 from ..ops.rasterize import rasterize
-from ..ops.sh import sh_to_rgb
+from ..ops.sh import sh_colors
 from ..training.density import DensityControlState
 from ..training.metrics import train_loss
 from ..training.optimizers import AdamState
@@ -439,9 +439,8 @@ def _project_and_color(params: GaussianParams, alive, camera: Cameras,
     op = gstate.get_opacities()
     if anti_aliased:
         op = op * proj.compensations
-    viewdirs = gstate.get_means().detach() - camera.camera_center
-    rgbs = torch.clamp(sh_to_rgb(gstate.get_shs(), viewdirs, sh_degree)
-                       + 0.5, min=0.0)
+    rgbs = sh_colors(gstate.get_means(), camera.camera_center,
+                     params.shs_dc, params.shs_rest, sh_degree)
     payload = torch.cat([proj.means2d, proj.conics, op[:, None], rgbs,
                          proj.depths[:, None]], dim=-1)
     return payload, proj.radii

@@ -16,7 +16,7 @@ import torch
 
 from ..data.cameras import Cameras
 from ..models.gaussian import GaussianState
-from ..ops.sh import sh_to_rgb
+from ..ops.sh import sh_colors
 from ..ops.surfel import project_surfels
 from ..ops.surfel_rasterize import rasterize_surfels
 from ..utils.device import float32_math
@@ -108,10 +108,9 @@ class SurfelRenderer:
                                  means2d=proj.means2d + means2d_tap)
 
         opacities = gaussians.get_opacities()
-        viewdirs = gaussians.get_means().detach() - camera.camera_center
-        rgbs = torch.clamp(
-            sh_to_rgb(gaussians.get_shs(), viewdirs, sh_degree) + 0.5,
-            min=0.0)
+        rgbs = sh_colors(gaussians.get_means(), camera.camera_center,
+                         gaussians.params.shs_dc, gaussians.params.shs_rest,
+                         sh_degree)
         channels = torch.cat([rgbs, proj.normals], dim=-1)
 
         res, aux = rasterize_surfels(proj, opacities, channels, img_height,

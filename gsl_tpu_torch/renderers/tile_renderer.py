@@ -23,7 +23,7 @@ from ..data.cameras import Cameras
 from ..models.gaussian import GaussianState
 from ..ops.projection import Projections, project_gaussians
 from ..ops.rasterize import rasterize
-from ..ops.sh import sh_to_rgb
+from ..ops.sh import sh_colors
 from ..ops.transforms import normalize_quat, quat_to_rotmat
 from ..utils.device import float32_math
 from ..utils.tracing import span
@@ -88,9 +88,9 @@ class TileRenderer:
 
     def get_rgbs(self, gaussians: GaussianState, camera: Cameras,
                  sh_degree: int):
-        viewdirs = gaussians.get_means().detach() - camera.camera_center
-        rgbs = sh_to_rgb(gaussians.get_shs(), viewdirs, sh_degree)
-        return torch.clamp(rgbs + 0.5, min=0.0)
+        return sh_colors(gaussians.get_means(), camera.camera_center,
+                         gaussians.params.shs_dc, gaussians.params.shs_rest,
+                         sh_degree)
 
     def forward(
         self,

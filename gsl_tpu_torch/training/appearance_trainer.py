@@ -30,7 +30,7 @@ from torch.func import functional_call
 from ..data.cameras import Cameras
 from ..models.appearance import AppearanceNetwork, network_lr_schedule
 from ..models.gaussian import GaussianState
-from ..ops.sh import sh_to_rgb
+from ..ops.sh import sh_colors
 from .metrics import train_loss
 from .optimizers import TensorAdam
 from .trainer import Trainer, TrainState
@@ -135,13 +135,14 @@ class AppearanceTrainer(Trainer):
     def _rgbs(self, gstate: GaussianState, camera: Cameras, sh_degree: int,
               net_params, warm_up: bool):
         """-> (colours [N, 3], opacity offset [N] or None)."""
+        base = sh_colors(gstate.get_means(), camera.camera_center,
+                         gstate.params.shs_dc, gstate.params.shs_rest,
+                         sh_degree)
+        if warm_up:
+            return base, None
         viewdirs = gstate.get_means().detach() - camera.camera_center
         viewdirs = viewdirs / torch.clamp(
             torch.linalg.norm(viewdirs, dim=-1, keepdim=True), min=1e-12)
-        base = torch.clamp(sh_to_rgb(gstate.get_shs(), viewdirs, sh_degree,
-                                     normalize_dirs=False) + 0.5, min=0.0)
-        if warm_up:
-            return base, None
         pred = functional_call(self.net, net_params, (
             gstate.params.appearance_features, camera.appearance_id,
             viewdirs))

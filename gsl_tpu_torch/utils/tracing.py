@@ -12,10 +12,10 @@ kernel's time falls to the span whose runtime call launched it and an
 idle stretch of the device to the span the host was in.
 
 Names are ``<layer>.<stage>``: ``data.*``, ``train.*``, ``render.*``,
-``raster.*``, ``viewer.*``. A ``wait.<site>`` span holds the one site
-whose calls block the host on the device (a read of a device value, a
-copy to or from pageable host memory, which synchronises the stream), so
-the host waits of a step are the ``wait.*`` spans in it. Rules for a
+``raster.*``, ``sh.*``, ``viewer.*``. A ``wait.<site>`` span holds the
+one site whose calls block the host on the device (a read of a device
+value, a copy to or from pageable host memory, which synchronises the
+stream), so the host waits of a step are the ``wait.*`` spans in it. Rules for a
 site: a fixed string as the name; no span held across a ``yield``; a span
 adds no device read, synchronisation or allocation of its own.
 """

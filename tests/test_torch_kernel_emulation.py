@@ -1,6 +1,7 @@
 """The forward kernels K2 (`csrc/rasterize_fwd.cu`) and K2s
-(`csrc/rasterize_fwd_stp.cu`) and the StopThePop backward K3s
-(`csrc/rasterize_bwd_stp.cu`), their CUDA sources run on the CPU.
+(`csrc/rasterize_fwd_stp.cu`), the StopThePop backward K3s
+(`csrc/rasterize_bwd_stp.cu`) and the SH colour pair (`csrc/sh_fwd.cu`,
+`csrc/sh_bwd.cu`), their CUDA sources run on the CPU.
 
 Each source is compiled with the host's C++ compiler against a stand-in
 for the CUDA runtime in which every CUDA thread is a host thread and the
@@ -13,7 +14,9 @@ plain versions at the card tests' shares: i_stop at every pixel but those
 whose exponential rounds apart between the C library and PyTorch. What it
 cannot show is the card's own behaviour: timing, races between real
 threads, the compiler for sm_90a. Those the card tests and chip_smoke.py
-check."""
+check. The SH kernels round every operation as their plain versions do
+(both sources are built without contraction on the card too), so they are
+held to them bit for bit."""
 import ctypes
 import pathlib
 import re
@@ -27,6 +30,7 @@ import torch
 from gsl_tpu_torch.data.cameras import make_camera
 from gsl_tpu_torch.ops import rasterize as R
 from gsl_tpu_torch.ops import rasterize_stp as STP
+from gsl_tpu_torch.ops import sh as SH
 from gsl_tpu_torch.ops.projection import project_gaussians
 from gsl_tpu_torch.utils.convert import state_from_raw_arrays
 
@@ -468,3 +472,115 @@ def test_k3s_source_in_channel_groups_matches_plain(host_libs):
                                        ts)
     assert float(want.abs().max()) > 1.0
     assert _close_share(got, want, atol=1e-3) >= SHARE
+
+
+# ---- the SH colour kernels ---------------------------------------------------
+
+@pytest.fixture(scope="module")
+def sh_libs(tmp_path_factory):
+    libs = build_host_libs(("sh_fwd", "sh_bwd"),
+                           tmp_path_factory.mktemp("emulated_sh"))
+    libs["sh_fwd"].gsl_sh_fwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_int64]
+        + [ctypes.c_void_p] * 3)
+    libs["sh_bwd"].gsl_sh_bwd.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 2 + [ctypes.c_int64] + [ctypes.c_void_p] * 3)
+    return libs
+
+
+# the DC coefficient whose term C0 * dc is exactly -0.5 in float32
+# (rgb_to_sh0 of black): SH + 0.5 == 0, where torch.clamp's gradient passes
+DC_AT_ZERO = -1.772453784942627
+
+
+def _placed(a, offset):
+    """A float32 tensor holding `a`, `offset` floats past a 16-byte
+    boundary (the kernels' 16-byte copies take an aligned span only)."""
+    buf = torch.zeros(a.size + 4)
+    out = buf[offset:offset + a.size].view(a.shape)
+    out.copy_(torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)))
+    return out
+
+
+def _sh_inputs(n, n_rest, seed, offset=0):
+    """(means, centre, shs_dc, shs_rest): coefficients wide enough that a
+    fifth or more of the channels clamp at 0, and rows 0-4 exactly at 0."""
+    rng = np.random.RandomState(seed)
+    dc = rng.normal(size=(n, 1, 3)) * 2.0
+    rest = rng.normal(size=(n, n_rest, 3)) * 0.3
+    dc[:5], rest[:5] = DC_AT_ZERO, 0.0
+    means = rng.normal(size=(n, 3)) * 2.0
+    means[5] = [0.5, -1.0, 2.0]   # the centre itself: a zero direction
+    return (_placed(means, offset), _placed(np.array([0.5, -1.0, 2.0]), 0),
+            _placed(dc, offset), _placed(rest, offset))
+
+
+def _sh_kernels(libs, means, centre, dc, rest, degree, grad):
+    """The emulated pair: (rgb, mask) and (grad shs_dc, grad shs_rest),
+    their outputs filled with NaN (and the mask with 0xAA) first."""
+    n, n_rest = means.shape[0], rest.shape[1]
+    rgb = torch.full((n, 3), float("nan"))
+    mask = torch.full((n,), 0xAA, dtype=torch.uint8)
+    assert libs["sh_fwd"].gsl_sh_fwd(
+        _p(means), _p(centre), _p(dc), _p(rest), n_rest, degree, n, _p(rgb),
+        _p(mask), None) == 0
+    g_dc = torch.full((n, 1, 3), float("nan"))
+    g_rest = torch.full((n, n_rest, 3), float("nan"))
+    assert libs["sh_bwd"].gsl_sh_bwd(
+        _p(grad), grad.stride(0), _p(means), _p(centre), _p(mask), n_rest,
+        degree, n, _p(g_dc), _p(g_rest), None) == 0
+    return rgb, mask, g_dc, g_rest
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+SH_CASES = [pytest.param(d, r, id=f"degree{d}-rest{r}")
+            for d in range(4) for r in (0, 3, 8, 15)
+            if (d + 1) ** 2 <= 1 + r]
+
+
+@pytest.mark.parametrize("degree,n_rest", SH_CASES)
+def test_sh_sources_equal_plain(sh_libs, degree, n_rest):
+    """The SH pair against its plain versions at every degree and K - 1 of
+    {0, 3, 8, 15} it takes, 300 rows (two blocks of 128 and a part), the
+    gradient read at a row stride of 11 (the rasterizer's rows): colours,
+    mask and both gradients bit for bit, the bands above the degree 0;
+    rows exactly at 0 pass their gradient, as torch.clamp's do."""
+    n = 300
+    means, centre, dc, rest = _sh_inputs(n, n_rest, seed=degree + n_rest)
+    wide = torch.from_numpy(np.random.RandomState(1).normal(
+        size=(n, 11)).astype(np.float32))
+    grad = wide[:, 8:]
+    rgb, mask, g_dc, g_rest = _sh_kernels(sh_libs, means, centre, dc, rest,
+                                          degree, grad)
+    want_rgb, want_mask = SH.sh_colors_fwd_plain(means, centre, dc, rest,
+                                                 degree)
+    assert torch.equal(_bits(rgb), _bits(want_rgb))
+    assert torch.equal(mask, want_mask)
+    assert bool((mask[:5] == 7).all()) and bool((rgb[:5] == 0).all())
+    assert 0.1 < float((want_rgb == 0).float().mean()) < 0.6
+    want_dc, want_rest = SH.sh_colors_bwd_plain(grad, means, centre, mask,
+                                                degree, n_rest)
+    assert torch.equal(_bits(g_dc), _bits(want_dc))
+    assert torch.equal(_bits(g_rest), _bits(want_rest))
+    assert bool((g_dc[:5] != 0).all())
+    assert bool((g_rest[:, (degree + 1) ** 2 - 1:] == 0).all())
+
+
+def test_sh_sources_take_unaligned_rows(sh_libs):
+    """Every tensor one float past a 16-byte boundary: the blocks copy
+    their spans a float at a time, with the same results."""
+    n, n_rest = 260, 15
+    grad = torch.from_numpy(np.random.RandomState(2).normal(
+        size=(n, 3)).astype(np.float32))
+    outs = []
+    for offset in (0, 1):
+        args = _sh_inputs(n, n_rest, seed=7, offset=offset)
+        assert (args[3].data_ptr() % 16 == 0) == (offset == 0)
+        outs.append(_sh_kernels(sh_libs, *args, 3, _placed(grad.numpy(),
+                                                           offset)))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)

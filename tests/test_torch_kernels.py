@@ -50,6 +50,16 @@ depths at a pixel differ by a rounding may swap between the contracted
 kernel and the plain version, moving the pixel by up to one weight; image,
 alpha and K3s's rows are held at the shares of K2 and K3. A saturated tile
 (T_final == 0) must give finite gradients equal to the CPU's.
+
+The SH colour pair (`csrc/sh_fwd.cu`, `csrc/sh_bwd.cu`) rounds every
+operation as its plain versions do, but the plain versions normalise the
+view direction with `torch.linalg.norm`, whose sum of squares the card's
+reduction may round otherwise than the kernels' chain of fused
+multiply-adds (the CPU's; the emulated sources are held to the CPU's plain
+versions bit for bit). A direction an ulp apart moves a colour or a
+gradient by a few ulps of the terms' magnitudes (atol and rtol 2e-5) and,
+where SH + 0.5 lies within that of 0, flips the clamp: the masks must agree
+at >= 99.99% of rows, and the gradients are compared where they agree.
 """
 import dataclasses
 import math
@@ -66,6 +76,7 @@ from gsl_tpu_torch.data.cameras import make_camera, stack_cameras
 from gsl_tpu_torch.models.gaussian import PARAM_FIELDS, grow_capacity
 from gsl_tpu_torch.ops import rasterize as R
 from gsl_tpu_torch.ops import rasterize_stp as STP
+from gsl_tpu_torch.ops import sh as SH
 from gsl_tpu_torch.ops import surfel_rasterize as SR
 from gsl_tpu_torch.ops.projection import Projections, project_gaussians
 from gsl_tpu_torch.ops.surfel import project_surfels
@@ -1207,3 +1218,112 @@ def test_sharded_step_on_card_stages_through_the_host(cuda):
         ("expand", "rasterize_fwd", "rasterize_bwd", "reduce_grads"), 1)
         for r in card)
     assert all(set(r["launches"].values()) == {0} for r in cpu)
+
+
+def _sh_inputs(cuda, n, n_rest, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    means = torch.randn((n, 3), generator=gen) * 2.0
+    dc = torch.randn((n, 1, 3), generator=gen) * 2.0
+    rest = torch.randn((n, n_rest, 3), generator=gen) * 0.3
+    grad = torch.randn((n, 11), generator=gen)[:, 8:]  # a row stride of 11
+    return [t.to(cuda) for t in (means, torch.tensor([0.5, -1.0, 2.0]), dc,
+                                 rest)] + [grad.to(cuda)]
+
+
+SH_CARD_CASES = [pytest.param(d, r, 300, id=f"degree{d}-rest{r}")
+                 for d in range(4) for r in (0, 3, 8, 15)
+                 if (d + 1) ** 2 <= 1 + r] + [
+    pytest.param(3, 15, 1_000_000, id="degree3-rest15-1M")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree,n_rest,n", SH_CARD_CASES)
+def test_sh_kernels_match_plain(cuda, degree, n_rest, n):
+    means, centre, dc, rest, grad = _sh_inputs(cuda, n, n_rest, seed=degree)
+    before = (SH.sh_colors_fwd.launches, SH.sh_colors_bwd.launches)
+    rgb, mask = SH.sh_colors_fwd(means, centre, dc, rest, degree)
+    g_dc, g_rest = SH.sh_colors_bwd(grad, means, centre, mask, degree,
+                                    n_rest)
+    torch.cuda.synchronize()
+    assert (SH.sh_colors_fwd.launches, SH.sh_colors_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_rgb, want_mask = SH.sh_colors_fwd_plain(means, centre, dc, rest,
+                                                 degree)
+    same = mask == want_mask
+    assert float(same.float().mean()) >= 0.9999
+    assert 0.05 < float((want_rgb == 0).float().mean()) < 0.6
+    assert torch.allclose(rgb, want_rgb, rtol=2e-5, atol=2e-5)
+    want_dc, want_rest = SH.sh_colors_bwd_plain(grad, means, centre, mask,
+                                                degree, n_rest)
+    assert torch.allclose(g_dc, want_dc, rtol=2e-5, atol=2e-5)
+    assert torch.allclose(g_rest, want_rest, rtol=2e-5, atol=2e-5)
+    assert bool((g_rest[:, (degree + 1) ** 2 - 1:] == 0).all())
+    # the backward from the plain forward's mask: the rows that agree
+    g_dc_p, g_rest_p = SH.sh_colors_bwd_plain(grad, means, centre, want_mask,
+                                              degree, n_rest)
+    assert torch.allclose(g_rest[same], g_rest_p[same], rtol=2e-5, atol=2e-5)
+    print(f"SH degree {degree} K-1 {n_rest} n {n}: bit-equal colours "
+          f"{float((rgb == want_rgb).float().mean()):.6f}, gradients "
+          f"{float((g_rest == want_rest).float().mean()):.6f}, masks "
+          f"{float(same.float().mean()):.6f}")
+
+
+@pytest.mark.cuda
+def test_sh_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    means, centre, dc, rest, grad = _sh_inputs(cuda, 200, 15)
+    with pytest.raises(TypeError):
+        SH.sh_colors_fwd(means, centre, dc, rest.double(), 3)
+    with pytest.raises(ValueError):
+        SH.sh_colors_fwd(means, centre.cpu(), dc, rest, 3)
+    with pytest.raises(ValueError):
+        SH.sh_colors_fwd(means, centre, dc,
+                         rest.transpose(0, 1).contiguous().transpose(0, 1),
+                         3)
+    with pytest.raises(ValueError):
+        SH.sh_colors_fwd(means, centre, dc, rest[:, :7].contiguous(), 3)
+    with pytest.raises(ValueError):
+        SH.sh_colors_fwd(means, centre, dc, rest, 4)
+    _, mask = SH.sh_colors_fwd(means, centre, dc, rest, 3)
+    with pytest.raises(TypeError):
+        SH.sh_colors_bwd(grad.double(), means, centre, mask, 3, 15)
+    with pytest.raises(TypeError):
+        SH.sh_colors_bwd(grad, means, centre, mask.to(torch.int32), 3, 15)
+    with pytest.raises(ValueError):
+        SH.sh_colors_bwd(grad.t().contiguous().t(), means, centre, mask, 3,
+                         15)
+    with pytest.raises(ValueError):
+        SH.sh_colors_bwd(grad, means, centre, mask, 3, 8)
+    assert_attributes(SH.sh_colors_fwd_attributes(3, 15))
+    assert_attributes(SH.sh_colors_bwd_attributes(3, 15))
+
+
+@pytest.mark.cuda
+def test_renderer_step_launches_each_sh_kernel_once(cuda):
+    """One TileRenderer forward and backward on the card: one launch of
+    each SH kernel, the SH gradients as the CPU's (the tolerance of
+    test_parameter_gradients_on_card_match_cpu: they reach SH through the
+    rasterizer's)."""
+    arrays = scene(1500, seed=3)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        state = state_from_raw_arrays(arrays, device=dev)
+        leaves = state.params.map(lambda _, x: x.requires_grad_(True))
+        state.params = leaves
+        before = (SH.sh_colors_fwd.launches, SH.sh_colors_bwd.launches)
+        out = TileRendererConfig().instantiate().forward(
+            state, camera(dev), H, W, torch.zeros(3, device=dev), 3)
+        target = torch.rand((H, W, 3), generator=torch.Generator(
+            device="cpu").manual_seed(2)).to(dev)
+        ((out.render - target) ** 2).sum().backward()
+        launched = (SH.sh_colors_fwd.launches - before[0],
+                    SH.sh_colors_bwd.launches - before[1])
+        assert launched == ((1, 1) if dev.type == "cuda" else (0, 0))
+        grads.append({k: getattr(leaves, k).grad.cpu()
+                      for k in ("shs_dc", "shs_rest")})
+    for k, got in grads[0].items():
+        want = grads[1][k]
+        assert bool(torch.isfinite(got).all()), k
+        scale = float(want.abs().max())
+        assert scale > 0.0, k
+        bad = (got - want).abs() > 1e-3 * scale + 1e-2 * want.abs()
+        assert float(bad.float().mean()) <= 1e-3, k

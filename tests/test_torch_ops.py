@@ -51,6 +51,42 @@ def test_sh_to_rgb_matches_jax(degree):
     assert tsh.num_sh_bases(degree) == jsh.num_sh_bases(degree)
 
 
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+def test_sh_colors_and_gradients_match_jax_and_autograd(degree):
+    """`sh_colors` (the SH kernel pair's plain versions on the CPU) against
+    clamp(sh_to_rgb + 0.5, min=0) of gsl_tpu and its JAX gradient, and
+    bit for bit against PyTorch's autograd through the same expression,
+    which the renderer ran before the kernels; a tenth or more of the
+    channels clamp."""
+    import jax
+    rng = np.random.RandomState(10 + degree)
+    n = 200
+    shs = (rng.normal(size=(n, 16, 3)) * 0.8).astype(np.float32)
+    shs[:, 0] *= 2.5
+    means = rng.normal(size=(n, 3)).astype(np.float32)
+    centre = np.array([0.3, -0.2, -3.0], np.float32)
+    g = rng.normal(size=(n, 3)).astype(np.float32)
+    dc = to_torch(shs[:, :1]).requires_grad_(True)
+    rest = to_torch(shs[:, 1:]).requires_grad_(True)
+    rgb = tsh.sh_colors(to_torch(means), to_torch(centre), dc, rest, degree)
+    got = torch.autograd.grad(rgb, [dc, rest], to_torch(g))
+
+    def jax_colors(s):
+        raw = jsh.sh_to_rgb(s, jnp.asarray(means - centre), degree)
+        return jnp.maximum(raw + 0.5, 0.0)
+
+    want_rgb, vjp = jax.vjp(jax_colors, jnp.asarray(shs))
+    close(rgb.detach(), want_rgb)
+    close(torch.cat([got[0], got[1]], 1), vjp(jnp.asarray(g))[0])
+    assert 0.1 < float((rgb == 0).float().mean()) < 0.6
+    plain = torch.clamp(tsh.sh_to_rgb(
+        torch.cat([dc, rest], 1), to_torch(means - centre), degree) + 0.5,
+        min=0.0)
+    assert torch.equal(rgb, plain)
+    for a, b in zip(got, torch.autograd.grad(plain, [dc, rest], to_torch(g))):
+        assert torch.equal(a, b)
+
+
 def test_sh_dc_conversions_match_jax():
     rgb = np.random.RandomState(1).uniform(size=(50, 3)).astype(np.float32)
     close(tsh.rgb_to_sh0(to_torch(rgb)), jsh.rgb_to_sh0(jnp.asarray(rgb)))

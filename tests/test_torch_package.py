@@ -16,6 +16,7 @@ import torch
 from gsl_tpu_torch.ops import cuda_build
 from gsl_tpu_torch.ops import rasterize as R
 from gsl_tpu_torch.ops import rasterize_stp as STP
+from gsl_tpu_torch.ops import sh as SH
 from gsl_tpu_torch.ops import surfel_rasterize as SR
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -32,6 +33,8 @@ KERNELS = {
     "surfel_bwd": (SR, "rasterize_surfels_bwd"),
     "rasterize_fwd_stp": (STP, "rasterize_fwd_stp"),
     "rasterize_bwd_stp": (STP, "rasterize_bwd_stp"),
+    "sh_fwd": (SH, "sh_colors_fwd"),
+    "sh_bwd": (SH, "sh_colors_bwd"),
 }
 
 
@@ -126,6 +129,10 @@ def test_cpu_tensors_launch_no_kernel():
                                 stp_resort=True)
     (img.sum() + alpha.sum()).backward()
     assert float(colors.grad.abs().max()) > 0.0
+    shs_rest = torch.rand((n, 15, 3), requires_grad=True)
+    SH.sh_colors(means, torch.zeros(3), torch.rand((n, 1, 3)), shs_rest,
+                 3).sum().backward()
+    assert float(shs_rest.grad.abs().max()) > 0.0
     assert before == _launch_counts()
 
 

@@ -45,6 +45,7 @@ TRAIN_SPANS = {
     "raster.backward": "train.backward",
     "raster.bwd": "raster.backward",
     "raster.reduce": "raster.backward",
+    "sh.backward": "train.backward",
     "train.density_stats": "train.step",
     "wait.grad_scale": "train.density_stats",
     "train.adam": "train.step",
@@ -67,7 +68,8 @@ VIEWER_SPANS = {
     "viewer.quantise": "viewer.frame",
     "wait.frame_copy": "viewer.frame",
 }
-LAYERS = ("data.", "train.", "render.", "raster.", "viewer.", "wait.")
+LAYERS = ("data.", "train.", "render.", "raster.", "sh.", "viewer.",
+          "wait.")
 
 
 def _spans(prof):
